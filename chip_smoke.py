@@ -5,19 +5,31 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — nvcc builds every CUDA kernel of the main path (sm_90a) from
-             the sources in the checkout, into build/repro_torch/;
-2. kernels — each kernel against its plain-torch version on the card,
-             bitwise (tolerance 0), on edge cases and random int32;
+1. build   — nvcc builds every CUDA kernel (alu_exec, flash_attention,
+             ssd_scan; sm_90a) from the sources in the checkout, all three
+             at once, into build/repro_torch/;
+2. kernels — each kernel against its plain-torch version on the card: the
+             ALU bitwise (tolerance 0); flash attention at the cases of
+             tests/test_kernels.py (f32 2e-5, bf16 1e-2) and at
+             llama3-8b's prefill shape; the SSD scan at its test cases and
+             at mamba2-130m's prefill shape (f32 2e-4, bf16 1e-2);
 3. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
              (tests/test_backend.py) exactly;
 4. full    — one UPMEM rank of 64 DPUs, 16 tasklets, 2 MiB MRAM each
              (benchmarks/pim_figs.py simulation-rate study): (a) at scale
              0.02 the card and the CPU give identical KernelReport and
-             Timeline; (b) VA at --scale (the main path) passes its numpy
-             oracle, with every ALU call counted as a kernel launch;
-5. report  — the kernels line (launches, times, bound), the card's name
+             Timeline; (b) VA at --scale (the simulator's main path) passes
+             its numpy oracle, with every ALU call counted as a launch;
+5. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
+             2 layers in float32 (TF32 off), one 384-token prompt (two
+             SSD chunks, the second ragged): prefill logits and caches
+             agree within 1e-3; (b) the LM serving path
+             at full width and depth in bf16: prefill of 4 prompts (1024
+             tokens for llama3-8b, 2048 for mamba2-130m), 32 greedy
+             decode steps, and a ServeEngine answering 4 requests, with
+             every flash / SSD call counted as a launch;
+6. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
@@ -38,10 +50,12 @@ SRC = ROOT / "src"
 GOLDEN_VA = {"cycles": 5336, "issued": 11488,
              "total": 4.131521235521236e-05, "kernel": 1.5245714285714286e-05}
 
-#: NVIDIA H100 SXM data sheet: HBM3 rate, and the 32-bit non-tensor rate
+#: NVIDIA H100 SXM data sheet: HBM3 rate, the 32-bit non-tensor rate
 #: (67 TFLOP/s float32; the guide's table lists no separate int32 rate)
+#: and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 SCALAR32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 INT_MIN, INT_MAX = -2**31, 2**31 - 1
 ALU_EDGE = [(9, INT_MIN, -1), (9, 5, 0), (5, 1, 33), (7, -8, 1), (8, 2**30, 2),
@@ -63,6 +77,24 @@ def check(ok: bool, msg: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def _counters():
+    from repro_torch.kernels.alu_exec import ops as alu_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"alu_exec": alu_ops, "flash_attention": flash_ops,
+            "ssd_scan": ssd_ops}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for mod in _counters().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in _counters().items()}
 
 
 def cuda_time_ms(fn, n: int = 1000, warm: int = 50) -> float:
@@ -111,13 +143,23 @@ def graph_time_ms(fn, n: int = 200, reps: int = 5) -> float:
 
 
 def phase_build() -> float:
+    """Build the three kernel libraries concurrently (one nvcc each)."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
-    from repro_torch.kernels.alu_exec.alu_exec import library
+    from repro_torch.kernels.alu_exec import alu_exec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    libs = {"alu_exec": alu_exec.library,
+            "flash_attention": flash_attention.library,
+            "ssd_scan": ssd_scan.library}
     t0 = time.perf_counter()
-    library()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = [pool.submit(fn) for fn in libs.values()]
+        for f in futures:
+            f.result()              # raises the build's error, if any
     secs = time.perf_counter() - t0
-    log(f"[build] alu_exec: nvcc {build.BUILD_SECONDS['alu_exec']:.2f} s, "
-        f"build+load {secs:.2f} s -> {build.build_dir()}")
+    log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
+        f"-> {build.build_dir()}")
     return secs
 
 
@@ -243,17 +285,16 @@ def phase_main_path(scale: float) -> dict:
     the kernel launch counts taken from this run alone."""
     import torch
     from repro_torch.core import compile_cache
-    from repro_torch.kernels.alu_exec import ops
     cfg = _full_cfg()
     system = _system(cfg, "cuda")
     steps0 = compile_cache.stats()["steps"]
-    ops.launches = 0                       # counts of the main path only
+    reset_launches()                       # counts of this path only
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, rep = _va(system, 16, scale)        # raises on an oracle mismatch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launches
+    launches = read_launches()["alu_exec"]
     steps = compile_cache.stats()["steps"] - steps0
     check(launches > 0, "alu_exec was never launched on the main path")
     check(launches == steps * cfg.superscalar,
@@ -294,6 +335,344 @@ def phase_kernel_times(n: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py's flash cases (S, H, KV, Dk, Dv, causal, window)
+FLASH_CASES = [(128, 4, 4, 32, 32, True, 0), (128, 8, 2, 16, 16, True, 0),
+               (256, 4, 1, 32, 64, True, 0), (128, 4, 4, 32, 32, False, 0),
+               (256, 4, 2, 32, 32, True, 64)]
+#: llama3-8b prefill in the LM main path: 4 prompts of 1024 tokens
+FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, dk=128, dv=128, causal=True,
+                  window=0)
+#: tests/test_kernels.py's SSD cases as (B, S, H, G, P, N, chunk) — its
+#: (BH, S, .) rows are BH heads, each its own group — and a ragged one
+SSD_CASES = [(1, 64, 3, 3, 8, 8, 16), (1, 128, 3, 3, 16, 8, 32),
+             (1, 128, 3, 3, 32, 16, 64), (1, 96, 3, 3, 8, 8, 96),
+             (2, 50, 4, 2, 8, 8, 16)]
+#: mamba2-130m prefill in the LM main path: 4 prompts of 2048 tokens
+SSD_MAIN = dict(b=4, s=2048, h=24, g=1, p=64, n=128, chunk=256)
+#: rtol = atol.  In bf16 the outputs are rounded to 8 significant bits,
+#: so 1e-2 allows about 1-2 ulps, above the one ulp measured on an H100
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+#: card (kernels) vs CPU (plain versions), float32, TF32 off
+LM_PARITY_TOL = 1e-3
+#: the parity prompt: 1.5 SSD chunks of mamba2-130m (ssm_chunk 256), so
+#: the state carried across chunks and the dt = 0 padded tail both run
+LM_PARITY_TOKENS = 384
+
+
+def _normal(gen, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _flash_inputs(gen, b, s, h, kv, dk, dv, dtype, **_):
+    return (_normal(gen, (b, s, h, dk), dtype),
+            _normal(gen, (b, s, kv, dk), dtype),
+            _normal(gen, (b, s, kv, dv), dtype))
+
+
+def _ssd_inputs(gen, b, s, h, g, p, n, dtype, **_):
+    import torch
+    x = _normal(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_normal(gen, (b, s, h), torch.float32))
+    A = -torch.exp(_normal(gen, (h,), torch.float32))
+    return (x, dt, A, _normal(gen, (b, s, g, n), dtype),
+            _normal(gen, (b, s, g, n), dtype))
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _tol_ratio(got, want, tol) -> float:
+    """max |got - want| / (tol + tol |want|): at most 1 is within
+    ``torch.allclose(got, want, rtol=tol, atol=tol)``."""
+    want = want.float()
+    return float(((got.float() - want).abs() / (tol + tol * want.abs()))
+                 .max())
+
+
+def phase_lm_kernels() -> dict:
+    """Flash and SSD kernels vs their plain versions on the card; returns
+    the max |err| of each at its main-path shape in bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {}
+    flash = [(dict(zip(("s", "h", "kv", "dk", "dv", "causal", "window"), c),
+                   b=2), dt) for c in FLASH_CASES
+             for dt in ("float32", "bfloat16")]
+    flash += [(FLASH_MAIN, "float32"), (FLASH_MAIN, "bfloat16")]
+    for shape, dt in flash:
+        q, k, v = _flash_inputs(gen, dtype=getattr(torch, dt), **shape)
+        got = fops.flash_attention(q, k, v, causal=shape["causal"],
+                                   window=shape["window"])
+        want = flash_attention_ref(q, k, v, causal=shape["causal"],
+                                   window=shape["window"])
+        torch.cuda.synchronize()
+        err, tol = _max_err(got, want), FLASH_TOL[dt]
+        ratio = _tol_ratio(got, want, tol)
+        log(f"[kernels] flash_attention {shape} {dt}: max |err| {err:.3g} "
+            f"(tolerance {tol}, rtol = atol; {ratio:.3g} of it used)")
+        check(ratio <= 1, f"flash_attention kernel != plain at {shape} {dt}: "
+              f"max |err| {err}")
+        if shape is FLASH_MAIN and dt == "bfloat16":
+            worst["flash_attention"] = err
+    ssd = [(dict(zip(("b", "s", "h", "g", "p", "n", "chunk"), c)), "float32")
+           for c in SSD_CASES]
+    ssd += [(SSD_MAIN, "float32"), (SSD_MAIN, "bfloat16")]
+    for shape, dt in ssd:
+        args = _ssd_inputs(gen, dtype=getattr(torch, dt), **shape)
+        y, state = sops.ssd_scan(*args, chunk=shape["chunk"])
+        yw, sw = ssd_scan_ref(*args, chunk=shape["chunk"])
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dt]
+        err = max(_max_err(y, yw), _max_err(state, sw))
+        ratio = max(_tol_ratio(y, yw, tol), _tol_ratio(state, sw, tol))
+        log(f"[kernels] ssd_scan {shape} {dt}: max |err| {err:.3g} "
+            f"(tolerance {tol}, rtol = atol; {ratio:.3g} of it used)")
+        check(ratio <= 1, f"ssd_scan kernel != plain at {shape} {dt}: max |err| "
+              f"{err}")
+        if shape is SSD_MAIN and dt == "bfloat16":
+            worst["ssd_scan"] = err
+    return worst
+
+
+def _lm_model(arch: str, n_layers=None, dtype=None, seed=0):
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, Transformer(cfg, device="cuda", generator=gen)
+
+
+def phase_lm_parity():
+    """Each family at full width, 2 layers, float32: prefill of one
+    prompt of LM_PARITY_TOKENS on the card (kernels) and on the CPU
+    (plain versions) agree within LM_PARITY_TOL."""
+    import torch
+    from repro_torch.models.transformer import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("llama3-8b", "mamba2-130m"):
+        cfg, gpu = _lm_model(arch, n_layers=2, dtype="float32", seed=1)
+        toks = torch.randint(0, cfg.vocab_size, (1, LM_PARITY_TOKENS),
+                             generator=torch.Generator().manual_seed(2))
+        reset_launches()
+        t0 = time.perf_counter()
+        lg, cg = gpu.prefill({"tokens": toks.cuda()})
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        launches = read_launches()
+        cpu = Transformer(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        del gpu
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lc, cc = cpu.prefill({"tokens": toks})
+        t_cpu = time.perf_counter() - t0
+        errs = {"logits": _max_err(lg.cpu(), lc)}
+        errs.update({k: _max_err(cg[k].cpu(), cc[k]) for k in cc
+                     if k != "pos"})
+        kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
+        log(f"[lm] {arch} full width, 2 layers, float32, "
+            f"{LM_PARITY_TOKENS} tokens: card "
+            f"vs CPU max |err| {errs} (tolerance {LM_PARITY_TOL}); "
+            f"{kernel} launches {launches[kernel]}; card {t_gpu:.2f} s, "
+            f"CPU {t_cpu:.2f} s")
+        check(launches[kernel] == cfg.n_layers,
+              f"{arch}: {kernel} launches {launches[kernel]} != 2 layers")
+        bad = {k: e for k, e in errs.items() if not e <= LM_PARITY_TOL}
+        check(not bad, f"{arch} card vs CPU prefill differs: {bad}")
+        del cpu
+
+
+def _serve(cfg, model) -> dict:
+    """A ServeEngine answering 4 requests (32-token prompts, 16 new
+    tokens each) on a 4-slot pool."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, model, batch=4, capacity=64)
+    rng = np.random.default_rng(5)
+    for _ in range(4):
+        eng.submit(rng.integers(0, cfg.vocab_size, 32), max_new=16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(sorted(len(o) for o in out.values()) == [16] * 4,
+          f"ServeEngine outputs {out}")
+    return {"serve_wall_s": wall, "serve_requests": len(out),
+            "serve_tokens": sum(len(o) for o in out.values()),
+            "serve_ticks": eng.ticks}
+
+
+def lm_path(arch: str, prompt_len: int, batch: int = 4,
+            decode_steps: int = 32) -> dict:
+    """The LM serving path at full width and depth in bf16: prefill,
+    greedy decode steps past it, then a ServeEngine."""
+    import torch
+    import torch.nn.functional as F
+    cfg, model = _lm_model(arch, seed=3)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(4), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"{arch}: prefill logits not finite")
+    if cfg.family == "dense":  # room for the decoded tokens
+        cache = {k: F.pad(v, (0, 0, 0, 0, 0, decode_steps))
+                 if torch.is_tensor(v) else v for k, v in cache.items()}
+    nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(decode_steps):
+        logits, cache = model.decode_step(cache, nxt)
+        nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()),
+          f"{arch}: decode logits not finite")
+    check(cache["pos"] == prompt_len + decode_steps,
+          f"{arch}: pos {cache['pos']}")
+    res = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": batch, "prompt": prompt_len, "prefill_s": t_prefill,
+           "prefill_tokens_per_s": batch * prompt_len / t_prefill,
+           "decode_steps": decode_steps,
+           "decode_ms_per_step": t_decode / decode_steps * 1e3}
+    del cache
+    res.update(_serve(cfg, model))
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def phase_lm_main() -> dict:
+    """The LM serving path of both families, with the kernel launch counts
+    taken from this run alone: flash once per llama3-8b layer per prefill,
+    the SSD scan once per mamba2-130m layer per prefill."""
+    import torch
+    runs = []
+    reset_launches()                       # counts of this path only
+    for arch, prompt in (("llama3-8b", 1024), ("mamba2-130m", 2048)):
+        torch.cuda.reset_peak_memory_stats()
+        runs.append(lm_path(arch, prompt))
+        log(f"[lm] main path: {json.dumps(runs[-1])}")
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    check(launches["flash_attention"] == 32 * 1,
+          f"flash_attention launches {launches['flash_attention']} != 32 "
+          "layers x 1 prefill")
+    check(launches["ssd_scan"] == 24 * 1,
+          f"ssd_scan launches {launches['ssd_scan']} != 24 layers x 1 "
+          "prefill")
+    return {"runs": runs, "launches": launches}
+
+
+def _flash_work(b, s, h, kv, dk, dv, causal, window, esize):
+    """(FLOPs, bytes) of one attention call: two products per visible
+    (query, key) pair; q, k, v read once and o written once."""
+    import numpy as np
+    seen = np.arange(1, s + 1) if causal else np.full(s, s)
+    if window > 0:
+        seen = np.minimum(seen, window)
+    flops = 2.0 * b * h * int(seen.sum()) * (dk + dv)
+    nbytes = esize * b * s * (h * dk + kv * (dk + dv) + h * dv)
+    return flops, nbytes
+
+
+def _ssd_work(b, s, h, g, p, n, chunk, esize):
+    """(FLOPs, bytes) of one SSD scan: per chunk of r rows, C.B over the
+    r(r+1)/2 causal pairs once per group, the weighted x for every head,
+    and the inter-chunk and state products (2 r N P each); x, B, C, dt, A
+    read once, y and the final state written once."""
+    q = min(chunk, s)
+    flops = 0.0
+    for c0 in range(0, s, q):
+        r = min(q, s - c0)
+        pairs = r * (r + 1) // 2
+        flops += b * (g * pairs * 2 * n + h * (pairs * 2 * p + 4 * r * n * p))
+    nbytes = (esize * b * s * (2 * h * p + 2 * g * n) + 4 * b * s * h
+              + 4 * h + 4 * b * h * n * p)
+    return flops, nbytes
+
+
+def _bound(flops, nbytes, flops_per_s):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_lm_kernel_times() -> dict:
+    """Device ms per call at the main path's shapes (bf16) of each kernel
+    (raw launcher, uncounted), its plain version and, for flash, the
+    PyTorch library call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    res = {}
+    fm = FLASH_MAIN
+    q, k, v = _flash_inputs(gen, dtype=bf16, **fm)
+    out = torch.empty((fm["b"], fm["s"], fm["h"], fm["dv"]), dtype=bf16,
+                      device="cuda")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    flops, nbytes = _flash_work(esize=2, **fm)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    res["flash_attention"] = {
+        "ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, out, True, 0),
+                           n=20, warm=3),
+        "plain_ms": cuda_time_ms(lambda: flash_attention_ref(q, k, v),
+                                 n=3, warm=1),
+        "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=20, warm=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "bytes": nbytes}
+    sm = SSD_MAIN
+    args = _ssd_inputs(gen, dtype=bf16, **sm)
+    y = torch.empty_like(args[0])
+    state = torch.empty((sm["b"], sm["h"], sm["n"], sm["p"]),
+                        dtype=torch.float32, device="cuda")
+    flops, nbytes = _ssd_work(esize=2, **sm)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    res["ssd_scan"] = {
+        "ms": cuda_time_ms(lambda: ssd_scan_cuda(*args, y, state,
+                                                 sm["chunk"]), n=20, warm=3),
+        "plain_ms": cuda_time_ms(lambda: ssd_scan_ref(*args,
+                                                      chunk=sm["chunk"]),
+                                 n=3, warm=1),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "bytes": nbytes}
+    for name, r in res.items():
+        log(f"[kernels] {name} at the main path's shape, bf16: "
+            + json.dumps(r))
+    return res
+
+
 def gpu_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -326,11 +705,15 @@ def main(argv=None) -> int:
     try:
         phase_build()
         err = phase_kernels()
+        lm_err = phase_lm_kernels()
         phase_golden()
         full = phase_full_parity()
         main_run = phase_main_path(args.scale)
         from repro_torch.core.compile_cache import dpu_bucket
         times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
+        phase_lm_parity()
+        lm_run = phase_lm_main()
+        lm_times = phase_lm_kernel_times()
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -343,6 +726,24 @@ def main(argv=None) -> int:
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,
     }]
+    replaces = {
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:67",
+        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:57"}
+    for name, src in replaces.items():
+        r = lm_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": src, "launches": lm_run["launches"][name],
+            "max_abs_err": lm_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    lm = {r["arch"]: r for r in lm_run["runs"]}
+    log("[report] LM serving (bf16, 4 prompts): " + "; ".join(
+        f"{a} prefill {r['prefill_tokens_per_s']:.1f} tokens/s, decode "
+        f"{r['decode_ms_per_step']:.3f} ms/step, ServeEngine "
+        f"{r['serve_wall_s']:.3f} s" for a, r in lm.items()))
     log(f"[report] full-width cold launch {full['cold_s']:.3f} s, warm "
         f"{full['warm_s']:.3f} s; main path {main_run['kips']:.3f} KIPS, "
         f"{main_run['cycles_per_s']:.1f} simulated cycles/s; "

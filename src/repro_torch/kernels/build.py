@@ -19,7 +19,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -28,9 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+#: one lock per library, so that different libraries build in parallel
+_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: library name -> seconds its nvcc build took (0.0 when reused)
-BUILD_SECONDS: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -61,8 +60,11 @@ def load_library(name: str, sources: Sequence[Path],
     """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``.
 
     ``headers`` only enter the hash.  Raises ``RuntimeError`` when the
-    build or the load fails."""
+    build or the load fails.  Thread-safe; calls for different names
+    build concurrently."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -71,15 +73,12 @@ def load_library(name: str, sources: Sequence[Path],
             h.update(Path(p).read_bytes())
         out_dir = build_dir()
         out = out_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
-        secs = 0.0
         if not out.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                    *[str(s) for s in sources]]
-            t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            secs = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {name} (rc {proc.returncode}):\n"
@@ -89,6 +88,5 @@ def load_library(name: str, sources: Sequence[Path],
             lib = ctypes.CDLL(str(out))
         except OSError as e:
             raise RuntimeError(f"cannot load {out}: {e}") from e
-        BUILD_SECONDS[name] = secs
         _LIBS[name] = lib
         return lib

@@ -1,0 +1,68 @@
+"""CUDA binding of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+The counterpart of the Pallas module
+``repro.kernels.flash_attention.flash_attention``: that one runs a
+(B, H, S / bq) grid in order on one TPU core, holding the whole K/V of a
+head in VMEM; this one launches one CTA per (64-row query tile, head,
+batch) on the H100, streaming 64-row K/V tiles through shared memory.
+Built with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_library
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "flash_attention.cu",)
+
+#: kernel dtype codes of the C interface
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_FNS = {}
+
+
+def library() -> ctypes.CDLL:
+    """Build (once) and load the kernel's shared library."""
+    lib = load_library("flash_attention", SOURCES)
+    if not _FNS:
+        fn = lib.flash_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        smem = lib.flash_attention_smem_bytes
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_int64
+        limit = lib.flash_attention_smem_limit
+        limit.argtypes = []
+        limit.restype = ctypes.c_int64
+        _FNS.update(launch=fn, smem=smem, limit=limit)
+    return lib
+
+
+def smem_fits(dk: int, dv: int) -> bool:
+    """Whether the kernel's shared memory for (Dk, Dv) fits one block."""
+    library()
+    return _FNS["smem"](dk, dv) <= _FNS["limit"]()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, causal: bool, window: int) -> None:
+    """Launch the kernel on the current stream: ``out = attention(q, k, v)``.
+
+    Contiguous (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv) tensors of
+    one dtype (float32 or bfloat16) on one CUDA device (checked by the
+    caller).  Raises on a launch error."""
+    library()
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    err = _FNS["launch"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        KV, Dk, Dv, int(causal), int(window), Dk ** -0.5, DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: cudaError {err}")

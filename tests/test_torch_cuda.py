@@ -103,3 +103,105 @@ def test_card_driver_matches_cpu(card):
         assert want[k].tobytes() == got[k].tobytes(), k
     steps = compile_cache.stats()["steps"] - steps0
     assert ops.launches - launches0 == cfg.superscalar * steps > 0
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py's flash cases (S, H, KV, Dk, Dv, causal, window)
+FLASH_CASES = [(128, 4, 4, 32, 32, True, 0), (128, 8, 2, 16, 16, True, 0),
+               (256, 4, 1, 32, 64, True, 0), (128, 4, 4, 32, 32, False, 0),
+               (256, 4, 2, 32, 32, True, 64), (100, 4, 2, 32, 32, True, 0)]
+
+
+def _normal(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(card, s, h, kv, dk, dv, causal,
+                                            window, dtype, tol):
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(s + h + dk)
+    q, k, v = (_normal(rng, (2, s, n, d), dtype, card)
+               for n, d in ((h, dk), (kv, dk), (kv, dv)))
+    before = fops.launches
+    got = fops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fops.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                         window=window)
+    assert fops.launches == before + 1  # the CPU path launches nothing
+
+
+def _ssd_inputs(rng, b, s, h, g, p, n, dtype, device):
+    x = _normal(rng, (b, s, h, p), dtype, device)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, s, h), torch.float32,
+                                              device))
+    A = -torch.exp(_normal(rng, (h,), torch.float32, device))
+    Bm = _normal(rng, (b, s, g, n), dtype, device)
+    Cm = _normal(rng, (b, s, g, n), dtype, device)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (1, 64, 3, 3, 8, 8, 16), (1, 128, 3, 3, 16, 8, 32),
+    (1, 128, 3, 3, 32, 16, 64), (1, 96, 3, 3, 8, 8, 96),   # test_kernels.py
+    (2, 64, 4, 2, 8, 8, 16), (2, 50, 4, 2, 8, 8, 16),       # groups, ragged
+    (1, 512, 2, 1, 64, 128, 256),                           # mamba2 widths
+])
+def test_ssd_kernel_matches_plain_version(card, b, s, h, g, p, n, chunk):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    rng = np.random.default_rng(s + h + n)
+    args = _ssd_inputs(rng, b, s, h, g, p, n, torch.float32, card)
+    before = sops.launches
+    y, state = sops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sops.launches == before + 1
+    yw, sw = ssd_scan_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y, yw, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, sw, rtol=2e-4, atol=2e-4)
+    sops.ssd_scan(*(t.cpu() for t in args), chunk=chunk)
+    assert sops.launches == before + 1  # the CPU path launches nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])
+def test_lm_prefill_on_card_matches_cpu(card, arch):
+    """A smoke-size model in float32: prefill logits and cache on the card
+    (kernels) equal the CPU's (plain versions), one launch per layer."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models.transformer import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    gpu = Transformer(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    counter = fops if cfg.family == "dense" else sops
+    before = counter.launches
+    lg, cg = gpu.prefill({"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    assert counter.launches == before + cfg.n_layers
+    lc, cc = cpu.prefill({"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    for key in cc:
+        if key != "pos":
+            torch.testing.assert_close(cg[key].cpu(), cc[key], rtol=1e-3,
+                                       atol=1e-3)

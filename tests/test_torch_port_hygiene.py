@@ -26,12 +26,19 @@ COPIES = [
     "faults/retry.py", "obs/__init__.py", "obs/tracer.py", "obs/profile.py",
     "sched/__init__.py", "sched/queue.py", "sched/scheduler.py",
     "sched/pipeline.py", "workloads/streaming.py",
+    "configs/base.py", "configs/deepseek_v3_671b.py", "configs/granite_3_8b.py",
+    "configs/llama3_8b.py", "configs/llava_next_mistral_7b.py",
+    "configs/mamba2_130m.py", "configs/nemotron_4_15b.py",
+    "configs/qwen3_moe_30b_a3b.py", "configs/recurrentgemma_9b.py",
+    "configs/seamless_m4t_large_v2.py", "configs/yi_34b.py",
+    "admission/control.py",
 ]
 
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools/torch_step_profile.py"]
+                                         ROOT / "tools/torch_step_profile.py",
+                                         ROOT / "tools/torch_lm_profile.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -94,7 +101,10 @@ def test_default_device_raises_without_a_card():
     from repro_torch.core import compile_cache, engine
     from repro_torch.core.config import DPUConfig
     from repro_torch.core.host import PIMSystem
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer
     cfg = DPUConfig(n_dpus=1, n_tasklets=1, mram_bytes=1 << 14)
+    lm = get_smoke_config("llama3-8b")
     binary = wl.get("VA").build(1).binary(cfg.iram_instrs)
     wram = np.zeros((1, 4), np.int32)
     mram = np.zeros((1, cfg.mram_words), np.int32)
@@ -103,7 +113,10 @@ def test_default_device_raises_without_a_card():
     for entry in (lambda: engine.make_step_traced(cfg),
                   lambda: engine.run(cfg, binary, wram, mram),
                   lambda: compile_cache.prepare(cfg, binary, wram, mram),
-                  lambda: compile_cache.prewarm(cfg, binary)):
+                  lambda: compile_cache.prewarm(cfg, binary),
+                  # the LM serving path (ServeEngine runs where its model is)
+                  lambda: transformer.Transformer(lm),
+                  lambda: transformer.init_cache(lm, 1, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
 
@@ -119,3 +132,26 @@ def test_unported_backends_name_their_roadmap_item():
             backend.get(name)
     with pytest.raises(KeyError):
         backend.get("nope")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_unported_families_name_their_roadmap_item(arch):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.Transformer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cross_attn_project_kv", "cross_attn_decode",
+                                  "mla_init", "mla_apply_train",
+                                  "mla_apply_decode"])
+def test_unported_attention_names_its_roadmap_item(name):
+    from repro_torch.models import attention
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(attention, name)()
