@@ -5,14 +5,18 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — nvcc builds every CUDA kernel (alu_exec, flash_attention,
-             ssd_scan; sm_90a) from the sources in the checkout, all three
-             at once, into build/repro_torch/;
+1. build   — nvcc builds every CUDA kernel (alu_exec, flash_attention's
+             scalar and tensor-core kernels, ssd_scan; sm_90a) from the
+             sources in the checkout, all four at once, into
+             build/repro_torch/; the tensor-core flash kernel's SASS
+             (cuobjdump) must hold HGMMA (wgmma) in every instance;
 2. kernels — each kernel against its plain-torch version on the card: the
              ALU bitwise (tolerance 0); flash attention at the cases of
-             tests/test_kernels.py (f32 2e-5, bf16 1e-2) and at
-             llama3-8b's prefill shape; the SSD scan at its test cases and
-             at mamba2-130m's prefill shape (f32 2e-4, bf16 1e-2);
+             tests/test_kernels.py (f32 2e-5 on the scalar kernel, bf16
+             1e-2 on the tensor-core one), at shapes that stress the
+             tensor-core kernel's tiling and at llama3-8b's prefill shape;
+             the SSD scan at its test cases and at mamba2-130m's prefill
+             shape (f32 2e-4, bf16 1e-2);
 3. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
              (tests/test_backend.py) exactly;
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero and prints no result line):
              at full width and depth in bf16: prefill of 4 prompts (1024
              tokens for llama3-8b, 2048 for mamba2-130m), 32 greedy
              decode steps, and a ServeEngine answering 4 requests, with
-             every flash / SSD call counted as a launch;
+             every flash / SSD call counted as a launch (all 32 llama3-8b
+             prefill launches on the tensor-core flash kernel);
 6. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
@@ -80,21 +85,26 @@ def log(msg: str):
 
 
 def _counters():
+    """name -> (module, attribute) of each launch count: flash_attention
+    counts both flash kernels, flash_attention_sm90 the tensor-core one."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    return {"alu_exec": alu_ops, "flash_attention": flash_ops,
-            "ssd_scan": ssd_ops}
+    return {"alu_exec": (alu_ops, "launches"),
+            "flash_attention": (flash_ops, "launches"),
+            "flash_attention_sm90": (flash_ops, "launches_sm90"),
+            "ssd_scan": (ssd_ops, "launches")}
 
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    for mod in _counters().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in _counters().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def cuda_time_ms(fn, n: int = 1000, warm: int = 50) -> float:
@@ -143,7 +153,9 @@ def graph_time_ms(fn, n: int = 200, reps: int = 5) -> float:
 
 
 def phase_build() -> float:
-    """Build the three kernel libraries concurrently (one nvcc each)."""
+    """Build the four kernel libraries concurrently (one nvcc each), then
+    check that every instance of the tensor-core flash kernel runs its
+    products on wgmma (HGMMA in its SASS)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels.alu_exec import alu_exec
@@ -151,15 +163,30 @@ def phase_build() -> float:
     from repro_torch.kernels.ssd_scan import ssd_scan
     libs = {"alu_exec": alu_exec.library,
             "flash_attention": flash_attention.library,
+            "flash_attention_sm90": flash_attention.library_sm90,
             "ssd_scan": ssd_scan.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
-        futures = [pool.submit(fn) for fn in libs.values()]
-        for f in futures:
-            f.result()              # raises the build's error, if any
+        futures = {name: pool.submit(fn) for name, fn in libs.items()}
+        built = {name: f.result()   # raises the build's error, if any
+                 for name, f in futures.items()}
     secs = time.perf_counter() - t0
     log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
         f"-> {build.build_dir()}")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           built["flash_attention_sm90"]._name],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    kernels = [f for f in sass.stdout.split("Function : ")[1:]
+               if "flash_sm90_kernel" in f.split("\n", 1)[0]]
+    hgmma = [f.count("HGMMA") for f in kernels]
+    check(kernels and min(hgmma) > 0,
+          f"flash_attention_sm90: {len(kernels)} kernel instances, HGMMA "
+          f"counts {hgmma}: the products are not on wgmma")
+    log(f"[build] flash_attention_sm90 SASS: {len(kernels)} kernel "
+        f"instances, each with HGMMA ({min(hgmma)}-{max(hgmma)} a "
+        "instance)")
     return secs
 
 
@@ -343,6 +370,15 @@ def phase_kernel_times(n: int) -> dict:
 FLASH_CASES = [(128, 4, 4, 32, 32, True, 0), (128, 8, 2, 16, 16, True, 0),
                (256, 4, 1, 32, 64, True, 0), (128, 4, 4, 32, 32, False, 0),
                (256, 4, 2, 32, 32, True, 64)]
+#: shapes that stress the tensor-core flash kernel's tiling (bf16, B 2):
+#: S ragged to its 128-row tiles, Dk 192 / Dv 128, Dk = Dv = 256, a window
+#: across tiles, bidirectional, GQA with H / KV = 8
+FLASH_SM90_CASES = [(1000, 4, 2, 128, 128, True, 0),
+                    (256, 4, 2, 192, 128, True, 0),
+                    (256, 4, 2, 256, 256, True, 0),
+                    (1024, 4, 2, 128, 128, True, 300),
+                    (512, 4, 2, 128, 128, False, 0),
+                    (512, 16, 2, 128, 128, True, 0)]
 #: llama3-8b prefill in the LM main path: 4 prompts of 1024 tokens
 FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, dk=128, dv=128, causal=True,
                   window=0)
@@ -406,12 +442,15 @@ def phase_lm_kernels() -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
-    flash = [(dict(zip(("s", "h", "kv", "dk", "dv", "causal", "window"), c),
-                   b=2), dt) for c in FLASH_CASES
+    keys = ("s", "h", "kv", "dk", "dv", "causal", "window")
+    flash = [(dict(zip(keys, c), b=2), dt) for c in FLASH_CASES
              for dt in ("float32", "bfloat16")]
+    flash += [(dict(zip(keys, c), b=2), "bfloat16") for c in FLASH_SM90_CASES]
     flash += [(FLASH_MAIN, "float32"), (FLASH_MAIN, "bfloat16")]
     for shape, dt in flash:
         q, k, v = _flash_inputs(gen, dtype=getattr(torch, dt), **shape)
+        kernel = fops.route(q.dtype, shape["dk"], shape["dv"])
+        sm90_before = fops.launches_sm90
         got = fops.flash_attention(q, k, v, causal=shape["causal"],
                                    window=shape["window"])
         want = flash_attention_ref(q, k, v, causal=shape["causal"],
@@ -419,8 +458,12 @@ def phase_lm_kernels() -> dict:
         torch.cuda.synchronize()
         err, tol = _max_err(got, want), FLASH_TOL[dt]
         ratio = _tol_ratio(got, want, tol)
-        log(f"[kernels] flash_attention {shape} {dt}: max |err| {err:.3g} "
-            f"(tolerance {tol}, rtol = atol; {ratio:.3g} of it used)")
+        log(f"[kernels] flash_attention ({kernel}) {shape} {dt}: max |err| "
+            f"{err:.3g} (tolerance {tol}, rtol = atol; {ratio:.3g} of it "
+            "used)")
+        check(kernel == ("sm90" if dt == "bfloat16" else "scalar")
+              and fops.launches_sm90 - sm90_before == (kernel == "sm90"),
+              f"flash_attention at {shape} {dt} ran the {kernel} kernel")
         check(ratio <= 1, f"flash_attention kernel != plain at {shape} {dt}: "
               f"max |err| {err}")
         if shape is FLASH_MAIN and dt == "bfloat16":
@@ -494,6 +537,8 @@ def phase_lm_parity():
             f"CPU {t_cpu:.2f} s")
         check(launches[kernel] == cfg.n_layers,
               f"{arch}: {kernel} launches {launches[kernel]} != 2 layers")
+        check(launches["flash_attention_sm90"] == 0,
+              f"{arch}: float32 reached the bf16 tensor-core flash kernel")
         bad = {k: e for k, e in errs.items() if not e <= LM_PARITY_TOL}
         check(not bad, f"{arch} card vs CPU prefill differs: {bad}")
         del cpu
@@ -581,6 +626,9 @@ def phase_lm_main() -> dict:
     check(launches["flash_attention"] == 32 * 1,
           f"flash_attention launches {launches['flash_attention']} != 32 "
           "layers x 1 prefill")
+    check(launches["flash_attention_sm90"] == launches["flash_attention"],
+          f"of {launches['flash_attention']} flash_attention launches, "
+          f"{launches['flash_attention_sm90']} on the tensor-core kernel")
     check(launches["ssd_scan"] == 24 * 1,
           f"ssd_scan launches {launches['ssd_scan']} != 24 layers x 1 "
           "prefill")
@@ -624,11 +672,13 @@ def _bound(flops, nbytes, flops_per_s):
 def phase_lm_kernel_times() -> dict:
     """Device ms per call at the main path's shapes (bf16) of each kernel
     (raw launcher, uncounted), its plain version and, for flash, the
-    PyTorch library call that computes the same function."""
+    PyTorch library call that computes the same function and the scalar
+    kernel in bf16 (the kernel the tensor-core one replaced there), each
+    between CUDA events in this one call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda)
+        flash_attention_cuda, flash_attention_sm90_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
@@ -642,15 +692,21 @@ def phase_lm_kernel_times() -> dict:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     flops, nbytes = _flash_work(esize=2, **fm)
     bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
-    res["flash_attention"] = {
-        "ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, out, True, 0),
-                           n=20, warm=3),
+    r = res["flash_attention"] = {
+        "ms": cuda_time_ms(lambda: flash_attention_sm90_cuda(
+            q, k, v, out, True, 0), n=100, warm=10),
+        "scalar_ms": cuda_time_ms(lambda: flash_attention_cuda(
+            q, k, v, out, True, 0), n=10, warm=2),
         "plain_ms": cuda_time_ms(lambda: flash_attention_ref(q, k, v),
                                  n=3, warm=1),
         "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), n=20, warm=3),
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=100, warm=10),
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
         "bytes": nbytes}
+    r["tflops"] = flops / r["ms"] / 1e9
+    r["bound_share"] = bound_ms / r["ms"]
+    r["library_ratio"] = r["ms"] / r["library_ms"]
+    r["scalar_speedup"] = r["scalar_ms"] / r["ms"]
     sm = SSD_MAIN
     args = _ssd_inputs(gen, dtype=bf16, **sm)
     y = torch.empty_like(args[0])
@@ -670,6 +726,13 @@ def phase_lm_kernel_times() -> dict:
     for name, r in res.items():
         log(f"[kernels] {name} at the main path's shape, bf16: "
             + json.dumps(r))
+    r = res["flash_attention"]
+    log(f"[kernels] flash_attention at {FLASH_MAIN}, bf16: tensor-core "
+        f"kernel {r['ms']:.5f} ms ({r['tflops']:.1f} TFLOP/s, "
+        f"{r['bound_share']:.3f} of the {r['bound_ms']:.5f} ms bound); "
+        f"scalar kernel {r['scalar_ms']:.4f} ms ({r['scalar_speedup']:.1f}x "
+        f"slower); SDPA {r['library_ms']:.5f} ms (kernel / SDPA "
+        f"{r['library_ratio']:.3f})")
     return res
 
 
@@ -728,13 +791,15 @@ def main(argv=None) -> int:
     }]
     replaces = {
         "flash_attention":
-            "src/repro/kernels/flash_attention/flash_attention.py:67",
-        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:57"}
-    for name, src in replaces.items():
+            ("src/repro/kernels/flash_attention/flash_attention.py:67",
+             "flash_attention/csrc/flash_attention_sm90.cu"),
+        "ssd_scan": ("src/repro/kernels/ssd_scan/ssd_scan.py:57",
+                     "ssd_scan/csrc/ssd_scan.cu")}
+    for name, (src, csrc) in replaces.items():
         r = lm_times[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/{csrc}",
             "replaces": src, "launches": lm_run["launches"][name],
             "max_abs_err": lm_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

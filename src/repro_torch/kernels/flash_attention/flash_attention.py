@@ -1,11 +1,17 @@
-"""CUDA binding of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""CUDA bindings of the flash-attention kernels.
 
-The counterpart of the Pallas module
+The counterparts of the Pallas module
 ``repro.kernels.flash_attention.flash_attention``: that one runs a
 (B, H, S / bq) grid in order on one TPU core, holding the whole K/V of a
-head in VMEM; this one launches one CTA per (64-row query tile, head,
-batch) on the H100, streaming 64-row K/V tiles through shared memory.
-Built with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.
+head in VMEM.  On the H100 two kernels compute its function, each its own
+library, built with ``nvcc`` for ``sm_90a`` at first use and bound through
+ctypes:
+
+* ``csrc/flash_attention_sm90.cu`` (bf16; Dk and Dv multiples of 16 up to
+  256): one CTA per (128-row query tile, head, batch), K/V tiles streamed
+  by TMA, both products on the tensor cores (wgmma);
+* ``csrc/flash_attention.cu`` (float32 or bf16, any width that fits): one
+  CTA per (64-row query tile, head, batch), scalar FMAs.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from repro_torch.kernels.build import load_library
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu",)
+SOURCES_SM90 = (CSRC / "flash_attention_sm90.cu",)
 
 #: kernel dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -26,9 +33,9 @@ _FNS = {}
 
 
 def library() -> ctypes.CDLL:
-    """Build (once) and load the kernel's shared library."""
+    """Build (once) and load the scalar kernel's shared library."""
     lib = load_library("flash_attention", SOURCES)
-    if not _FNS:
+    if "launch" not in _FNS:
         fn = lib.flash_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -43,15 +50,29 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def library_sm90() -> ctypes.CDLL:
+    """Build (once) and load the tensor-core kernel's shared library."""
+    lib = load_library("flash_attention_sm90", SOURCES_SM90)
+    if "sm90" not in _FNS:
+        fn = lib.flash_attention_sm90_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS["sm90"] = fn
+    return lib
+
+
 def smem_fits(dk: int, dv: int) -> bool:
-    """Whether the kernel's shared memory for (Dk, Dv) fits one block."""
+    """Whether the scalar kernel's shared memory for (Dk, Dv) fits one
+    block."""
     library()
     return _FNS["smem"](dk, dv) <= _FNS["limit"]()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, causal: bool, window: int) -> None:
-    """Launch the kernel on the current stream: ``out = attention(q, k, v)``.
+    """Launch the scalar kernel on the current stream:
+    ``out = attention(q, k, v)``.
 
     Contiguous (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv) tensors of
     one dtype (float32 or bfloat16) on one CUDA device (checked by the
@@ -66,3 +87,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
+
+
+def flash_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              causal: bool, window: int) -> None:
+    """Launch the tensor-core kernel on the current stream:
+    ``out = attention(q, k, v)``.
+
+    Contiguous bf16 (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv)
+    tensors on one CUDA device, 16-byte aligned, Dk and Dv multiples of 16
+    up to 256 (checked by the caller).  Raises on a launch error."""
+    library_sm90()
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    err = _FNS["sm90"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        KV, Dk, Dv, int(causal), int(window), Dk ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_sm90 kernel launch failed: cudaError {err}")

@@ -4,23 +4,55 @@
 ``flash_attention(q, k, v, causal=, window=)`` computes the Pallas kernel
 ``repro.kernels.flash_attention``'s function.  A CPU tensor goes to the
 plain-torch version (:func:`.ref.flash_attention_ref`); a CUDA tensor
-launches the hand-written CUDA kernel (:mod:`.flash_attention`) on the
-current stream, or raises — there is no fallback.  ``launches`` counts
-kernel launches (never plain-version calls); callers may reset it to 0.
+launches one of two hand-written CUDA kernels (:mod:`.flash_attention`)
+on the current stream, or raises — there is no fallback.  :func:`route`
+picks the kernel from the dtype and the head widths alone:
+
+* ``"sm90"`` — ``csrc/flash_attention_sm90.cu`` (TMA and wgmma): bfloat16
+  with Dk and Dv multiples of 16, at most 256 (every width of the ported
+  and planned model families: 64, 128, 192/128, 256);
+* ``"scalar"`` — ``csrc/flash_attention.cu`` (scalar FMAs): float32 at
+  any width, and bfloat16 at the widths ``"sm90"`` does not take.
+
+``launches`` counts the launches of both kernels and ``launches_sm90``
+those of the tensor-core kernel (never plain-version calls); callers may
+reset either to 0.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    DTYPES, flash_attention_cuda, smem_fits)
+    DTYPES, flash_attention_cuda, flash_attention_sm90_cuda, smem_fits)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: CUDA kernel launches made by :func:`flash_attention` (a plain integer)
 launches = 0
+#: of which launches of the tensor-core kernel
+launches_sm90 = 0
 
-#: largest value head width the kernel's accumulators hold
+#: largest value head width either kernel's accumulators hold
 MAX_DV = 256
+#: the tensor-core kernel's widths: multiples of SM90_STEP up to MAX_DV
+#: (one wgmma k-step of bf16 is 16 wide; TMA rows are 16-byte multiples)
+SM90_STEP = 16
+
+
+def route(dtype: torch.dtype, dk: int, dv: int) -> str:
+    """The CUDA kernel that takes a (dtype, Dk, Dv) call: ``"sm90"`` or
+    ``"scalar"``.  Raises ``TypeError`` for a dtype neither kernel takes
+    and ``ValueError`` for a width above ``MAX_DV`` (the scalar kernel's
+    shared-memory limit is checked at launch, by its library)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: {dtype}; the kernels take "
+                        "float32 or bfloat16")
+    if not (0 < dk and 0 < dv <= MAX_DV):
+        raise ValueError(f"flash_attention: Dk {dk}, Dv {dv}; the kernels "
+                         f"take Dv up to {MAX_DV}")
+    if (dtype == torch.bfloat16 and dk <= MAX_DV and dk % SM90_STEP == 0
+            and dv % SM90_STEP == 0):
+        return "sm90"
+    return "scalar"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -29,29 +61,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype.  H must be a multiple of KV (query head h reads KV head
     h // (H // KV)); ``window > 0`` limits each query to its trailing
     ``window`` positions."""
-    global launches
+    global launches, launches_sm90
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     _check(q, k, v)
-    B, S, H, _ = q.shape
-    out = torch.empty((B, S, H, v.shape[3]), dtype=q.dtype, device=dev)
-    flash_attention_cuda(q, k, v, out, causal, window)
+    B, S, H, Dk = q.shape
+    Dv = v.shape[3]
+    kernel = route(q.dtype, Dk, Dv)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=dev)
+    if kernel == "sm90":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name}'s data is not "
+                                 "16-byte aligned (the kernel loads it by "
+                                 "TMA)")
+        flash_attention_sm90_cuda(q, k, v, out, causal, window)
+        launches_sm90 += 1
+    else:
+        if not smem_fits(Dk, Dv):
+            raise ValueError(f"flash_attention: Dk {Dk}, Dv {Dv} exceed "
+                             "the scalar kernel's shared memory")
+        flash_attention_cuda(q, k, v, out, causal, window)
     launches += 1
     return out
 
 
 def _check(q, k, v):
-    """Raise the precise reason the kernel cannot take (q, k, v)."""
+    """Raise the precise reason neither kernel can take (q, k, v)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
         if t.dtype not in DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
-                            "kernel takes q, k, v all float32 or all "
+                            "kernels take q, k, v all float32 or all "
                             "bfloat16")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
@@ -63,6 +109,3 @@ def _check(q, k, v):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if q.numel() == 0 or v.numel() == 0:
         raise ValueError("flash_attention: empty input")
-    if v.shape[3] > MAX_DV or not smem_fits(Dk, v.shape[3]):
-        raise ValueError(f"flash_attention: Dk {Dk}, Dv {v.shape[3]} exceed "
-                         "the kernel's shared memory or accumulators")

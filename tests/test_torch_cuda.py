@@ -113,11 +113,38 @@ def test_card_driver_matches_cpu(card):
 FLASH_CASES = [(128, 4, 4, 32, 32, True, 0), (128, 8, 2, 16, 16, True, 0),
                (256, 4, 1, 32, 64, True, 0), (128, 4, 4, 32, 32, False, 0),
                (256, 4, 2, 32, 32, True, 64), (100, 4, 2, 32, 32, True, 0)]
+#: shapes that stress the tensor-core kernel's tiling (bf16): S ragged to
+#: its 128-row tiles, Dk 192 / Dv 128, Dk = Dv = 256, a window across
+#: tiles, bidirectional, GQA with H / KV = 8
+SM90_CASES = [(1000, 4, 2, 128, 128, True, 0), (256, 4, 2, 192, 128, True, 0),
+              (256, 4, 2, 256, 256, True, 0), (1024, 4, 2, 128, 128, True, 300),
+              (512, 4, 2, 128, 128, False, 0), (512, 16, 2, 128, 128, True, 0)]
 
 
 def _normal(rng, shape, dtype, device):
     return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
         device=device, dtype=dtype)
+
+
+def _check_flash(card, s, h, kv, dk, dv, causal, window, dtype, tol, sm90):
+    """The wrapper's output against the plain version, one counted launch,
+    on the tensor-core kernel iff ``sm90``; the CPU path launches none."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(s + h + dk)
+    q, k, v = (_normal(rng, (2, s, n, d), dtype, card)
+               for n, d in ((h, dk), (kv, dk), (kv, dv)))
+    before = fops.launches, fops.launches_sm90
+    got = fops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fops.launches, fops.launches_sm90) == (before[0] + 1,
+                                                   before[1] + int(sm90))
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                         window=window)
+    assert fops.launches == before[0] + 1  # the CPU path launches nothing
 
 
 @pytest.mark.cuda
@@ -127,21 +154,38 @@ def _normal(rng, shape, dtype, device):
 @pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(card, s, h, kv, dk, dv, causal,
                                             window, dtype, tol):
+    """float32 runs on the scalar kernel, bf16 on the tensor-core one."""
+    _check_flash(card, s, h, kv, dk, dv, causal, window, dtype, tol,
+                 sm90=dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", SM90_CASES)
+def test_flash_sm90_tiling_matches_plain_version(card, s, h, kv, dk, dv,
+                                                 causal, window):
+    _check_flash(card, s, h, kv, dk, dv, causal, window, torch.bfloat16,
+                 1e-2, sm90=True)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_width_sm90_cannot_take_runs_scalar(card):
+    """Dk 24 is no multiple of 16: the rule sends bf16 to the scalar
+    kernel, which agrees with the plain version."""
+    _check_flash(card, 128, 4, 2, 24, 24, True, 0, torch.bfloat16, 1e-2,
+                 sm90=False)
+
+
+@pytest.mark.cuda
+def test_flash_sm90_refuses_misaligned_data(card):
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    rng = np.random.default_rng(s + h + dk)
-    q, k, v = (_normal(rng, (2, s, n, d), dtype, card)
-               for n, d in ((h, dk), (kv, dk), (kv, dv)))
+    q = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.bfloat16,
+                    device=card)[1:].view(2, 64, 2, 64)
+    k = torch.zeros((2, 64, 2, 64), dtype=torch.bfloat16, device=card)
+    assert q.is_contiguous() and q.data_ptr() % 16
     before = fops.launches
-    got = fops.flash_attention(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert fops.launches == before + 1
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    fops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal,
-                         window=window)
-    assert fops.launches == before + 1  # the CPU path launches nothing
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fops.flash_attention(q, k, k)
+    assert fops.launches == before
 
 
 def _ssd_inputs(rng, b, s, h, g, p, n, dtype, device):

@@ -6,7 +6,9 @@
   at the cases of tests/test_kernels.py: 2e-5 in float32, 5e-2 in bf16;
 * the port's CPU ``blocked_attention`` against the JAX package's, at 2e-5
   in float32 (including its window blocking, which differs from exact
-  window attention: ROADMAP §3).
+  window attention: ROADMAP §3);
+* the wrapper's rule that picks the CUDA kernel of a call from its dtype
+  and head widths (``ops.route``; pure Python, so it runs here).
 
 The same inputs, made from a numpy seed, go to both packages."""
 import numpy as np
@@ -53,10 +55,11 @@ def _close(got, want, tol):
 def test_plain_flash_matches_pallas_kernel_and_ref(s, h, kv, dk, dv, causal,
                                                    window):
     q, k, v = _qkv(s + h, 2, s, h, kv, dk, dv)
-    before = ops.launches
+    before = ops.launches, ops.launches_sm90
     got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
                               causal=causal, window=window)
-    assert ops.launches == before  # the CPU path launches no kernel
+    # the CPU path launches no kernel
+    assert (ops.launches, ops.launches_sm90) == before
     assert got.dtype == torch.float32 and got.shape == (2, s, h, dv)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     _close(got, flash_attention_op(jq, jk, jv, causal=causal, window=window,
@@ -105,3 +108,31 @@ def test_cpu_blocked_attention_keeps_bf16_cast_of_p():
                   for x in (tq, tk, tv))
     want = jax_blocked(jq, jk, jv, q_chunk=64, kv_chunk=64)
     _close(got.float(), want.astype(jnp.float32), BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype,dk,dv,kernel", [
+    (torch.bfloat16, 128, 128, "sm90"),     # llama3-8b
+    (torch.bfloat16, 64, 64, "sm90"),
+    (torch.bfloat16, 192, 128, "sm90"),     # deepseek MLA
+    (torch.bfloat16, 256, 256, "sm90"),     # recurrentgemma
+    (torch.bfloat16, 16, 16, "sm90"),       # tests/test_kernels.py widths
+    (torch.bfloat16, 32, 64, "sm90"),
+    (torch.bfloat16, 24, 24, "scalar"),     # not a multiple of 16
+    (torch.bfloat16, 128, 40, "scalar"),
+    (torch.bfloat16, 272, 128, "scalar"),   # Dk above 256
+    (torch.float32, 128, 128, "scalar"),    # float32 stays on the scalar
+    (torch.float32, 16, 16, "scalar"),
+])
+def test_route_picks_kernel_by_dtype_and_widths(dtype, dk, dv, kernel):
+    assert ops.route(dtype, dk, dv) == kernel
+
+
+@pytest.mark.parametrize("dtype,dk,dv,exc", [
+    (torch.float16, 64, 64, TypeError),
+    (torch.int32, 64, 64, TypeError),
+    (torch.bfloat16, 64, 272, ValueError),  # Dv above either kernel's 256
+    (torch.float32, 64, 0, ValueError),
+])
+def test_route_refuses_what_no_kernel_takes(dtype, dk, dv, exc):
+    with pytest.raises(exc):
+        ops.route(dtype, dk, dv)
