@@ -5,10 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — nvcc builds every CUDA kernel (alu_exec, flash_attention's
-             scalar and tensor-core kernels, ssd_scan; sm_90a) from the
-             sources in the checkout, all four at once, into
-             build/repro_torch/; the tensor-core flash kernel's SASS
+1. build   — nvcc builds every CUDA kernel (alu_exec, cycle_step,
+             flash_attention's scalar and tensor-core kernels, ssd_scan;
+             sm_90a) from the sources in the checkout, all five at once,
+             into build/repro_torch/; cycle_step's registers and spills
+             (ptxas -v) are logged; the tensor-core flash kernel's SASS
              (cuobjdump) must hold HGMMA (wgmma) in every instance;
 2. kernels — each kernel against its plain-torch version on the card: the
              ALU bitwise (tolerance 0); flash attention at the cases of
@@ -17,15 +18,23 @@ Phases (any failure exits non-zero and prints no result line):
              tensor-core kernel's tiling and at llama3-8b's prefill shape;
              the SSD scan at its test cases and at mamba2-130m's prefill
              shape (f32 2e-4, bf16 1e-2);
-3. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
+3. step    — the fused cycle-step kernel against the eager card step (its
+             plain version), every state leaf bitwise after 1, 7 and all
+             steps, 64 steps a launch, on every knob case of
+             repro_torch/kernels/cycle_step/cases.py (the case studies'
+             branches, 24 and 32 tasklets, 4 and 8 issue slots, 40 DPUs
+             across blocks, the cache-mode VA);
+4. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
-             (tests/test_backend.py) exactly;
-4. full    — one UPMEM rank of 64 DPUs, 16 tasklets, 2 MiB MRAM each
+             (tests/test_backend.py) exactly, through cycle_step;
+5. full    — one UPMEM rank of 64 DPUs, 16 tasklets, 2 MiB MRAM each
              (benchmarks/pim_figs.py simulation-rate study): (a) at scale
-             0.02 the card and the CPU give identical KernelReport and
-             Timeline; (b) VA at --scale (the simulator's main path) passes
-             its numpy oracle, with every ALU call counted as a launch;
-5. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
+             0.02 the card (cycle_step) and the CPU give identical
+             KernelReport and Timeline; (b) VA at --scale (the simulator's
+             main path) passes its numpy oracle with one cycle_step launch
+             per 64-step block and no alu_exec launch; cycle_step's ms per
+             64-step launch there beside the eager card step's;
+6. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
              2 layers in float32 (TF32 off), one 384-token prompt (two
              SSD chunks, the second ragged): prefill logits and caches
              agree within 1e-3; (b) the LM serving path
@@ -34,7 +43,7 @@ Phases (any failure exits non-zero and prints no result line):
              decode steps, and a ServeEngine answering 4 requests, with
              every flash / SSD call counted as a launch (all 32 llama3-8b
              prefill launches on the tensor-core flash kernel);
-6. report  — the kernels line (launches, times, bounds), the card's name
+7. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
@@ -88,9 +97,11 @@ def _counters():
     """name -> (module, attribute) of each launch count: flash_attention
     counts both flash kernels, flash_attention_sm90 the tensor-core one."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
+    from repro_torch.kernels.cycle_step import ops as step_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"alu_exec": (alu_ops, "launches"),
+            "cycle_step": (step_ops, "launches"),
             "flash_attention": (flash_ops, "launches"),
             "flash_attention_sm90": (flash_ops, "launches_sm90"),
             "ssd_scan": (ssd_ops, "launches")}
@@ -153,15 +164,19 @@ def graph_time_ms(fn, n: int = 200, reps: int = 5) -> float:
 
 
 def phase_build() -> float:
-    """Build the four kernel libraries concurrently (one nvcc each), then
-    check that every instance of the tensor-core flash kernel runs its
-    products on wgmma (HGMMA in its SASS)."""
+    """Build the five kernel libraries concurrently (one nvcc each), log
+    cycle_step's registers and spills, then check that every instance of
+    the tensor-core flash kernel runs its products on wgmma (HGMMA in its
+    SASS)."""
+    import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels.alu_exec import alu_exec
+    from repro_torch.kernels.cycle_step import cycle_step
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     libs = {"alu_exec": alu_exec.library,
+            "cycle_step": cycle_step.library,
             "flash_attention": flash_attention.library,
             "flash_attention_sm90": flash_attention.library_sm90,
             "ssd_scan": ssd_scan.library}
@@ -173,6 +188,14 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
         f"-> {build.build_dir()}")
+    ptxas = build.build_log(built["cycle_step"])
+    regs = re.findall(r"Used (\d+) registers", ptxas)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        ptxas)
+    check(regs and spills, f"cycle_step: no ptxas -v report in its build "
+          f"log: {ptxas[-1000:]!r}")
+    log(f"[build] cycle_step (ptxas -v): {regs[0]} registers, spill stores "
+        f"{spills[0][0]} B, spill loads {spills[0][1]} B")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
                            built["flash_attention_sm90"]._name],
@@ -224,6 +247,38 @@ def phase_kernels() -> int:
         worst = max(worst, err)
         log(f"[kernels] alu_exec {name}: bitwise equal")
     return worst
+
+
+def phase_step() -> dict:
+    """cycle_step against the eager card step on every knob case, 64 steps
+    a launch (cases.hold_against_plain: bitwise after 1, 7 and all
+    steps); returns the cases' total steps and launches."""
+    from repro_torch.kernels.cycle_step import cases
+    names = sorted(cases.CASES) + ["cache_va"]
+    total = {"cases": 0, "steps": 0, "launches": 0, "max_abs_err": None}
+    t0 = time.perf_counter()
+    for name in names:
+        case = cases.cache_va() if name == "cache_va" else cases.launch(name)
+        try:
+            res = cases.hold_against_plain(case, 64, device="cuda")
+        except AssertionError as e:
+            raise SmokeError(f"cycle_step != eager card step on {name}: {e}")
+        check(res["alu_launches"] == 0,
+              f"{name}: {res['alu_launches']} alu_exec launches in cycle_step")
+        log(f"[step] {name} ({case[0].n_dpus} DPUs x {case[4]} tasklets): "
+            f"bitwise equal after 1, 7 and {res['steps']} steps, "
+            f"{res['launches']} launches")
+        total["cases"] += 1
+        total["steps"] += res["steps"]
+        total["launches"] += res["launches"]
+    total["max_abs_err"] = 0               # every leaf of every case equal
+    log(f"[step] {total['cases']} cases bitwise equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    from repro_torch.kernels.cycle_step.cycle_step import max_dpus
+    total["max_dpus"] = {T: max_dpus(T) for T in (16, 24)}
+    log(f"[step] one launch takes at most {total['max_dpus']} DPUs "
+        f"(by tasklets) on this card: every block resident")
+    return total
 
 
 def _system(cfg, device):
@@ -309,31 +364,140 @@ def phase_full_parity() -> dict:
 
 def phase_main_path(scale: float) -> dict:
     """(b) the main path: VA at ``scale`` on the full-width system, with
-    the kernel launch counts taken from this run alone."""
+    the kernel launch counts taken from this run alone.  Records the
+    arguments VA's launch hands to the driver (``launch_args``) for
+    :func:`phase_step_times`."""
     import torch
     from repro_torch.core import compile_cache
     cfg = _full_cfg()
     system = _system(cfg, "cuda")
     steps0 = compile_cache.stats()["steps"]
-    reset_launches()                       # counts of this path only
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, rep = _va(system, 16, scale)        # raises on an oracle mismatch
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()["alu_exec"]
+    calls = []
+    run = compile_cache.run
+
+    def recording_run(*a, **kw):
+        calls.append((a, kw))
+        return run(*a, **kw)
+
+    compile_cache.run = recording_run
+    try:
+        reset_launches()                   # counts of this path only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = _va(system, 16, scale)    # raises on an oracle mismatch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        compile_cache.run = run
     steps = compile_cache.stats()["steps"] - steps0
-    check(launches > 0, "alu_exec was never launched on the main path")
-    check(launches == steps * cfg.superscalar,
-          f"alu_exec launches {launches} != steps {steps} x superscalar "
-          f"{cfg.superscalar}")
+    checks = steps // compile_cache.STEPS_PER_CHECK
+    check(len(calls) == 1, f"VA made {len(calls)} driver launches")
+    check(launches["cycle_step"] > 0,
+          "cycle_step was never launched on the main path")
+    check(launches["cycle_step"] == checks
+          and steps == checks * compile_cache.STEPS_PER_CHECK,
+          f"cycle_step launches {launches['cycle_step']} != host checks "
+          f"{checks} ({steps} steps)")
+    check(launches["alu_exec"] == 0,
+          f"alu_exec launched {launches['alu_exec']} times on the main path")
     res = {"scale": scale, "cycles": rep.cycles, "issued": rep.issued,
-           "steps": steps, "launches": launches, "wall_s": wall,
+           "steps": steps, "launches": launches["cycle_step"],
+           "alu_exec_launches": launches["alu_exec"], "wall_s": wall,
            "kips": rep.issued / wall / 1e3,
            "cycles_per_s": rep.cycles / wall,
-           "steps_per_s": steps / wall}
+           "steps_per_s": steps / wall, "launch_args": calls[0]}
     log(f"[main] VA 64 DPUs x 16 tasklets scale {scale}: oracle ok; "
-        f"{json.dumps(res)}")
+        f"{json.dumps({k: v for k, v in res.items() if k != 'launch_args'})}")
+    return res
+
+
+def phase_step_times(launch_args, n: int = 100) -> dict:
+    """cycle_step's device ms per 64-step launch on the main path's own
+    launch (VA at --scale, 64 DPUs), set up again with
+    ``compile_cache.prepare``: ``n`` raw launches back to back between
+    CUDA events (uncounted, no predicate reads) after 10 warm ones; the
+    plain version's time, the eager card step x 64, on a copy of the
+    state at the same point; the bound from the bytes and instructions of
+    the timed launches."""
+    import torch
+    from repro_torch.core import compile_cache
+    from repro_torch.core.isa import CLS_LDST, CLS_SYNC
+    from repro_torch.kernels.cycle_step.cycle_step import DPUS_PER_BLOCK
+    a, kw = launch_args
+    cfg = a[0]
+    prep = compile_cache.prepare(*a, **kw)
+    kern, st = prep.kernel, prep.st
+    K = compile_cache.STEPS_PER_CHECK
+
+    def launch():
+        kern.run(K)                        # uncounted
+
+    for _ in range(10):
+        launch()
+    torch.cuda.synchronize()
+    plain = {k: v.clone() for k, v in st.items()}
+    before = {k: st[k].double().sum().item()
+              for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")}
+    cls0 = st["c_cls"].double().sum(0)
+    cycles0 = st["cycle"].clone()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        launch()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / n
+    check(kern.predicate(), "the main path's launch ended inside the "
+          "timed window: run a larger --scale")
+    delta = {k: (st[k].double().sum().item() - v) / n
+             for k, v in before.items()}
+    cls = (st["c_cls"].double().sum(0) - cls0) / n
+    win = cfg.timeseries_window
+    windows = ((torch.div(st["cycle"], win, rounding_mode="floor")
+                - torch.div(cycles0, win, rounding_mode="floor"))
+               .double().sum().item() / n)
+    # eager card step x 64 on the same state
+    for _ in range(3):
+        plain.update(prep.step_fn(prep.ir, plain))
+    torch.cuda.synchronize()
+    m = 20
+    t0.record()
+    for _ in range(m):
+        plain.update(prep.step_fn(prep.ir, plain))
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1) / m * K
+    # the bytes a launch must move: every per-tasklet and per-DPU leaf
+    # (registers, scalars, counters) read once and written once, and of
+    # the rest only what this run's launches touch: the DMA'd words (read
+    # from one memory, written to the other), LW/SW words, one atomic word
+    # read and written per sync instruction, one ts_buf word per time-
+    # series window closed.  The TLB and D$ are off on the main path.
+    check(not cfg.mmu and not cfg.cache_mode,
+          "the main path's bound counts no TLB or D$ traffic")
+    untouched = ("wram", "mram", "atomic", "ts_buf", "tlb_tags", "tlb_lru",
+                 "dc_tags", "dc_lru", "dc_dirty")
+    small = sum(v.numel() * v.element_size() for k, v in st.items()
+                if k not in untouched)
+    dma = delta["c_dma_rd_bytes"] + delta["c_dma_wr_bytes"]
+    ldst, sync = cls[CLS_LDST].item(), cls[CLS_SYNC].item()
+    nbytes = 2 * small + 2 * dma + 4 * ldst + 8 * sync + 4 * windows
+    ops = delta["c_issued"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR32_OPS_PER_S
+    res = {"ms": ms, "us_per_step": ms * 1e3 / K, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "state_bytes": small,
+           "bytes_per_launch": nbytes, "dma_bytes_per_launch": dma,
+           "ldst_per_launch": ldst, "sync_per_launch": sync,
+           "windows_per_launch": windows, "issued_per_launch": ops,
+           "cycles_per_launch": float((st["cycle"] - cycles0).double()
+                                      .mean()) / n,
+           "dpus": int(st["status"].shape[0]),
+           "dpus_per_block": DPUS_PER_BLOCK}
+    log(f"[kernels] cycle_step at the main path's launch: " + json.dumps(res))
     return res
 
 
@@ -769,9 +933,13 @@ def main(argv=None) -> int:
         phase_build()
         err = phase_kernels()
         lm_err = phase_lm_kernels()
+        step_err = phase_step()["max_abs_err"]
         phase_golden()
         full = phase_full_parity()
         main_run = phase_main_path(args.scale)
+        step_times = phase_step_times(
+            main_run.pop("launch_args"),
+            n=max(1, min(100, main_run["launches"] - 11)))
         from repro_torch.core.compile_cache import dpu_bucket
         times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
         phase_lm_parity()
@@ -784,10 +952,18 @@ def main(argv=None) -> int:
         "name": "alu_exec", "route": "cuda",
         "source": "src/repro_torch/kernels/alu_exec/csrc/alu_exec.cu",
         "replaces": "src/repro/kernels/alu_exec/alu_exec.py:50",
-        "launches": main_run["launches"], "max_abs_err": err,
+        "launches": main_run["alu_exec_launches"], "max_abs_err": err,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "cycle_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/cycle_step/csrc/cycle_step.cu",
+        "replaces": "src/repro/kernels/alu_exec/alu_exec.py:57",
+        "launches": main_run["launches"], "max_abs_err": step_err,
+        "ms": step_times["ms"], "plain_ms": step_times["plain_ms"],
+        "bound_ms": step_times["bound_ms"],
+        "bound_by": step_times["bound_by"], "library_ms": None,
     }]
     replaces = {
         "flash_attention":
@@ -811,7 +987,9 @@ def main(argv=None) -> int:
         f"{r['serve_wall_s']:.3f} s" for a, r in lm.items()))
     log(f"[report] full-width cold launch {full['cold_s']:.3f} s, warm "
         f"{full['warm_s']:.3f} s; main path {main_run['kips']:.3f} KIPS, "
-        f"{main_run['cycles_per_s']:.1f} simulated cycles/s; "
+        f"{main_run['cycles_per_s']:.1f} simulated cycles/s, "
+        f"{main_run['steps_per_s']:.1f} steps/s, cycle_step "
+        f"{step_times['us_per_step']:.3f} µs a step; "
         f"smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,10 +18,11 @@ relaunch rebuilds nothing.
   simulated cycles, not one per cycle.  The step is gated on the
   predicate on the device, so the steps taken after it turned false
   change nothing.
-* **CUDA graphs** — on the card, the steps after the first replay the
-  step as CUDA-graph segments around its ALU calls (:class:`_StepGraph`);
-  the ALU kernel is launched between them through its counting wrapper.
-  On the CPU every step runs eagerly.
+* **The fused kernel** — on the card every K-step block is one launch of
+  the hand-written cycle-step kernel
+  (:mod:`repro_torch.kernels.cycle_step`), the ALU inside it, which
+  writes the predicate into a device flag; the host reads the flag once
+  per launch.  On the CPU every step runs eagerly.
 * **Devices** — ``device=None`` means the CUDA card; without one every
   entry point raises instead of running on the CPU.  ``device="cpu"``
   asks for the CPU.
@@ -44,11 +45,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backends
+from repro_torch.core import engine
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.carry import (resolve_device, state_to_numpy,
                                     state_to_torch)
 from repro_torch.core.config import DPUConfig
-from repro_torch.kernels.alu_exec.ops import alu_exec
+from repro_torch.kernels.cycle_step.ops import CycleStep
 
 #: smallest padded program length (instruction slots)
 PROGRAM_BUCKET_FLOOR = 64
@@ -100,73 +102,41 @@ class _Entry:
 class Prepared:
     """A launch set up as the driver runs it (:func:`prepare`).
 
-    ``st`` is the device state after the first step, which runs eagerly
-    (it builds the per-launch caches).  On CUDA, while the run goes on,
-    ``graph`` holds the step captured as a :class:`_StepGraph` over that
-    state; its replays update ``st`` in place.  ``steps`` counts the
-    steps taken so far."""
+    ``st`` is the device state.  On the CPU the first step has run
+    eagerly (it builds the per-launch caches).  On CUDA, ``kernel`` is
+    the fused cycle-step kernel's :class:`~repro_torch.kernels.cycle_step
+    .ops.CycleStep` over ``st``: each :meth:`advance` is one launch that
+    updates ``st`` in place, and the predicate is the flag the kernel
+    writes.  ``steps`` counts the steps asked for so far."""
 
     entry: _Entry
     ir: torch.Tensor
     st: Dict[str, torch.Tensor]
     step_fn: Callable
     cond: Callable
-    graph: Optional["_StepGraph"] = None
+    kernel: Optional[CycleStep] = None
     steps: int = 0
+    pred: Optional[bool] = None
 
     def running(self) -> bool:
         """The termination predicate (reading it syncs the host)."""
-        return bool(self.cond(self.st))
+        if self.kernel is None:
+            return bool(self.cond(self.st))
+        if self.pred is None:
+            self.pred = self.kernel.predicate()
+        return self.pred
 
-    def step(self):
-        """One more step: a graph replay on CUDA, an eager step on the
-        CPU.  Gated on the device, so a step past the end changes
+    def advance(self, k: int):
+        """``k`` more steps: one kernel launch on CUDA, ``k`` eager steps
+        on the CPU.  Gated on the device, so steps past the end change
         nothing."""
-        if self.graph is None:
-            self.st = self.step_fn(self.ir, self.st)
+        if self.kernel is None:
+            for _ in range(k):
+                self.st = self.step_fn(self.ir, self.st)
         else:
-            self.graph.replay()
-        self.steps += 1
-
-
-class _StepGraph:
-    """One engine step captured as CUDA-graph segments around its ALU
-    calls: segment 0, ALU, segment 1, ..., ALU, last segment.
-
-    Eager torch issues each op of a step as its own launch from Python,
-    and the host's dispatch, not the card, bounds the step.  A replay
-    launches a whole segment at once.  The ALU kernel stays outside the
-    graphs: :meth:`replay` launches it through its wrapper between
-    segments (into a static output buffer), so every launch is counted
-    where it happens.  The segments read the static state ``st`` and the
-    last one copies the step's result back into it, so replays chain."""
-
-    def __init__(self, step, ir, st: Dict[str, torch.Tensor]):
-        self.graphs, self.reqs, self.outs = [], [], []
-        gen = step.coro(ir, st)
-        pool = None
-        while True:
-            g = torch.cuda.CUDAGraph()
-            req = None
-            with torch.cuda.graph(g, pool=pool):
-                try:
-                    req = gen.send(self.outs[-1] if self.outs else None)
-                except StopIteration as done:
-                    for key, val in done.value.items():
-                        if val is not st[key]:
-                            st[key].copy_(val)
-            pool = g.pool()
-            self.graphs.append(g)
-            if req is None:
-                break
-            self.reqs.append(req)
-            self.outs.append(torch.empty_like(req[0]))
-
-    def replay(self):
-        self.graphs[0].replay()
-        for (op, a, b), out, g in zip(self.reqs, self.outs, self.graphs[1:]):
-            alu_exec(op, a, b, out=out)
-            g.replay()
+            self.kernel.launch(k)
+            self.pred = None
+        self.steps += k
 
 
 _LOCK = threading.Lock()
@@ -222,8 +192,8 @@ def prepare(cfg: DPUConfig, binary, wram_init, mram_init,
             all_done: bool = False) -> Prepared:
     """Set a launch up as :func:`run` drives it: look up (or build) the
     cache entry, pad the state to the buckets, place it and the
-    instruction image on ``device``, take the first step and, on CUDA if
-    the run goes on, capture the step graph.  The arguments are
+    instruction image on ``device``; on the CPU take the first step, on
+    CUDA set the fused kernel up over the state.  The arguments are
     :func:`run`'s; ``all_done`` marks every lane DONE (:func:`prewarm`)."""
     device = resolve_device(device)
     be = backends.get(resolve_backend(cfg, backend))
@@ -237,22 +207,24 @@ def prepare(cfg: DPUConfig, binary, wram_init, mram_init,
     st0 = _padded_state(cfg, be, binary, wram_init, mram_init, T, Dp,
                         all_done=all_done, ndpus_reg=ndpus_reg)
     entry = _get_entry(cfg, be, P, Dp, T, mram_init.shape[1])
-    ir = torch.from_numpy(np.stack([np.asarray(a[:P], np.int32)
-                                    for a in binary.arrays])).to(device)
+    ir_np = np.stack([np.asarray(a[:P], np.int32) for a in binary.arrays])
+    ir = torch.from_numpy(ir_np).to(device)
     step, cond = entry.driver(device)
     prep = Prepared(entry, ir, state_to_torch(st0, device), step, cond)
-    if prep.running():
-        prep.step()
-        if device.type == "cuda" and prep.running():
-            prep.graph = _StepGraph(step, ir, prep.st)
+    if device.type == "cuda":
+        prep.kernel = CycleStep(cfg, prep.st, ir, image=ir_np)
+        alive = (st0["status"] != engine.DONE).any(-1) \
+            & (st0["cycle"] < cfg.max_cycles)
+        prep.pred = bool(alive.any())
+    elif prep.running():
+        prep.advance(1)
     return prep
 
 
 def _drive(prep: Prepared, k: int) -> Dict[str, torch.Tensor]:
     """Run a prepared launch to termination, ``k`` steps per check."""
     while prep.running():          # the one host sync per k steps
-        for _ in range(k):
-            prep.step()
+        prep.advance(k)
     prep.entry.steps += prep.steps
     prep.entry.launches += 1
     return prep.st
@@ -313,7 +285,8 @@ def prewarm(cfg: DPUConfig, binary, mram_words: int = None,
 def stats() -> Dict[str, int]:
     """Cache counters.  ``misses`` counts driver builds — a same-shape
     relaunch must leave it unchanged; ``steps`` counts engine steps taken
-    by every driver (each issues ``cfg.superscalar`` ALU calls)."""
+    by every driver (K per launch of the fused kernel on the card, the
+    steps past the predicate included)."""
     with _LOCK:
         return {
             "entries": len(_ENTRIES),

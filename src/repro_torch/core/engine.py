@@ -4,8 +4,11 @@ The port of :mod:`repro.core.engine`.  All microarchitectural state is a
 dict of int32/bool/float32 tensors with a leading DPU axis; one simulated
 cycle is a function ``(ir, state) -> state`` (:func:`make_step_traced`)
 that advances every DPU of the system in the same vectorized step.  The
-driver (:mod:`repro_torch.core.compile_cache`) runs it on the CPU or the
-CUDA card.  Every issue slot's ALU goes through the hand-written kernel
+driver (:mod:`repro_torch.core.compile_cache`) runs it eagerly on the
+CPU; on the CUDA card the driver runs the hand-written kernel
+:mod:`repro_torch.kernels.cycle_step`, which computes this step K times
+per launch, and this eager step is the kernel's plain version.  Every
+issue slot's ALU goes through
 :func:`repro_torch.kernels.alu_exec.ops.alu_exec`.
 
 The timing model is the reference's, bit for bit (same int32 state, same
@@ -26,10 +29,7 @@ immutable arrays:
 * XLA turns a division by a constant into a multiplication by its
   float32 reciprocal; the port multiplies by the same reciprocal;
 * WRAM and MRAM (the large arrays) are updated in place; everything else
-  is rebuilt per step;
-* the step is a generator that yields each issue slot's ALU operands
-  (``step.coro``), so a driver can launch the ALU kernel between CUDA
-  graph segments.
+  is rebuilt per step.
 
 The step is gated on the termination predicate computed on the device:
 once no DPU is running, a step changes nothing, so the driver may run
@@ -147,6 +147,34 @@ def make_state_np(cfg: DPUConfig, binary: isa.Binary, wram_init, mram_init,
 # Step constants, the decoded instruction image, indexing helpers
 # ---------------------------------------------------------------------------
 
+def decode_image(cfg: DPUConfig, img: np.ndarray):
+    """(6, P) instruction image (numpy) -> ((10, P) int32, (19, P) bool):
+    the register indices, operands and isa-table lookups of every slot,
+    in the row order :func:`_issue_one` unpacks (the four register
+    indices first, for one gather)."""
+    op = np.clip(img[0], 0, isa.N_OPS - 1)
+    rd, ra, rb, imm, uiv = img[1], img[2], img[3], img[4], img[5] != 0
+    extra = np.where(op == Op.MUL, cfg.mul_extra,
+                     np.where(op == Op.DIV, cfg.div_extra, 0))
+    lat = np.where(op == Op.LW, cfg.wram_load_latency, 1)
+    ints = np.stack([
+        ra, rb, rd, np.asarray(_SPECIAL_REGS)[np.clip(imm, 0, 3)], img[0],
+        imm, isa.OP_CLASS_TABLE[op], extra, lat,
+        np.clip(op - Op.BEQ, 0, 5)]).astype(np.int32)
+    is_dma = (op == Op.LDMA) | (op == Op.SDMA)
+    if cfg.cache_mode:
+        is_dma = np.zeros_like(is_dma)  # cache-mode programs address memory directly
+    flags = np.stack([
+        uiv, op <= Op.SLTU, op == Op.LW, op == Op.SW,
+        (op == Op.LW) | (op == Op.SW), op == Op.JAL,
+        (op == Op.JUMP) | (op == Op.JAL), op == Op.JR, op == Op.STOP,
+        op == Op.BARRIER, (op >= Op.BEQ) & (op <= Op.BGEU),
+        op == Op.ACQUIRE, op == Op.RELEASE, is_dma, op == Op.SDMA,
+        isa.WRITES_RD[op], isa.READS_RA[op], isa.READS_RB[op] & ~uiv,
+        isa.READS_RA[op] & isa.READS_RB[op] & ~uiv])
+    return ints, flags
+
+
 class StepConsts:
     """Device tensors a step reads every cycle, built once per driver
     (index ranges, float32 reciprocals), and the decoder that turns an
@@ -181,35 +209,12 @@ class StepConsts:
         return r
 
     def decode(self, ir: torch.Tensor):
-        """(6, P) instruction image -> ((10, P) int32, (19, P) bool): the
-        register indices, operands and isa-table lookups of every slot,
-        in the row order :func:`_issue_one` unpacks (the four register
-        indices first, for one gather).  Cached for the image last seen,
-        so a launch decodes once."""
+        """(6, P) instruction image -> :func:`decode_image` of it, on the
+        device.  Cached for the image last seen, so a launch decodes
+        once."""
         if self._image[0] is ir:
             return self._image[1]
-        cfg = self.cfg
-        img = ir.cpu().numpy()
-        op = np.clip(img[0], 0, isa.N_OPS - 1)
-        rd, ra, rb, imm, uiv = img[1], img[2], img[3], img[4], img[5] != 0
-        extra = np.where(op == Op.MUL, cfg.mul_extra,
-                         np.where(op == Op.DIV, cfg.div_extra, 0))
-        lat = np.where(op == Op.LW, cfg.wram_load_latency, 1)
-        ints = np.stack([
-            ra, rb, rd, np.asarray(_SPECIAL_REGS)[np.clip(imm, 0, 3)], img[0],
-            imm, isa.OP_CLASS_TABLE[op], extra, lat,
-            np.clip(op - Op.BEQ, 0, 5)]).astype(np.int32)
-        is_dma = (op == Op.LDMA) | (op == Op.SDMA)
-        if cfg.cache_mode:
-            is_dma = np.zeros_like(is_dma)  # cache-mode programs address memory directly
-        flags = np.stack([
-            uiv, op <= Op.SLTU, op == Op.LW, op == Op.SW,
-            (op == Op.LW) | (op == Op.SW), op == Op.JAL,
-            (op == Op.JUMP) | (op == Op.JAL), op == Op.JR, op == Op.STOP,
-            op == Op.BARRIER, (op >= Op.BEQ) & (op <= Op.BGEU),
-            op == Op.ACQUIRE, op == Op.RELEASE, is_dma, op == Op.SDMA,
-            isa.WRITES_RD[op], isa.READS_RA[op], isa.READS_RB[op] & ~uiv,
-            isa.READS_RA[op] & isa.READS_RB[op] & ~uiv])
+        ints, flags = decode_image(self.cfg, ir.cpu().numpy())
         dec = (torch.from_numpy(ints).to(self.device),
                torch.from_numpy(flags).to(self.device))
         self._image = (ir, dec)
@@ -282,8 +287,7 @@ def _dma_copy(C: StepConsts, cfg: DPUConfig, wram, mram, do_dma, a, breg,
 
 def _issue_one(cfg: DPUConfig, C: StepConsts, img, st, cycle1, running,
                already, slot_block):
-    """Try to issue one instruction per DPU (a generator: it yields the
-    ALU's ``(op, a, b)`` and is sent the result).  Returns (st, issued,
+    """Try to issue one instruction per DPU.  Returns (st, issued,
     hazard, issued_mask); ``cycle1`` is the cycle as a (D, 1) column."""
     D, T = st["status"].shape
     img_i, img_b = img
@@ -315,7 +319,7 @@ def _issue_one(cfg: DPUConfig, C: StepConsts, img, st, cycle1, running,
     b = torch.where(uiv, immv, breg)
 
     # ---- datapath ----
-    alu = yield op, a, b
+    alu = alu_exec(op, a, b)
     wram = st["wram"]
     addr = a + immv
     widx = (addr >> 2).clamp(0, wram.shape[1] - 1).to(torch.int64)
@@ -614,9 +618,8 @@ def make_cond(cfg: DPUConfig):
     return cond
 
 
-def _step_coro(cfg: DPUConfig, C: StepConsts, ir, st):
-    """One simulated cycle as a generator: yields each issue slot's ALU
-    request ``(op, a, b)``, is sent the ALU result, returns the state."""
+def _step(cfg: DPUConfig, C: StepConsts, ir, st):
+    """One simulated cycle: the new state."""
     img = C.decode(ir)
     cycle = st["cycle"]
     D = cycle.shape[0]
@@ -643,7 +646,7 @@ def _step_coro(cfg: DPUConfig, C: StepConsts, ir, st):
     already = None
     slot_block = torch.zeros_like(running)
     for s in range(cfg.superscalar):
-        st, valid, hazard, im = yield from _issue_one(
+        st, valid, hazard, im = _issue_one(
             cfg, C, img, st, cycle1, running, already, slot_block)
         issued_any = issued_any | valid
         already = im if already is None else (already | im)
@@ -668,28 +671,13 @@ def make_step_traced(cfg: DPUConfig, n_threads: int = None, device=None):
     0-dim bool, no host sync): every state update is masked by
     ``running`` (so by ``go``) or by ``go`` itself, so a step taken
     after the run ended leaves every leaf unchanged.  WRAM and MRAM are
-    updated in place; the other leaves are new tensors.
-
-    ``step.coro(ir, state)`` is the same cycle as a generator that yields
-    each issue slot's ALU operands instead of calling the ALU."""
+    updated in place; the other leaves are new tensors."""
     C = StepConsts(cfg, n_threads or cfg.n_tasklets,
                    resolve_device(device))
 
-    def coro(ir, st):
-        return _step_coro(cfg, C, ir, st)
-
     def step(ir, st):
-        gen = coro(ir, st)
-        req = next(gen)
-        while True:
-            try:
-                req = gen.send(alu_exec(*req))
-            except StopIteration as done:
-                return done.value
+        return _step(cfg, C, ir, st)
 
-    # the generator form, for drivers that launch the ALU between CUDA
-    # graph segments (repro_torch.core.compile_cache)
-    step.coro = coro
     return step
 
 

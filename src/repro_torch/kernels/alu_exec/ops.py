@@ -1,4 +1,6 @@
-"""Dispatching wrapper of the simulator ALU: the engine's only ALU.
+"""Dispatching wrapper of the simulator ALU: the eager engine step's ALU
+(on the card the fused cycle-step kernel runs the same device function,
+``csrc/alu_exec.cuh``, inside its own launch).
 
 ``alu_exec(op, a, b)`` computes the 12-way int32 ALU over a flat (or any)
 shape.  A CPU tensor goes to the plain-torch version (:mod:`.ref`); a
@@ -9,8 +11,6 @@ to 0.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.kernels.alu_exec.alu_exec import alu_exec_cuda
@@ -20,10 +20,9 @@ from repro_torch.kernels.alu_exec.ref import alu_exec_ref
 launches = 0
 
 
-def alu_exec(op: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out`` (optional, CUDA only): a contiguous int32 tensor of op's
-    shape to write into, e.g. a static buffer read by a CUDA graph."""
+def alu_exec(op: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """op/a/b: int32 tensors of one shape -> int32 results."""
     global launches
     dev = op.device
     if dev.type == "cpu":
@@ -35,12 +34,7 @@ def alu_exec(op: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             and op.shape == a.shape == b.shape and op.is_contiguous()
             and a.is_contiguous() and b.is_contiguous()):
         _reject(op, a, b)
-    if out is None:
-        out = torch.empty_like(op)
-    elif not (out.device == dev and out.dtype == torch.int32
-              and out.shape == op.shape and out.is_contiguous()):
-        raise ValueError("alu_exec: out must be a contiguous int32 tensor "
-                         "of op's shape on op's device")
+    out = torch.empty_like(op)
     if op.numel() == 0:
         return out
     alu_exec_cuda(op, a, b, out)

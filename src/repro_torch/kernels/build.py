@@ -56,19 +56,23 @@ def nvcc_path() -> str:
 
 
 def load_library(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
+                 headers: Sequence[Path] = (),
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``.
 
-    ``headers`` only enter the hash.  Raises ``RuntimeError`` when the
-    build or the load fails.  Thread-safe; calls for different names
-    build concurrently."""
+    ``headers`` only enter the hash; ``flags`` are added to
+    :data:`NVCC_FLAGS` (and enter the hash).  What nvcc prints (e.g.
+    ``-Xptxas -v``'s registers and spills) is kept beside the library in
+    :func:`build_log`.  Raises ``RuntimeError`` when the build or the
+    load fails.  Thread-safe; calls for different names build
+    concurrently."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
         for p in list(sources) + list(headers):
             h.update(Path(p).read_bytes())
         out_dir = build_dir()
@@ -76,13 +80,14 @@ def load_library(name: str, sources: Sequence[Path],
         if not out.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                    *[str(s) for s in sources]]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {name} (rc {proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         try:
             lib = ctypes.CDLL(str(out))
@@ -90,3 +95,10 @@ def load_library(name: str, sources: Sequence[Path],
             raise RuntimeError(f"cannot load {out}: {e}") from e
         _LIBS[name] = lib
         return lib
+
+
+def build_log(lib: ctypes.CDLL) -> str:
+    """What nvcc printed when it built ``lib`` ("" if the library was
+    built before logs were kept)."""
+    log = Path(lib._name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -89,8 +89,9 @@ def _prog(nt=4):
 
 @pytest.mark.cuda
 def test_card_driver_matches_cpu(card):
-    """The CUDA-graph driver gives the CPU's state bit for bit, and every
-    ALU call on the card is a counted launch."""
+    """The card's driver (the fused cycle-step kernel) gives the CPU's
+    state bit for bit: one launch per K-step block, no ALU launch."""
+    from repro_torch.kernels.cycle_step import ops as cs_ops
     cfg = DPUConfig(n_dpus=3, n_tasklets=16, mram_bytes=1 << 14,
                     superscalar=2, forwarding=True, unified_rf=True)
     binary = _prog().binary(cfg.iram_instrs)
@@ -98,11 +99,115 @@ def test_card_driver_matches_cpu(card):
     mram = np.arange(3 * cfg.mram_words, dtype=np.int32).reshape(3, -1)
     want = compile_cache.run(cfg, binary, wram, mram, 4, device="cpu")
     steps0, launches0 = compile_cache.stats()["steps"], ops.launches
+    fused0 = cs_ops.launches
     got = compile_cache.run(cfg, binary, wram, mram, 4, device=card)
     for k in want:
         assert want[k].tobytes() == got[k].tobytes(), k
     steps = compile_cache.stats()["steps"] - steps0
-    assert ops.launches - launches0 == cfg.superscalar * steps > 0
+    assert ops.launches == launches0
+    assert (cs_ops.launches - fused0) * compile_cache.STEPS_PER_CHECK \
+        == steps > 0
+
+
+def _step_case(name):
+    from repro_torch.kernels.cycle_step import cases
+    return cases.cache_va() if name == "cache_va" else cases.launch(name)
+
+
+def _step_case_names():
+    from repro_torch.kernels.cycle_step import cases
+    return sorted(cases.CASES) + ["cache_va"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("name", _step_case_names())
+def test_cycle_step_matches_eager_card_step(card, name, k):
+    """Every leaf bitwise after 1, 7 and all steps, ``k`` steps a launch:
+    one launch per K-block (or checkpoint), no ALU launch inside them."""
+    from repro_torch.kernels.cycle_step import cases
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    before = cs_ops.launches
+    res = cases.hold_against_plain(_step_case(name), k, device=card)
+    assert res["alu_launches"] == 0
+    assert cs_ops.launches - before == res["launches"]
+    assert res["steps"] >= 7
+    assert res["launches"] == 1 + -(-6 // k) + -(-(res["steps"] - 7) // k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dpus", [1, 5, 130])
+def test_cycle_step_dpu_counts_agree(card, n_dpus):
+    """cross_dpu at 1 DPU (one block), 5 (padded to 8: a cooperative
+    launch of 2 blocks) and 130 (padded to 256: 64 blocks); the DMA-width
+    waits cross blocks."""
+    from repro_torch.kernels.cycle_step import cases
+    cases.hold_against_plain(cases.launch("cross_dpu", n_dpus), 64,
+                             device=card)
+
+
+@pytest.mark.cuda
+def test_cycle_step_refuses_more_dpus_than_resident(card):
+    """The kernel needs every block resident: one DPU more than the card
+    holds is refused with the limit named, before any launch."""
+    from repro_torch.core import engine
+    from repro_torch.core.carry import state_to_torch
+    from repro_torch.kernels.cycle_step import cases
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    from repro_torch.kernels.cycle_step.cycle_step import max_dpus
+    limit = max_dpus(4)
+    assert limit >= 64                   # one 64-DPU rank at least
+    cfg, binary, wram, mram, T = cases.launch("mutex", limit + 1)
+    P = compile_cache.program_bucket(binary.n_instrs, binary.opcode.shape[0])
+    ir = torch.from_numpy(np.stack([a[:P] for a in binary.arrays])).to(card)
+    st = state_to_torch(engine.make_state_np(cfg, binary, wram, mram, T),
+                        card)
+    before = cs_ops.launches
+    with pytest.raises(ValueError, match=f"at most {limit} DPUs"):
+        cs_ops.CycleStep(cfg, st, ir)
+    assert cs_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_cycle_step_wrapper_rejects_what_the_kernel_cannot_take(card):
+    from repro_torch.core import engine
+    from repro_torch.core.carry import state_to_torch
+    from repro_torch.kernels.cycle_step import cases
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    cfg, binary, wram, mram, T = cases.launch("frfcfs")
+    st0 = engine.make_state_np(cfg, binary, wram, mram, T)
+    P = compile_cache.program_bucket(binary.n_instrs, binary.opcode.shape[0])
+    ir = torch.from_numpy(np.stack([a[:P] for a in binary.arrays])).to(card)
+    before = cs_ops.launches
+
+    def bad(**leaves):
+        st = state_to_torch(st0, card)
+        st.update(leaves)
+        return st
+
+    st = state_to_torch(st0, card)
+    with pytest.raises(TypeError):
+        cs_ops.cycle_step(cfg, bad(pc=st["pc"].long()), ir, 4)
+    with pytest.raises(TypeError):
+        cs_ops.cycle_step(cfg, bad(req_valid=st["req_valid"].int()), ir, 4)
+    with pytest.raises(ValueError):
+        cs_ops.cycle_step(cfg, bad(regs=st["regs"][:, :, :20].contiguous()),
+                          ir, 4)
+    with pytest.raises(ValueError):
+        cs_ops.cycle_step(cfg, bad(pc=torch.zeros((1, 2 * T), dtype=torch
+                                                  .int32, device=card)[:, ::2]),
+                          ir, 4)
+    with pytest.raises(ValueError):
+        cs_ops.cycle_step(cfg, bad(wram=st["wram"].cpu()), ir, 4)
+    with pytest.raises(ValueError):
+        cs_ops.cycle_step(cfg, st, ir.long(), 4)
+    with pytest.raises(ValueError):
+        cs_ops.cycle_step(cfg.replace(n_tasklets=33), bad(
+            **state_to_torch(engine.make_state_np(
+                cfg, binary, wram, mram, 33), card)), ir, 4)
+    assert cs_ops.launches == before
+    assert cs_ops.cycle_step(cfg, state_to_torch(st0, card), ir, 4)
+    assert cs_ops.launches == before + 1
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 compile_cache) against the JAX package, bit for bit: every state leaf
 after 1, 7 and all steps on the programs of tests/test_engine.py, and
 the driver's padding, cache counters and K-steps-per-check gating."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -11,16 +13,16 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import repro.workloads as ref_wl  # noqa: E402
 from repro.core import compile_cache as ref_cc  # noqa: E402
 from repro.core import engine as ref_engine  # noqa: E402
-from repro.core.asm import DPU_ID, Program, TID, ZERO  # noqa: E402
+from repro.core import isa as ref_isa  # noqa: E402
+from repro.core.asm import DPU_ID, Program, TID  # noqa: E402
 from repro.core.config import DPUConfig  # noqa: E402
-from repro.core.isa import Op  # noqa: E402
 from repro_torch.core import compile_cache as pt_cc  # noqa: E402
 from repro_torch.core import engine as pt_engine  # noqa: E402
 from repro_torch.core.carry import (binary_from, config_from,  # noqa: E402
                                     state_to_numpy, state_to_torch)
+from repro_torch.kernels.cycle_step import cases  # noqa: E402
 
 _REF_STEPS = {}
 
@@ -70,184 +72,14 @@ def _lockstep(cfg, binary, wram, mram, T, checkpoints=(1, 7)):
     return n, ref_np
 
 
-def _cfg(T, **kw):
-    base = dict(n_dpus=1, n_tasklets=T, mram_bytes=1 << 14)
-    base.update(kw)
-    return DPUConfig(**base)
-
-
-def _images(cfg, args=(), mram=None):
-    wram = np.zeros((cfg.n_dpus, 16), np.int32)
-    for i, a in enumerate(args):
-        wram[:, i] = a
-    if mram is None:
-        mram = np.zeros((cfg.n_dpus, cfg.mram_words), np.int32)
-    return wram, mram
-
-
-# ---------------------------------------------------------------------------
-# programs of tests/test_engine.py (:76-268) and the case-study branches
-# ---------------------------------------------------------------------------
-
-
-def _alu_prog(seed=0, n=24):
-    rng = np.random.default_rng(seed)
-    ops = [Op.ADD, Op.SUB, Op.AND, Op.OR, Op.XOR, Op.SLL, Op.SRL, Op.SRA,
-           Op.MUL, Op.DIV, Op.SLT, Op.SLTU]
-    p = Program("alu", 1)
-    ra, rb, rd = p.regs("a", "b", "d")
-    for i in range(n):
-        a, b = (int(x) for x in rng.integers(-2**31, 2**31 - 1, 2))
-        if i % 5 == 0:
-            b = int(rng.integers(-3, 40))
-        if i == 1:
-            a, b = -2**31, -1
-        p.li(ra, a)
-        p.li(rb, b)
-        p._emit(ops[i % 12], rd, ra, rb)
-        p.sw(ZERO, 64 + 4 * i, rd)
-    p.stop()
-    return p
-
-
-def _chain_prog(n_instr=20):
-    p = Program("chain", 1)
-    r = p.reg("r")
-    for _ in range(n_instr):
-        p.add(r, r, 1)
-    p.stop()
-    return p
-
-
-def _rf_prog():
-    p = Program("rf", 2)
-    a = p.reg("a")
-    _ = p.reg("pad")
-    b = p.reg("b")
-    for _ in range(30):
-        p.add(a, a, b)
-    p.stop()
-    return p
-
-
-def _ss_prog():
-    p = Program("ss", 2)
-    r = p.reg("r")
-    for _ in range(64):
-        p.add(r, r, 1)
-        p.mul(r, r, 3)
-    p.stop()
-    return p
-
-
-def _dma_prog():
-    p = Program("skip", 2)
-    buf = p.walloc("buf", 64)
-    w, m = p.regs("w", "m")
-    p.li(w, buf)
-    p.li(m, 128)
-    for _ in range(4):
-        p.ldma(w, m, 64)
-        p.sdma(w, m, 64)
-    p.barrier()
-    p.stop()
-    return p
-
-
-def _mutex_prog(nt=4):
-    p = Program("mutex", nt)
-    cnt = p.walloc("cnt", 8)
-    v, i = p.regs("v", "i")
-    with p.for_range(i, 0, 3):
-        p.acquire(0)
-        p.lw(v, ZERO, cnt)
-        p.add(v, v, 1)
-        p.sw(ZERO, cnt, v)
-        p.release(0)
-    p.stop()
-    return p
-
-
-def _barrier_prog(nt=4):
-    p = Program("bar", nt)
-    flag = p.walloc("flag", 8)
-    out = p.walloc("out", 4 * nt)
-    v, addr = p.regs("v", "addr")
-    sk = p.newlabel("sk")
-    p.bne(TID, ZERO, sk)
-    p.li(v, 1234)
-    p.sw(ZERO, flag, v)
-    p.label(sk)
-    p.barrier()
-    p.lw(v, ZERO, flag)
-    p.sll(addr, TID, 2)
-    p.add(addr, addr, out)
-    p.sw(addr, 0, v)
-    p.stop()
-    return p
-
-
-def _frfcfs_prog(nt=4):
-    p = Program("fr", nt)
-    buf = p.walloc("buf", nt * 64)
-    w, m, i = p.regs("w", "m", "i")
-    p.mul(w, TID, 64)
-    p.add(w, w, buf)
-    p.mul(m, TID, 64)
-    with p.for_range(i, 0, 8):
-        p.ldma(w, m, 64)
-        p.add(m, m, 256)
-    p.stop()
-    return p
-
-
-def _dyn_dma_prog():
-    p = Program("dyn", 1)
-    buf = p.walloc("buf", 2048)
-    w, m, sz = p.regs("w", "m", "sz")
-    p.li(w, buf)
-    p.li(m, 256)
-    p.li(sz, 32)
-    p.ldma(w, m, sz)
-    p.li(sz, 1500)          # past the 64-word fast path: full-width copy
-    p.ldma(w, m, sz)
-    p.sdma(w, m, 8)
-    p.stop()
-    return p
-
-
-def _tail_dma_prog(W):
-    """DMAs whose copy window runs past the last WRAM / MRAM word: the
-    clipped lanes collide on the last word (last write wins)."""
-    p = Program("tail", 1)
-    w, m = p.regs("w", "m")
-    p.li(w, 4 * (W - 2))
-    p.li(m, 0)
-    p.ldma(w, m, 8)          # covers the last WRAM word
-    p.li(w, 4 * (W - 40))
-    p.ldma(w, m, 64)         # window past the end, data inside
-    p.li(m, 4 * ((1 << 14) // 4 - 4))
-    p.sdma(w, m, 16)         # covers the last MRAM word
-    p.li(w, -64)
-    p.ldma(w, m, 16)         # negative WRAM address: clipped to word 0
-    p.stop()
-    return p
-
-
-def _jr_prog():
-    """A JR to a target past the program and a negative one: the image
-    gather clamps (JAX semantics) instead of faulting."""
-    p = Program("jr", 2)
-    t = p.reg("t")
-    sk = p.newlabel("sk")
-    p.bne(TID, ZERO, sk)
-    p.li(t, 5000)
-    p._emit(Op.JR, 0, t)
-    p.label(sk)
-    p.li(t, -3)
-    p._emit(Op.JR, 0, t)
-    p.stop()
-    return p
+def _ref_launch(case):
+    """A launch of ``repro_torch.kernels.cycle_step.cases`` (the port's
+    config and binary) as the JAX package's: ``(cfg, binary, wram, mram,
+    T)``."""
+    pcfg, pbin, wram, mram, T = case
+    binary = ref_isa.Binary(*[np.array(a) for a in pbin.arrays],
+                            pbin.n_instrs, dict(pbin.symbols))
+    return DPUConfig(**dataclasses.asdict(pcfg)), binary, wram, mram, T
 
 
 def _mram_arange(cfg):
@@ -255,53 +87,24 @@ def _mram_arange(cfg):
                      dtype=np.int32).reshape(cfg.n_dpus, -1)
 
 
-CASES = {
-    "alu": (_alu_prog, 1, {}, False),
-    "revolver": (_chain_prog, 1, {}, False),
-    "forwarding": (_chain_prog, 1, {"forwarding": True}, False),
-    "rf_parity": (_rf_prog, 2, {}, False),
-    "unified_rf": (_rf_prog, 2, {"unified_rf": True}, False),
-    "superscalar": (_ss_prog, 2, {"forwarding": True, "unified_rf": True,
-                                  "superscalar": 2}, False),
-    "event_skip_off": (_dma_prog, 2, {"n_dpus": 2, "event_skip": False}, True),
-    "event_skip_on": (_dma_prog, 2, {"n_dpus": 2}, True),
-    "mutex": (_mutex_prog, 4, {}, False),
-    "barrier": (_barrier_prog, 4, {}, False),
-    "frfcfs": (_frfcfs_prog, 4, {}, True),
-    "dma_dynamic": (_dyn_dma_prog, 1, {}, True),
-    "dma_tail_clip": (lambda: _tail_dma_prog(16384), 1, {}, True),
-    "jr_clamp": (_jr_prog, 2, {"max_cycles": 400}, False),
-    "mmu": (_frfcfs_prog, 4, {"mmu": True, "tlb_entries": 2,
-                              "page_bytes": 256}, True),
-    "mram_bw_scale": (_dma_prog, 2, {"mram_bw_scale": 1.3,
-                                     "timeseries_window": 100}, True),
-    "no_detail": (_dma_prog, 2, {"collect_detail": False}, True),
-}
+# ---------------------------------------------------------------------------
+# the programs of tests/test_engine.py (:76-268), the case-study branches
+# and the widest DPUs (cases.CASES; the cross_dpu launches, 40 DPUs, are
+# held against the JAX package at 4 DPUs in tests/test_torch_cycle_step.py)
+# ---------------------------------------------------------------------------
+
+CASES = sorted(n for n in cases.CASES if not n.startswith("cross_dpu"))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", CASES)
 def test_every_leaf_matches_reference(name):
-    build, T, kw, mram_data = CASES[name]
-    cfg = _cfg(T, **kw)
-    binary = build().binary(cfg.iram_instrs)
-    wram, mram = _images(cfg, mram=_mram_arange(cfg) if mram_data else None)
-    n, _ = _lockstep(cfg, binary, wram, mram, T)
+    n, _ = _lockstep(*_ref_launch(cases.launch(name)))
     assert n >= 7
 
 
 def test_cache_mode_matches_reference():
     """Case study #4: a cache-centric VA (LW/SW through the D$ model)."""
-    cfg = DPUConfig(n_dpus=2, n_tasklets=4, mram_bytes=1 << 14,
-                    cache_mode=True, dcache_bytes=1024)
-    W = ref_wl.get("VA")
-    hd = W.host_data(cfg, 0.006, 0, cache_mode=True)
-    binary = W.build(4, cache_mode=True).binary(cfg.iram_instrs)
-    from repro.core.asm import CACHE_DATA_BASE
-    base = CACHE_DATA_BASE // 4
-    wram = np.zeros((2, base + hd.mram.shape[1]), np.int32)
-    wram[:, :hd.args.shape[1]] = hd.args
-    wram[:, base:] = hd.mram
-    n, st = _lockstep(cfg, binary, wram, np.zeros((2, 2), np.int32), 4)
+    n, st = _lockstep(*_ref_launch(cases.cache_va()))
     assert st["c_dc_miss"].sum() > 0 and st["c_dc_hit"].sum() > 0
 
 
