@@ -6,24 +6,32 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every CUDA kernel (alu_exec, cycle_step,
-             flash_attention's scalar and tensor-core kernels, ssd_scan;
-             sm_90a) from the sources in the checkout, all five at once,
-             into build/repro_torch/; cycle_step's registers and spills
-             (ptxas -v) are logged; the tensor-core flash kernel's SASS
-             (cuobjdump) must hold HGMMA (wgmma) in every instance;
+             flash_attention's scalar and tensor-core kernels, ssd_scan's
+             scalar and tensor-core kernels; sm_90a) from the sources in
+             the checkout, all six libraries at once, into
+             build/repro_torch/; the registers and spills (ptxas -v) of
+             cycle_step and of the tensor-core SSD kernels are logged; the
+             tensor-core flash kernel's SASS (cuobjdump) must hold HGMMA
+             (wgmma) in every instance, the tensor-core SSD kernels' HMMA
+             (mma.sync);
 2. kernels — each kernel against its plain-torch version on the card: the
              ALU bitwise (tolerance 0); flash attention at the cases of
              tests/test_kernels.py (f32 2e-5 on the scalar kernel, bf16
              1e-2 on the tensor-core one), at shapes that stress the
              tensor-core kernel's tiling and at llama3-8b's prefill shape;
-             the SSD scan at its test cases and at mamba2-130m's prefill
-             shape (f32 2e-4, bf16 1e-2);
+             the SSD scan's scalar kernel at its test cases and at
+             mamba2-130m's prefill shape (f32 2e-4, bf16 1e-2), its
+             tensor-core route at the card tests' shapes and at that
+             prefill shape (bf16 1e-2);
 3. step    — the fused cycle-step kernel against the eager card step (its
              plain version), every state leaf bitwise after 1, 7 and all
              steps, 64 steps a launch, on every knob case of
              repro_torch/kernels/cycle_step/cases.py (the case studies'
              branches, 24 and 32 tasklets, 4 and 8 issue slots, 40 DPUs
-             across blocks, the cache-mode VA);
+             across blocks, the cache-mode VA) on the resident route, and
+             cross_dpu above the resident limit (one DPU past it, and a
+             full 2,560-DPU system) on the stepwise route; each route's µs
+             a step on cross_dpu at 2,048 and 2,560 DPUs;
 4. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
              (tests/test_backend.py) exactly, through cycle_step;
@@ -42,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
              tokens for llama3-8b, 2048 for mamba2-130m), 32 greedy
              decode steps, and a ServeEngine answering 4 requests, with
              every flash / SSD call counted as a launch (all 32 llama3-8b
-             prefill launches on the tensor-core flash kernel);
+             prefill launches on the tensor-core flash kernel, all 24
+             mamba2-130m prefill scans on the tensor-core SSD route);
 7. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
@@ -95,7 +104,8 @@ def log(msg: str):
 
 def _counters():
     """name -> (module, attribute) of each launch count: flash_attention
-    counts both flash kernels, flash_attention_sm90 the tensor-core one."""
+    counts both flash kernels, flash_attention_sm90 the tensor-core one;
+    ssd_scan both SSD routes, ssd_scan_tc the tensor-core one."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
     from repro_torch.kernels.cycle_step import ops as step_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -104,7 +114,8 @@ def _counters():
             "cycle_step": (step_ops, "launches"),
             "flash_attention": (flash_ops, "launches"),
             "flash_attention_sm90": (flash_ops, "launches_sm90"),
-            "ssd_scan": (ssd_ops, "launches")}
+            "ssd_scan": (ssd_ops, "launches"),
+            "ssd_scan_tc": (ssd_ops, "launches_tc")}
 
 
 def reset_launches():
@@ -163,11 +174,40 @@ def graph_time_ms(fn, n: int = 200, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _sass_functions(lib, cuobjdump) -> dict:
+    """Kernel name -> its SASS text, from the library's cuobjdump."""
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", lib._name],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    return {f.split("\n", 1)[0].strip(): f
+            for f in sass.stdout.split("Function : ")[1:]}
+
+
+def _ptxas_report(lib) -> dict:
+    """Kernel (entry function) -> (registers, spill stores, spill loads)
+    from the library's ptxas -v build log."""
+    import re
+    from repro_torch.kernels import build
+    log = build.build_log(lib)
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", part)
+        check(regs and spills, f"no ptxas -v report for {part[:200]!r}")
+        out[part.split("'", 1)[0]] = (int(regs.group(1)),
+                                      int(spills.group(1)),
+                                      int(spills.group(2)))
+    check(out, f"no ptxas -v report in the build log: {log[-1000:]!r}")
+    return out
+
+
 def phase_build() -> float:
-    """Build the five kernel libraries concurrently (one nvcc each), log
-    cycle_step's registers and spills, then check that every instance of
-    the tensor-core flash kernel runs its products on wgmma (HGMMA in its
-    SASS)."""
+    """Build the six kernel libraries concurrently (one nvcc each), log
+    the registers and spills of cycle_step and of the tensor-core SSD
+    kernels, then check that every instance of the tensor-core flash
+    kernel runs its products on wgmma (HGMMA in its SASS) and every
+    instance of the tensor-core SSD kernels on mma.sync (HMMA)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
@@ -179,7 +219,8 @@ def phase_build() -> float:
             "cycle_step": cycle_step.library,
             "flash_attention": flash_attention.library,
             "flash_attention_sm90": flash_attention.library_sm90,
-            "ssd_scan": ssd_scan.library}
+            "ssd_scan": ssd_scan.library,
+            "ssd_scan_tc": ssd_scan.library_tc}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
@@ -188,28 +229,35 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
         f"-> {build.build_dir()}")
-    ptxas = build.build_log(built["cycle_step"])
-    regs = re.findall(r"Used (\d+) registers", ptxas)
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        ptxas)
-    check(regs and spills, f"cycle_step: no ptxas -v report in its build "
-          f"log: {ptxas[-1000:]!r}")
-    log(f"[build] cycle_step (ptxas -v): {regs[0]} registers, spill stores "
-        f"{spills[0][0]} B, spill loads {spills[0][1]} B")
+    for name, (regs, stores, loads) in sorted(
+            _ptxas_report(built["cycle_step"]).items()):
+        kernel = re.search(r"\d(cycle_\w+?_kernel)", name)
+        log(f"[build] {kernel.group(1) if kernel else name} (ptxas -v): "
+            f"{regs} registers, spill stores {stores} B, spill loads "
+            f"{loads} B")
+    tc = _ptxas_report(built["ssd_scan_tc"]).values()
+    log(f"[build] ssd_scan_tc (ptxas -v, {len(tc)} kernels): registers "
+        f"{min(r for r, _, _ in tc)}-{max(r for r, _, _ in tc)}, spill "
+        f"stores up to {max(a for _, a, _ in tc)} B, spill loads up to "
+        f"{max(b for _, _, b in tc)} B")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                           built["flash_attention_sm90"]._name],
-                          capture_output=True, text=True, timeout=300)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
-    kernels = [f for f in sass.stdout.split("Function : ")[1:]
-               if "flash_sm90_kernel" in f.split("\n", 1)[0]]
-    hgmma = [f.count("HGMMA") for f in kernels]
-    check(kernels and min(hgmma) > 0,
-          f"flash_attention_sm90: {len(kernels)} kernel instances, HGMMA "
+    funcs = _sass_functions(built["flash_attention_sm90"], cuobjdump)
+    hgmma = [f.count("HGMMA") for k, f in funcs.items()
+             if "flash_sm90_kernel" in k]
+    check(hgmma and min(hgmma) > 0,
+          f"flash_attention_sm90: {len(hgmma)} kernel instances, HGMMA "
           f"counts {hgmma}: the products are not on wgmma")
-    log(f"[build] flash_attention_sm90 SASS: {len(kernels)} kernel "
+    log(f"[build] flash_attention_sm90 SASS: {len(hgmma)} kernel "
         f"instances, each with HGMMA ({min(hgmma)}-{max(hgmma)} a "
         "instance)")
+    funcs = _sass_functions(built["ssd_scan_tc"], cuobjdump)
+    hmma = [f.count("HMMA") for k, f in funcs.items()
+            if "ssd_chunk_state" in k or "ssd_chunk_scan" in k]
+    check(hmma and min(hmma) > 0,
+          f"ssd_scan_tc: {len(hmma)} chunk-state/chunk-scan instances, HMMA "
+          f"counts {hmma}: the products are not on the tensor cores")
+    log(f"[build] ssd_scan_tc SASS: {len(hmma)} chunk-state and chunk-scan "
+        f"instances, each with HMMA ({min(hmma)}-{max(hmma)} an instance)")
     return secs
 
 
@@ -249,36 +297,90 @@ def phase_kernels() -> int:
     return worst
 
 
+#: DPUs of a full UPMEM system (20 DIMMs x 2 ranks x 64): above the
+#: resident limit, padded to 4,096
+FULL_SYSTEM_DPUS = 2560
+
+
 def phase_step() -> dict:
-    """cycle_step against the eager card step on every knob case, 64 steps
-    a launch (cases.hold_against_plain: bitwise after 1, 7 and all
-    steps); returns the cases' total steps and launches."""
+    """cycle_step against the eager card step, 64 steps a launch
+    (cases.hold_against_plain: bitwise after 1, 7 and all steps): every
+    knob case on the resident route, and cross_dpu one DPU above the
+    resident limit and at a full 2,560-DPU system on the stepwise route;
+    returns the cases' total steps and launches."""
     from repro_torch.kernels.cycle_step import cases
-    names = sorted(cases.CASES) + ["cache_va"]
+    from repro_torch.kernels.cycle_step.cycle_step import max_dpus
+    limit = max_dpus(4)
+    runs = [(name, None, "resident")
+            for name in sorted(cases.CASES) + ["cache_va"]]
+    runs += [("cross_dpu", limit + 1, "stepwise"),
+             ("cross_dpu", FULL_SYSTEM_DPUS, "stepwise")]
     total = {"cases": 0, "steps": 0, "launches": 0, "max_abs_err": None}
     t0 = time.perf_counter()
-    for name in names:
-        case = cases.cache_va() if name == "cache_va" else cases.launch(name)
+    for name, n_dpus, route in runs:
+        case = cases.cache_va() if name == "cache_va" \
+            else cases.launch(name, n_dpus)
         try:
             res = cases.hold_against_plain(case, 64, device="cuda")
         except AssertionError as e:
-            raise SmokeError(f"cycle_step != eager card step on {name}: {e}")
+            raise SmokeError(f"cycle_step != eager card step on {name} "
+                             f"({case[0].n_dpus} DPUs): {e}")
         check(res["alu_launches"] == 0,
               f"{name}: {res['alu_launches']} alu_exec launches in cycle_step")
-        log(f"[step] {name} ({case[0].n_dpus} DPUs x {case[4]} tasklets): "
-            f"bitwise equal after 1, 7 and {res['steps']} steps, "
-            f"{res['launches']} launches")
+        check(res["route"] == route, f"{name} ({case[0].n_dpus} DPUs) took "
+              f"the {res['route']} route, not the {route} one")
+        log(f"[step] {name} ({case[0].n_dpus} DPUs x {case[4]} tasklets, "
+            f"{res['route']} route): bitwise equal after 1, 7 and "
+            f"{res['steps']} steps, {res['launches']} launches")
         total["cases"] += 1
         total["steps"] += res["steps"]
         total["launches"] += res["launches"]
     total["max_abs_err"] = 0               # every leaf of every case equal
     log(f"[step] {total['cases']} cases bitwise equal "
         f"({time.perf_counter() - t0:.1f} s)")
-    from repro_torch.kernels.cycle_step.cycle_step import max_dpus
-    total["max_dpus"] = {T: max_dpus(T) for T in (16, 24)}
-    log(f"[step] one launch takes at most {total['max_dpus']} DPUs "
-        f"(by tasklets) on this card: every block resident")
+    total["max_dpus"] = {T: max_dpus(T) for T in (4, 16, 24)}
+    log(f"[step] the resident route takes at most {total['max_dpus']} DPUs "
+        f"(by tasklets) on this card: every block resident; above it the "
+        f"stepwise route")
+    total["us_per_step"] = {n: _route_step_us(n) for n in
+                            (2048, FULL_SYSTEM_DPUS)}
     return total
+
+
+def _route_step_us(n_dpus: int, blocks: int = 4) -> dict:
+    """µs a step of cycle_step's route for cross_dpu at ``n_dpus`` (set up
+    as the driver sets it up): ``blocks`` raw 64-step launches between
+    CUDA events while every DPU still runs, beside the eager card step
+    (its plain version) on a copy of the same state."""
+    import torch
+    from repro_torch.core import compile_cache
+    from repro_torch.kernels.cycle_step import cases
+    cfg, binary, wram, mram, T = cases.launch("cross_dpu", n_dpus)
+    prep = compile_cache.prepare(cfg, binary, wram, mram, T,
+                                 device=torch.device("cuda"))
+    kern, K = prep.kernel, compile_cache.STEPS_PER_CHECK
+    plain = {k: v.clone() for k, v in prep.st.items()}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(blocks):
+        kern.run(K)                        # uncounted
+    t1.record()
+    torch.cuda.synchronize()
+    check(kern.predicate(), f"cross_dpu at {n_dpus} DPUs stopped inside "
+          "the timed window")
+    us = t0.elapsed_time(t1) * 1e3 / (blocks * K)
+    t0.record()
+    for _ in range(K):
+        plain.update(prep.step_fn(prep.ir, plain))
+    t1.record()
+    torch.cuda.synchronize()
+    res = {"route": kern.route, "dpus": int(prep.st["status"].shape[0]),
+           "us_per_step": us, "plain_us_per_step":
+           t0.elapsed_time(t1) * 1e3 / K}
+    log(f"[step] cycle_step cross_dpu at {n_dpus} DPUs: " + json.dumps(res))
+    return res
 
 
 def _system(cfg, device):
@@ -551,6 +653,12 @@ FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, dk=128, dv=128, causal=True,
 SSD_CASES = [(1, 64, 3, 3, 8, 8, 16), (1, 128, 3, 3, 16, 8, 32),
              (1, 128, 3, 3, 32, 16, 64), (1, 96, 3, 3, 8, 8, 96),
              (2, 50, 4, 2, 8, 8, 16)]
+#: tests/test_torch_cuda.py's tensor-core SSD cases (bf16): Q 64/128/256,
+#: P 16/64/128, N 16/64/128, G 1, H / 2 and H, ragged S, S below the chunk
+SSD_TC_CASES = [(1, 256, 4, 2, 16, 16, 64), (2, 300, 4, 1, 64, 64, 128),
+                (1, 512, 4, 2, 128, 128, 256), (2, 1000, 6, 3, 64, 128, 256),
+                (1, 100, 2, 1, 64, 128, 256), (2, 200, 4, 2, 128, 16, 64),
+                (1, 192, 3, 3, 32, 32, 64)]
 #: mamba2-130m prefill in the LM main path: 4 prompts of 2048 tokens
 SSD_MAIN = dict(b=4, s=2048, h=24, g=1, p=64, n=128, chunk=256)
 #: rtol = atol.  In bf16 the outputs are rounded to 8 significant bits,
@@ -598,12 +706,15 @@ def _tol_ratio(got, want, tol) -> float:
 
 def phase_lm_kernels() -> dict:
     """Flash and SSD kernels vs their plain versions on the card; returns
-    the max |err| of each at its main-path shape in bf16."""
+    the max |err| of each at its main-path shape in bf16 (the scalar SSD
+    kernel's through its raw launcher: bf16 goes to the tensor-core
+    route)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     keys = ("s", "h", "kv", "dk", "dv", "causal", "window")
@@ -632,22 +743,40 @@ def phase_lm_kernels() -> dict:
               f"max |err| {err}")
         if shape is FLASH_MAIN and dt == "bfloat16":
             worst["flash_attention"] = err
-    ssd = [(dict(zip(("b", "s", "h", "g", "p", "n", "chunk"), c)), "float32")
-           for c in SSD_CASES]
+    keys = ("b", "s", "h", "g", "p", "n", "chunk")
+    ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
+    ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES]
     ssd += [(SSD_MAIN, "float32"), (SSD_MAIN, "bfloat16")]
     for shape, dt in ssd:
         args = _ssd_inputs(gen, dtype=getattr(torch, dt), **shape)
+        kernel = sops.route(args[0].dtype, shape["n"], shape["p"],
+                            shape["chunk"])
+        tc_before = sops.launches_tc
         y, state = sops.ssd_scan(*args, chunk=shape["chunk"])
         yw, sw = ssd_scan_ref(*args, chunk=shape["chunk"])
         torch.cuda.synchronize()
+        check(kernel == ("tc" if dt == "bfloat16" else "scalar")
+              and sops.launches_tc - tc_before == (kernel == "tc"),
+              f"ssd_scan at {shape} {dt} ran the {kernel} route")
         tol = SSD_TOL[dt]
         err = max(_max_err(y, yw), _max_err(state, sw))
         ratio = max(_tol_ratio(y, yw, tol), _tol_ratio(state, sw, tol))
-        log(f"[kernels] ssd_scan {shape} {dt}: max |err| {err:.3g} "
-            f"(tolerance {tol}, rtol = atol; {ratio:.3g} of it used)")
-        check(ratio <= 1, f"ssd_scan kernel != plain at {shape} {dt}: max |err| "
-              f"{err}")
+        log(f"[kernels] ssd_scan ({kernel}) {shape} {dt}: max |err| "
+            f"{err:.3g} (tolerance {tol}, rtol = atol; {ratio:.3g} of it "
+            "used)")
+        check(ratio <= 1, f"ssd_scan {kernel} route != plain at {shape} "
+              f"{dt}: max |err| {err}")
         if shape is SSD_MAIN and dt == "bfloat16":
+            worst["ssd_scan_tc"] = err
+            # the scalar kernel on the same bf16 inputs (raw launcher)
+            ssd_scan_cuda(*args, y, state, shape["chunk"])
+            torch.cuda.synchronize()
+            err = max(_max_err(y, yw), _max_err(state, sw))
+            ratio = max(_tol_ratio(y, yw, tol), _tol_ratio(state, sw, tol))
+            log(f"[kernels] ssd_scan (scalar, raw launcher) {shape} {dt}: "
+                f"max |err| {err:.3g} ({ratio:.3g} of the tolerance used)")
+            check(ratio <= 1, f"ssd_scan scalar kernel != plain at {shape} "
+                  f"{dt}: max |err| {err}")
             worst["ssd_scan"] = err
     return worst
 
@@ -701,8 +830,9 @@ def phase_lm_parity():
             f"CPU {t_cpu:.2f} s")
         check(launches[kernel] == cfg.n_layers,
               f"{arch}: {kernel} launches {launches[kernel]} != 2 layers")
-        check(launches["flash_attention_sm90"] == 0,
-              f"{arch}: float32 reached the bf16 tensor-core flash kernel")
+        check(launches["flash_attention_sm90"] == 0
+              and launches["ssd_scan_tc"] == 0,
+              f"{arch}: float32 reached a bf16 tensor-core kernel")
         bad = {k: e for k, e in errs.items() if not e <= LM_PARITY_TOL}
         check(not bad, f"{arch} card vs CPU prefill differs: {bad}")
         del cpu
@@ -796,6 +926,9 @@ def phase_lm_main() -> dict:
     check(launches["ssd_scan"] == 24 * 1,
           f"ssd_scan launches {launches['ssd_scan']} != 24 layers x 1 "
           "prefill")
+    check(launches["ssd_scan_tc"] == launches["ssd_scan"],
+          f"of {launches['ssd_scan']} ssd_scan launches, "
+          f"{launches['ssd_scan_tc']} on the tensor-core route")
     return {"runs": runs, "launches": launches}
 
 
@@ -837,15 +970,17 @@ def phase_lm_kernel_times() -> dict:
     """Device ms per call at the main path's shapes (bf16) of each kernel
     (raw launcher, uncounted), its plain version and, for flash, the
     PyTorch library call that computes the same function and the scalar
-    kernel in bf16 (the kernel the tensor-core one replaced there), each
-    between CUDA events in this one call."""
+    kernel in bf16 (the kernel the tensor-core one replaced there); for
+    the SSD scan both routes in turns; each between CUDA events in this
+    one call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_cuda, flash_attention_sm90_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        ssd_scan_cuda, ssd_scan_tc_cuda)
     gen = torch.Generator(device="cuda").manual_seed(6)
     bf16 = torch.bfloat16
     res = {}
@@ -878,15 +1013,24 @@ def phase_lm_kernel_times() -> dict:
                         dtype=torch.float32, device="cuda")
     flops, nbytes = _ssd_work(esize=2, **sm)
     bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
-    res["ssd_scan"] = {
-        "ms": cuda_time_ms(lambda: ssd_scan_cuda(*args, y, state,
-                                                 sm["chunk"]), n=20, warm=3),
-        "plain_ms": cuda_time_ms(lambda: ssd_scan_ref(*args,
-                                                      chunk=sm["chunk"]),
-                                 n=3, warm=1),
-        "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-        "bytes": nbytes}
+    plain_ms = cuda_time_ms(lambda: ssd_scan_ref(*args, chunk=sm["chunk"]),
+                            n=3, warm=1)
+    # the two routes in turns: scalar, tensor cores, tensor cores, scalar
+    tc_ms, scalar_ms = [], []
+    for times, fn, n in ((scalar_ms, ssd_scan_cuda, 10),
+                         (tc_ms, ssd_scan_tc_cuda, 100),
+                         (tc_ms, ssd_scan_tc_cuda, 100),
+                         (scalar_ms, ssd_scan_cuda, 10)):
+        times.append(cuda_time_ms(lambda: fn(*args, y, state, sm["chunk"]),
+                                  n=n, warm=3))
+    for name, times in (("ssd_scan_tc", tc_ms), ("ssd_scan", scalar_ms)):
+        res[name] = {"ms": sum(times) / 2, "ms_runs": times,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "flops": flops, "bytes": nbytes}
+    r = res["ssd_scan_tc"]
+    r["bound_share"] = bound_ms / r["ms"]
+    r["scalar_speedup"] = res["ssd_scan"]["ms"] / r["ms"]
     for name, r in res.items():
         log(f"[kernels] {name} at the main path's shape, bf16: "
             + json.dumps(r))
@@ -897,6 +1041,12 @@ def phase_lm_kernel_times() -> dict:
         f"scalar kernel {r['scalar_ms']:.4f} ms ({r['scalar_speedup']:.1f}x "
         f"slower); SDPA {r['library_ms']:.5f} ms (kernel / SDPA "
         f"{r['library_ratio']:.3f})")
+    r = res["ssd_scan_tc"]
+    log(f"[kernels] ssd_scan at {SSD_MAIN}, bf16: tensor-core route "
+        f"{r['ms']:.5f} ms ({r['bound_share']:.3f} of the "
+        f"{r['bound_ms']:.5f} ms bound); scalar kernel "
+        f"{res['ssd_scan']['ms']:.4f} ms ({r['scalar_speedup']:.1f}x "
+        "slower)")
     return res
 
 
@@ -933,7 +1083,8 @@ def main(argv=None) -> int:
         phase_build()
         err = phase_kernels()
         lm_err = phase_lm_kernels()
-        step_err = phase_step()["max_abs_err"]
+        step_run = phase_step()
+        step_err = step_run["max_abs_err"]
         phase_golden()
         full = phase_full_parity()
         main_run = phase_main_path(args.scale)
@@ -970,13 +1121,19 @@ def main(argv=None) -> int:
             ("src/repro/kernels/flash_attention/flash_attention.py:67",
              "flash_attention/csrc/flash_attention_sm90.cu"),
         "ssd_scan": ("src/repro/kernels/ssd_scan/ssd_scan.py:57",
-                     "ssd_scan/csrc/ssd_scan.cu")}
+                     "ssd_scan/csrc/ssd_scan.cu"),
+        "ssd_scan_tc": ("src/repro/kernels/ssd_scan/ssd_scan.py:57",
+                        "ssd_scan/csrc/ssd_scan_tc.cu")}
+    # the scalar SSD kernel's launches on the main path: those of neither
+    # route but the tensor-core one
+    launched = dict(lm_run["launches"])
+    launched["ssd_scan"] -= launched["ssd_scan_tc"]
     for name, (src, csrc) in replaces.items():
         r = lm_times[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{csrc}",
-            "replaces": src, "launches": lm_run["launches"][name],
+            "replaces": src, "launches": launched[name],
             "max_abs_err": lm_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -989,7 +1146,9 @@ def main(argv=None) -> int:
         f"{full['warm_s']:.3f} s; main path {main_run['kips']:.3f} KIPS, "
         f"{main_run['cycles_per_s']:.1f} simulated cycles/s, "
         f"{main_run['steps_per_s']:.1f} steps/s, cycle_step "
-        f"{step_times['us_per_step']:.3f} µs a step; "
+        f"{step_times['us_per_step']:.3f} µs a step (stepwise route at "
+        f"{FULL_SYSTEM_DPUS} DPUs: "
+        f"{step_run['us_per_step'][FULL_SYSTEM_DPUS]['us_per_step']:.2f}); "
         f"smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -327,9 +327,10 @@ def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
     predicates equal; raises ``AssertionError`` naming the first leaf that
     differs.  ``case``: ``(cfg, binary, wram, mram, T)``.
 
-    Returns ``{"steps", "launches", "alu_launches"}``: the steps taken, the
-    kernel's launches and the ALU kernel's launches made inside them (the
-    fused kernel launches none)."""
+    Returns ``{"steps", "launches", "alu_launches", "route"}``: the steps
+    taken, the kernel's launches, the ALU kernel's launches made inside
+    them (the fused kernel launches none) and the kernel's route
+    (``ops.launch_route``)."""
     import torch
     from repro_torch.core import backend, compile_cache, engine
     from repro_torch.core.carry import state_to_torch
@@ -365,7 +366,8 @@ def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
             _assert_same(plain, fused, f"after {n} steps")
         assert kern.predicate() == going, f"predicate after {n} steps"
         if not going:
-            return {"steps": n, "launches": launches, "alu_launches": alu}
+            return {"steps": n, "launches": launches, "alu_launches": alu,
+                    "route": kern.route}
     raise AssertionError(f"still running after {max_steps} steps")
 
 

@@ -37,6 +37,16 @@
 // * after K steps the kernel writes the termination predicate into
 //   `flag`; the host reads it once per launch.
 //
+// Above the resident limit (cycle_step_max_dpus) a cooperative launch is
+// refused, so the stepwise route takes every step as two ordinary
+// launches and lets the kernel boundary order the DPUs: a plan launch in
+// which each running DPU ORs its step's wide bits and `go` (kGo) into
+// wide[t], then a run launch that reads them instead of waiting.  Each
+// launch loads its DPU's state from device memory and the run launch
+// stores it back; after the K steps one more plan launch ORs the
+// predicate into `flag`.  The same step_dpu, the same result bit for bit;
+// speed is not its aim.
+//
 // What bounds it: not bytes (the state of a 64-DPU rank is ~0.7 MB, read
 // and written once a launch) but the serial chain of each step, a few
 // hundred dependent instructions and shared/L2 accesses.
@@ -109,9 +119,10 @@ constexpr int NREGS = 24;
 constexpr int MAX_DMA_BYTES = 2048;
 constexpr int MAX_DMA_WORDS = MAX_DMA_BYTES / 4;
 constexpr int MAX_SLOTS = 8;
-// DPUs (warps) per block.  Every block of a launch must be resident at
-// once (the cross-DPU waits and the grid barrier), so a launch takes at
-// most cycle_step_max_dpus() DPUs.
+// DPUs (warps) per block.  Every block of a resident launch must be
+// resident at once (the cross-DPU waits and the grid barrier), so that
+// route takes at most cycle_step_max_dpus() DPUs; the stepwise route
+// takes any number.
 constexpr int DPB = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -123,13 +134,16 @@ struct Args {
   // (D,): per DPU, 1 + the absolute index of the last step whose issue
   // plan it has published, or kStopped once it runs no more
   long long* prog;
-  uint32_t* wide;        // (K,): bit s of step t: a DMA of slot s is wide
+  // (K,): bit s of step t: a DMA of slot s is wide; kGo (stepwise route
+  // only): some DPU runs at step t
+  uint32_t* wide;
   long long base;        // absolute index of this launch's first step
   int32_t c[N_CFG];
   float inv_bw;          // float32(1) / float32(effective_mram_bw)
   float inv_win;         // float32(1) / float32(timeseries_window)
 };
 constexpr long long kStopped = 0x7fffffffffffffffLL;
+constexpr uint32_t kGo = 1u << 31;
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -272,7 +286,8 @@ __device__ __forceinline__ uint32_t plan(const Dpu& u, const Warp& w,
 // Whether some DPU's DMA in slot s of step `step` is wide: waits until
 // every DPU has published its plan of that step (or stopped).  All DPUs
 // are resident (cooperative launch), and each publishes before it can
-// wait, so the DPU furthest behind never waits on another.
+// wait, so the DPU furthest behind never waits on another.  (The
+// stepwise route reads wide[t] instead: its plan launch has ended.)
 __device__ __noinline__ bool wide_anywhere(const Args& args, const Warp& w,
                                            long long step, int t, int s) {
   for (int e = w.lane; e < w.D; e += 32) {
@@ -288,6 +303,8 @@ __device__ __noinline__ bool wide_anywhere(const Args& args, const Warp& w,
 // One simulated cycle of this DPU with go = true (some DPU runs): the
 // DRAM engine, the barrier release, the planned issue slots (none when
 // the DPU itself has stopped) and the cycle's classification.
+// kResident: the route (how a DMA learns the other DPUs' widths).
+template <bool kResident>
 __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
                                          const Args& args, bool running,
                                          int t) {
@@ -464,7 +481,9 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
         if (sw > small)
           nw = MAX_DMA_WORDS;
         else if (sw == small && (b0 + small - 1 >= top || b0 <= -small)
-                 && wide_anywhere(args, w, args.base + t, t, s))
+                 && (kResident
+                         ? wide_anywhere(args, w, args.base + t, t, s)
+                         : ((__ldcg(args.wide + t) >> s) & 1u)))
           nw = MAX_DMA_WORDS;
       }
       const int last = nw - 1;
@@ -601,6 +620,114 @@ __device__ __forceinline__ int vote_max(int v, uint32_t* partial) {
   return b;
 }
 
+// This warp's DPU: set up `w` and load `u` (the register file into
+// shared memory).  Returns false for a warp past the last DPU, which gets
+// a stopped DPU and must store nothing.
+__device__ __forceinline__ bool load_dpu(const Args& args, int32_t* smem,
+                                         Warp& w, Dpu& u) {
+  const int* c = args.c;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dpb = blockDim.x >> 5;
+  const int d = blockIdx.x * dpb + warp;
+  const int T = c[C_T], W = c[C_W], M = c[C_M];
+  const bool live = d < c[C_D];
+  w.lane = lane;
+  w.d = d;
+  w.T = T;
+  w.W = W;
+  w.M = M;
+  w.D = c[C_D];
+  w.P = c[C_P];
+  w.small = c[C_SMALL];
+  w.SS = c[C_SS];
+  w.act = lane < T;
+  w.wram = leaf<int32_t>(args, L_WRAM) + static_cast<size_t>(d) * W;
+  w.mram = leaf<int32_t>(args, L_MRAM) + static_cast<size_t>(d) * M;
+  w.sregs = smem + warp * T * NREGS;
+  w.splan = smem + dpb * T * NREGS + warp * MAX_SLOTS * 3;
+
+  u = Dpu{};
+  u.status = DONE;
+  u.last_dest = -1;
+  u.open_row = -1;
+  if (live) {
+    const int i = d * T + lane;
+    if (w.act) {
+      u.pc = leaf<int32_t>(args, L_PC)[i];
+      u.status = leaf<int32_t>(args, L_STATUS)[i];
+      u.next_issue = leaf<int32_t>(args, L_NEXT_ISSUE)[i];
+      u.last_dest = leaf<int32_t>(args, L_LAST_DEST)[i];
+      u.last_ready = leaf<int32_t>(args, L_LAST_READY)[i];
+      u.req_valid = leaf<uint8_t>(args, L_REQ_VALID)[i] != 0;
+      u.req_wram = leaf<int32_t>(args, L_REQ_WRAM)[i];
+      u.req_mram = leaf<int32_t>(args, L_REQ_MRAM)[i];
+      u.req_bytes = leaf<int32_t>(args, L_REQ_BYTES)[i];
+      u.req_write = leaf<uint8_t>(args, L_REQ_WRITE)[i] != 0;
+      u.req_enq = leaf<int32_t>(args, L_REQ_ENQ)[i];
+    }
+    u.cycle = leaf<int32_t>(args, L_CYCLE)[d];
+    u.port_busy = leaf<int32_t>(args, L_PORT_BUSY)[d];
+    u.rr = leaf<int32_t>(args, L_RR)[d];
+    u.eng_active = leaf<uint8_t>(args, L_ENG_ACTIVE)[d] != 0;
+    u.eng_thread = leaf<int32_t>(args, L_ENG_THREAD)[d];
+    u.eng_finish = leaf<int32_t>(args, L_ENG_FINISH)[d];
+    u.open_row = leaf<int32_t>(args, L_OPEN_ROW)[d];
+    if (lane < N_COUNTERS) u.cnt = leaf<int32_t>(args, kCounterLeaf[lane])[d];
+    else if (lane >= K_CLS && lane < K_CLS + 6)
+      u.cnt = leaf<int32_t>(args, L_C_CLS)[d * 6 + lane - K_CLS];
+    if (lane == F_RD_BYTES) u.fcnt = leaf<float>(args, L_C_DMA_RD_BYTES)[d];
+    if (lane == F_WR_BYTES) u.fcnt = leaf<float>(args, L_C_DMA_WR_BYTES)[d];
+    if (lane == F_TS_ACC) u.fcnt = leaf<float>(args, L_TS_ACC)[d];
+    const int32_t* h = leaf<int32_t>(args, L_C_HIST) + d * (T + 1);
+    if (lane <= T) u.hist = h[lane];
+    if (T == 32) u.hist32 = h[32];
+    const int32_t* r = leaf<int32_t>(args, L_REGS) + d * T * NREGS;
+    for (int k = lane; k < T * NREGS; k += 32) w.sregs[k] = r[k];
+  }
+  __syncwarp();
+  return live;
+}
+
+// Store this warp's DPU back (a live warp only).
+__device__ __forceinline__ void store_dpu(const Args& args, const Warp& w,
+                                          const Dpu& u) {
+  const int lane = w.lane, d = w.d, T = w.T;
+  const int i = d * T + lane;
+  if (w.act) {
+    leaf<int32_t>(args, L_PC)[i] = u.pc;
+    leaf<int32_t>(args, L_STATUS)[i] = u.status;
+    leaf<int32_t>(args, L_NEXT_ISSUE)[i] = u.next_issue;
+    leaf<int32_t>(args, L_LAST_DEST)[i] = u.last_dest;
+    leaf<int32_t>(args, L_LAST_READY)[i] = u.last_ready;
+    leaf<uint8_t>(args, L_REQ_VALID)[i] = u.req_valid;
+    leaf<int32_t>(args, L_REQ_WRAM)[i] = u.req_wram;
+    leaf<int32_t>(args, L_REQ_MRAM)[i] = u.req_mram;
+    leaf<int32_t>(args, L_REQ_BYTES)[i] = u.req_bytes;
+    leaf<uint8_t>(args, L_REQ_WRITE)[i] = u.req_write;
+    leaf<int32_t>(args, L_REQ_ENQ)[i] = u.req_enq;
+  }
+  if (lane == 0) {
+    leaf<int32_t>(args, L_CYCLE)[d] = u.cycle;
+    leaf<int32_t>(args, L_PORT_BUSY)[d] = u.port_busy;
+    leaf<int32_t>(args, L_RR)[d] = u.rr;
+    leaf<uint8_t>(args, L_ENG_ACTIVE)[d] = u.eng_active;
+    leaf<int32_t>(args, L_ENG_THREAD)[d] = u.eng_thread;
+    leaf<int32_t>(args, L_ENG_FINISH)[d] = u.eng_finish;
+    leaf<int32_t>(args, L_OPEN_ROW)[d] = u.open_row;
+  }
+  if (lane < N_COUNTERS) leaf<int32_t>(args, kCounterLeaf[lane])[d] = u.cnt;
+  else if (lane >= K_CLS && lane < K_CLS + 6)
+    leaf<int32_t>(args, L_C_CLS)[d * 6 + lane - K_CLS] = u.cnt;
+  if (lane == F_RD_BYTES) leaf<float>(args, L_C_DMA_RD_BYTES)[d] = u.fcnt;
+  if (lane == F_WR_BYTES) leaf<float>(args, L_C_DMA_WR_BYTES)[d] = u.fcnt;
+  if (lane == F_TS_ACC) leaf<float>(args, L_TS_ACC)[d] = u.fcnt;
+  int32_t* h = leaf<int32_t>(args, L_C_HIST) + d * (T + 1);
+  if (lane <= T) h[lane] = u.hist;
+  if (T == 32 && lane == 0) h[32] = u.hist32;
+  int32_t* r = leaf<int32_t>(args, L_REGS) + d * T * NREGS;
+  for (int k = lane; k < T * NREGS; k += 32) r[k] = w.sregs[k];
+}
+
 // K steps of every DPU.  Phase 1: each warp steps its DPU while the DPU
 // runs (then `go` is true whatever the others do), publishing each
 // step's issue plan; a DMA whose result depends on the other DPUs' DMAs
@@ -609,7 +736,9 @@ __device__ __forceinline__ int vote_max(int v, uint32_t* partial) {
 // the launch.  Phase 2: a DPU that stopped at step s < G takes steps
 // s..G-1 with go = true and nothing to issue (it still retires DMAs,
 // releases barriers, drains its port and accumulates the time series).
-// (at least 4 blocks an SM: at most 128 registers a thread)
+// (at least 4 blocks an SM: at most 128 registers a thread.  It keeps its
+// own copy of load_dpu's and store_dpu's code: built from those two, ptxas
+// gives it 99 registers instead of 111 and it runs ~1% slower.)
 __global__ void __launch_bounds__(DPB * 32, 4)
 cycle_step_kernel(const Args args) {
   const int* c = args.c;
@@ -691,7 +820,7 @@ cycle_step_kernel(const Args args) {
             args.base + stop + 1;
       }
       __syncwarp();
-      step_dpu(u, w, args, true, stop);
+      step_dpu<true>(u, w, args, true, stop);
     }
     run_end = stop == K && dpu_running(u, w, c);
     if (!run_end && lane == 0) {  // it will not run again
@@ -706,7 +835,7 @@ cycle_step_kernel(const Args args) {
 
   // ---- phase 2: go was true up to step G for the DPUs that stopped ----
   if (live) {
-    for (int t = stop; t < G; ++t) step_dpu(u, w, args, false, t);
+    for (int t = stop; t < G; ++t) step_dpu<true>(u, w, args, false, t);
   }
 
   // ---- store the state back ----
@@ -753,6 +882,39 @@ cycle_step_kernel(const Args args) {
   }
 }
 
+// Stepwise route, the plan launch of step t < K: each running DPU ORs
+// its issue plan's wide bits and kGo into wide[t].  At t == K (after the
+// launch's last step) each running DPU ORs 1 into `flag` instead.
+__global__ void __launch_bounds__(DPB * 32)
+cycle_plan_kernel(const Args args, int t) {
+  extern __shared__ int32_t smem[];
+  Warp w;
+  Dpu u;
+  if (!load_dpu(args, smem, w, u) || !dpu_running(u, w, args.c)) return;
+  if (t == args.c[C_K]) {
+    if (w.lane == 0) atomicOr(args.flag, 1);
+    return;
+  }
+  const uint32_t bits = plan(u, w, args);
+  if (w.lane == 0) atomicOr(args.wide + t, bits | kGo);
+}
+
+// Stepwise route, the run launch of step t: with go (wide[t] & kGo) every
+// DPU takes the step as step_dpu does on the resident route, reading
+// the plan launch's wide bits; without it the step is gated off.
+__global__ void __launch_bounds__(DPB * 32)
+cycle_run_kernel(const Args args, int t) {
+  if (!(__ldcg(args.wide + t) & kGo)) return;
+  extern __shared__ int32_t smem[];
+  Warp w;
+  Dpu u;
+  if (!load_dpu(args, smem, w, u)) return;
+  const bool running = dpu_running(u, w, args.c);
+  if (running) plan(u, w, args);
+  step_dpu<false>(u, w, args, running, t);
+  store_dpu(args, w, u);
+}
+
 size_t smem_bytes(int dpb, int T) {
   return static_cast<size_t>(dpb) * (T * NREGS + MAX_SLOTS * 3) * 4;
 }
@@ -784,6 +946,12 @@ int cycle_step_max_dpus(int T) {
   return per_sm * sms * DPB;
 }
 
+static bool args_ok(const Args* args) {
+  const int D = args->c[C_D], T = args->c[C_T];
+  return D >= 1 && T >= 1 && T <= 32 && args->c[C_SS] >= 1
+         && args->c[C_SS] <= MAX_SLOTS && args->c[C_K] >= 1;
+}
+
 // Launch K steps (args->c[C_K]) over args->c[C_D] DPUs, DPB DPUs (warps)
 // a block (fewer when there are fewer DPUs), on `stream`.  One block: an
 // ordinary launch; more: a cooperative launch (refused unless every
@@ -791,10 +959,8 @@ int cycle_step_max_dpus(int T) {
 // (`args` points at a struct Args: a C type keeps the symbol external.)
 int cycle_step_launch(const void* argp, void* stream) {
   const Args* args = static_cast<const Args*>(argp);
+  if (!args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
   const int D = args->c[C_D], T = args->c[C_T];
-  if (D < 1 || T < 1 || T > 32 || args->c[C_SS] < 1
-      || args->c[C_SS] > MAX_SLOTS || args->c[C_K] < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int dpb = D < DPB ? D : DPB;
   const unsigned grid = (D + dpb - 1) / dpb;
   const size_t smem = smem_bytes(dpb, T);  // < 48 KiB: no opt-in needed
@@ -810,6 +976,35 @@ int cycle_step_launch(const void* argp, void* stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stepwise route of the same K steps, for any number of DPUs: a plan
+// and a run launch a step, a vote launch for the predicate, all ordinary
+// launches on `stream`; leaves wide zero, as the resident route does.
+// Returns the first cudaError_t as int.
+int cycle_step_launch_stepwise(const void* argp, void* stream) {
+  const Args* args = static_cast<const Args*>(argp);
+  if (!args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  const int D = args->c[C_D], T = args->c[C_T], K = args->c[C_K];
+  const int dpb = D < DPB ? D : DPB;
+  const unsigned grid = (D + dpb - 1) / dpb;
+  const size_t smem = smem_bytes(dpb, T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaSuccess;
+  for (int t = 0; t < K && e == cudaSuccess; ++t) {
+    cycle_plan_kernel<<<grid, dpb * 32, smem, s>>>(*args, t);
+    cycle_run_kernel<<<grid, dpb * 32, smem, s>>>(*args, t);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(args->flag, 0, sizeof(int32_t), s);
+  if (e == cudaSuccess) {
+    cycle_plan_kernel<<<grid, dpb * 32, smem, s>>>(*args, K);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(args->wide, 0, sizeof(uint32_t) * K, s);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -151,6 +151,13 @@ class Args(ctypes.Structure):
 
 _FNS = {}
 
+#: how a launch orders the DPUs -> its C launcher: ``"resident"``, one
+#: cooperative launch of K steps (every block resident: at most
+#: :func:`max_dpus` DPUs), or ``"stepwise"``, a plan and a run launch a
+#: step (any number of DPUs)
+LAUNCHERS = {"resident": "cycle_step_launch",
+             "stepwise": "cycle_step_launch_stepwise"}
+
 
 def library() -> ctypes.CDLL:
     """Build (once) and load the kernel's shared library, and check that
@@ -168,10 +175,11 @@ def library() -> ctypes.CDLL:
         bad = {k: (_FNS[k], v) for k, v in want.items() if _FNS[k] != v}
         if bad:
             raise RuntimeError(f"cycle_step library layout differs: {bad}")
-        fn = lib.cycle_step_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FNS["launch"] = fn
+        for route, name in LAUNCHERS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _FNS[route] = fn
         fn = lib.cycle_step_max_dpus
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
         _FNS["max_dpus"] = fn
@@ -179,9 +187,9 @@ def library() -> ctypes.CDLL:
 
 
 def max_dpus(n_threads: int) -> int:
-    """The most DPUs of ``n_threads`` tasklets one launch can take on the
-    current CUDA device: every block of the kernel resident at once.
-    Raises on a CUDA error."""
+    """The most DPUs of ``n_threads`` tasklets the resident route can take
+    on the current CUDA device: every block of the kernel resident at
+    once.  Raises on a CUDA error."""
     if not _FNS:
         library()
     n = _FNS["max_dpus"](n_threads)
@@ -191,12 +199,13 @@ def max_dpus(n_threads: int) -> int:
     return n
 
 
-def cycle_step_cuda(args: Args, stream: int) -> None:
+def cycle_step_cuda(args: Args, stream: int, route: str) -> None:
     """Launch ``args.c[K]`` steps on ``stream`` (a ``cudaStream_t`` as
-    int).  Raises on a launch error."""
+    int) by ``route`` (a key of :data:`LAUNCHERS`).  Raises on a launch
+    error."""
     if not _FNS:
         library()
-    err = _FNS["launch"](ctypes.byref(args), stream)
+    err = _FNS[route](ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError(f"cycle_step kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"cycle_step kernel launch ({route}) failed: "
+                           f"cudaError {err}")

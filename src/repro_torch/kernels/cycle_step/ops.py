@@ -18,10 +18,13 @@ reads (one host sync per launch).  ``launches`` counts kernel launches
 the scalar engine (the Table I defaults, ``forwarding``, ``unified_rf``,
 ``superscalar`` up to :data:`MAX_SLOTS`, ``mmu``, ``cache_mode``,
 ``event_skip``, ``collect_detail``, ``mram_bw_scale``) with at most 32
-tasklets, one warp's lanes (UPMEM has at most 24).  A launch also takes
-at most :func:`~repro_torch.kernels.cycle_step.cycle_step.max_dpus` DPUs,
-as many as the card holds blocks of the kernel at once (it needs every
-block resident); :class:`CycleStep` refuses more.
+tasklets, one warp's lanes (UPMEM has at most 24), at any DPU count.
+:func:`launch_route` says how a launch of D DPUs runs: ``"resident"``
+(one cooperative launch of K steps, no barrier a step) up to
+:func:`~repro_torch.kernels.cycle_step.cycle_step.max_dpus` DPUs, as
+many as the card holds blocks of the kernel at once, ``"stepwise"`` (a
+plan and a run launch a step) above it.  Both give the same state bit
+for bit.
 """
 from __future__ import annotations
 
@@ -67,6 +70,13 @@ def route(cfg: DPUConfig, n_threads: Optional[int] = None) -> str:
     return "cycle_step"
 
 
+def launch_route(n_dpus: int, n_threads: int) -> str:
+    """How a launch of ``n_dpus`` DPUs of ``n_threads`` tasklets runs on
+    the current CUDA device: ``"resident"`` when every block fits at
+    once (:func:`max_dpus`), else ``"stepwise"`` (builds the library)."""
+    return "resident" if n_dpus <= max_dpus(n_threads) else "stepwise"
+
+
 class CycleStep:
     """A launch's state on the card, checked once, advanced ``k`` steps a
     kernel launch.
@@ -74,9 +84,8 @@ class CycleStep:
     ``st``: the driver's dict of CUDA tensors (the keys, dtypes and shapes
     of ``engine.make_state_np``), updated in place; ``ir``: the (6, P)
     int32 instruction image on the same card; ``image``: ``ir`` as numpy
-    (saves a copy back), or None.  Raises ``ValueError`` for more DPUs
-    than the card holds blocks of the kernel at once (:func:`max_dpus`:
-    the kernel needs every block resident)."""
+    (saves a copy back), or None.  ``route`` is :func:`launch_route`'s
+    choice for the state's DPU count."""
 
     def __init__(self, cfg: DPUConfig, st: Dict[str, torch.Tensor],
                  ir: torch.Tensor, image: Optional[np.ndarray] = None):
@@ -91,14 +100,8 @@ class CycleStep:
             raise ValueError(f"cycle_step: ir must be a (6, P) int32 tensor "
                              f"on {dev}, got {tuple(ir.shape)} {ir.dtype} "
                              f"on {ir.device}")
-        library()                       # built at first use
-        with torch.cuda.device(dev):
-            limit = max_dpus(T)
-        if D > limit:
-            raise ValueError(f"cycle_step: {D} DPUs in one launch; the "
-                             f"kernel needs every block resident, which "
-                             f"holds at most {limit} DPUs of {T} tasklets "
-                             f"on {torch.cuda.get_device_name(dev)}")
+        with torch.cuda.device(dev):    # builds the library at first use
+            self.route = launch_route(D, T)
         if image is None:
             image = ir.cpu().numpy()
         P = ir.shape[1]
@@ -146,7 +149,8 @@ class CycleStep:
             self.args.wide = self.wide.data_ptr()
         self.args.c[self._k] = k
         cycle_step_cuda(self.args,
-                        torch.cuda.current_stream(self.device).cuda_stream)
+                        torch.cuda.current_stream(self.device).cuda_stream,
+                        self.route)
         self.args.base += k     # steps are numbered across launches
 
     def predicate(self) -> bool:

@@ -130,6 +130,7 @@ def test_cycle_step_matches_eager_card_step(card, name, k):
     before = cs_ops.launches
     res = cases.hold_against_plain(_step_case(name), k, device=card)
     assert res["alu_launches"] == 0
+    assert res["route"] == "resident"
     assert cs_ops.launches - before == res["launches"]
     assert res["steps"] >= 7
     assert res["launches"] == 1 + -(-6 // k) + -(-(res["steps"] - 7) // k)
@@ -147,25 +148,25 @@ def test_cycle_step_dpu_counts_agree(card, n_dpus):
 
 
 @pytest.mark.cuda
-def test_cycle_step_refuses_more_dpus_than_resident(card):
-    """The kernel needs every block resident: one DPU more than the card
-    holds is refused with the limit named, before any launch."""
-    from repro_torch.core import engine
-    from repro_torch.core.carry import state_to_torch
+@pytest.mark.parametrize("n_dpus", ["limit+1", 2560])
+def test_cycle_step_runs_more_dpus_than_resident(card, n_dpus):
+    """Above the resident limit (max_dpus: every block of the cooperative
+    launch at once) a launch takes the stepwise route, a plan and a run
+    launch a step, and is bitwise the eager card step: cross_dpu at one
+    DPU past the limit and at a full 2,560-DPU UPMEM system (both padded
+    to 4,096)."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
     from repro_torch.kernels.cycle_step.cycle_step import max_dpus
     limit = max_dpus(4)
     assert limit >= 64                   # one 64-DPU rank at least
-    cfg, binary, wram, mram, T = cases.launch("mutex", limit + 1)
-    P = compile_cache.program_bucket(binary.n_instrs, binary.opcode.shape[0])
-    ir = torch.from_numpy(np.stack([a[:P] for a in binary.arrays])).to(card)
-    st = state_to_torch(engine.make_state_np(cfg, binary, wram, mram, T),
-                        card)
-    before = cs_ops.launches
-    with pytest.raises(ValueError, match=f"at most {limit} DPUs"):
-        cs_ops.CycleStep(cfg, st, ir)
-    assert cs_ops.launches == before
+    assert cs_ops.launch_route(limit, 4) == "resident"
+    n = limit + 1 if n_dpus == "limit+1" else n_dpus
+    assert n > limit
+    res = cases.hold_against_plain(cases.launch("cross_dpu", n), 64,
+                                   device=card)
+    assert res["route"] == "stepwise"
+    assert res["alu_launches"] == 0
 
 
 @pytest.mark.cuda
@@ -315,15 +316,45 @@ def test_ssd_kernel_matches_plain_version(card, b, s, h, g, p, n, chunk):
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     rng = np.random.default_rng(s + h + n)
     args = _ssd_inputs(rng, b, s, h, g, p, n, torch.float32, card)
-    before = sops.launches
+    before, before_tc = sops.launches, sops.launches_tc
     y, state = sops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert sops.launches == before + 1
+    assert sops.launches_tc == before_tc   # float32: the scalar kernel
     yw, sw = ssd_scan_ref(*args, chunk=chunk)
     torch.testing.assert_close(y, yw, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(state, sw, rtol=2e-4, atol=2e-4)
     sops.ssd_scan(*(t.cpu() for t in args), chunk=chunk)
     assert sops.launches == before + 1  # the CPU path launches nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (1, 256, 4, 2, 16, 16, 64),       # Q 64, P 16, N 16, G = H / 2
+    (2, 300, 4, 1, 64, 64, 128),      # Q 128, ragged last chunk
+    (1, 512, 4, 2, 128, 128, 256),    # Q 256, the widest P and N
+    (2, 1000, 6, 3, 64, 128, 256),    # ragged, G = H / 2
+    (1, 100, 2, 1, 64, 128, 256),     # S shorter than the chunk
+    (2, 200, 4, 2, 128, 16, 64),      # P 128 beside N 16
+    (1, 192, 3, 3, 32, 32, 64),       # G = H, N = P = 32
+])
+def test_ssd_tensor_core_route_matches_plain_version(card, b, s, h, g, p, n,
+                                                     chunk):
+    """bf16 with N, P multiples of 16 and a multiple-of-64 chunk goes to
+    the tensor-core route: y and the final state within 1e-2 (rtol =
+    atol) of the plain version, counted in launches and launches_tc."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    assert sops.route(torch.bfloat16, n, p, chunk) == "tc"
+    rng = np.random.default_rng(s + h + n + p)
+    args = _ssd_inputs(rng, b, s, h, g, p, n, torch.bfloat16, card)
+    before, before_tc = sops.launches, sops.launches_tc
+    y, state = sops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (sops.launches, sops.launches_tc) == (before + 1, before_tc + 1)
+    yw, sw = ssd_scan_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), yw.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(state, sw, rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.cuda
