@@ -30,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
              branches, 24 and 32 tasklets, 4 and 8 issue slots, 40 DPUs
              across blocks, the cache-mode VA) on the resident route, and
              cross_dpu above the resident limit (one DPU past it, and a
-             full 2,560-DPU system) on the stepwise route; each route's µs
-             a step on cross_dpu at 2,048 and 2,560 DPUs;
+             full 2,560-DPU system) and a whole VA launch (scale 0.02, 16
+             tasklets) at 2,560 DPUs on the stepwise route; each route's
+             µs a step on cross_dpu at 2,048 and 2,560 DPUs, and on VA's
+             launch at 2,560;
 4. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
              (tests/test_backend.py) exactly, through cycle_step;
@@ -42,7 +44,16 @@ Phases (any failure exits non-zero and prints no result line):
              main path) passes its numpy oracle with one cycle_step launch
              per 64-step block and no alu_exec launch; cycle_step's ms per
              64-step launch there beside the eager card step's;
-6. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
+6. workloads — every workload of repro_torch.workloads (all 18) on the
+             card through cycle_step: (a) at the two golden configurations
+             of repro_torch/workloads/goldens.py (4 DPUs x 8 tasklets and
+             64 x 16, scale 0.02) and the remap scenario (HST-S, one DPU
+             killed), each equal to the JAX package's goldens.json
+             exactly; (b) at full width (64 DPUs x 16 tasklets, scale
+             1.0), each held by its own numpy oracle, with its wall, KIPS,
+             steps per second, launches and the share of the wall outside
+             the driver's cycle_step loops;
+7. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
              2 layers in float32 (TF32 off), one 384-token prompt (two
              SSD chunks, the second ragged): prefill logits and caches
              agree within 1e-3; (b) the LM serving path
@@ -52,7 +63,7 @@ Phases (any failure exits non-zero and prints no result line):
              every flash / SSD call counted as a launch (all 32 llama3-8b
              prefill launches on the tensor-core flash kernel, all 24
              mamba2-130m prefill scans on the tensor-core SSD route);
-7. report  — the kernels line (launches, times, bounds), the card's name
+8. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
@@ -300,6 +311,8 @@ def phase_kernels() -> int:
 #: DPUs of a full UPMEM system (20 DIMMs x 2 ranks x 64): above the
 #: resident limit, padded to 4,096
 FULL_SYSTEM_DPUS = 2560
+#: VA's scale in [step]'s whole-workload launch at FULL_SYSTEM_DPUS
+VA_STEP_SCALE = 0.02
 
 
 def phase_step() -> dict:
@@ -314,12 +327,18 @@ def phase_step() -> dict:
     runs = [(name, None, "resident")
             for name in sorted(cases.CASES) + ["cache_va"]]
     runs += [("cross_dpu", limit + 1, "stepwise"),
-             ("cross_dpu", FULL_SYSTEM_DPUS, "stepwise")]
+             ("cross_dpu", FULL_SYSTEM_DPUS, "stepwise"),
+             ("va", FULL_SYSTEM_DPUS, "stepwise")]
     total = {"cases": 0, "steps": 0, "launches": 0, "max_abs_err": None}
     t0 = time.perf_counter()
     for name, n_dpus, route in runs:
-        case = cases.cache_va() if name == "cache_va" \
-            else cases.launch(name, n_dpus)
+        t1 = time.perf_counter()
+        if name == "cache_va":
+            case = cases.cache_va()
+        elif name == "va":              # a whole workload launch
+            case = cases.va(n_dpus, VA_STEP_SCALE)
+        else:
+            case = cases.launch(name, n_dpus)
         try:
             res = cases.hold_against_plain(case, 64, device="cuda")
         except AssertionError as e:
@@ -331,7 +350,8 @@ def phase_step() -> dict:
               f"the {res['route']} route, not the {route} one")
         log(f"[step] {name} ({case[0].n_dpus} DPUs x {case[4]} tasklets, "
             f"{res['route']} route): bitwise equal after 1, 7 and "
-            f"{res['steps']} steps, {res['launches']} launches")
+            f"{res['steps']} steps, {res['launches']} launches "
+            f"({time.perf_counter() - t1:.1f} s)")
         total["cases"] += 1
         total["steps"] += res["steps"]
         total["launches"] += res["launches"]
@@ -342,20 +362,23 @@ def phase_step() -> dict:
     log(f"[step] the resident route takes at most {total['max_dpus']} DPUs "
         f"(by tasklets) on this card: every block resident; above it the "
         f"stepwise route")
-    total["us_per_step"] = {n: _route_step_us(n) for n in
-                            (2048, FULL_SYSTEM_DPUS)}
+    total["us_per_step"] = {
+        n: _route_step_us(cases.launch("cross_dpu", n), f"cross_dpu at {n} "
+                          "DPUs") for n in (2048, FULL_SYSTEM_DPUS)}
+    total["va_us_per_step"] = _route_step_us(
+        cases.va(FULL_SYSTEM_DPUS, VA_STEP_SCALE),
+        f"VA (scale {VA_STEP_SCALE}) at {FULL_SYSTEM_DPUS} DPUs")
     return total
 
 
-def _route_step_us(n_dpus: int, blocks: int = 4) -> dict:
-    """µs a step of cycle_step's route for cross_dpu at ``n_dpus`` (set up
+def _route_step_us(case, label: str, blocks: int = 4) -> dict:
+    """µs a step of cycle_step's route for the launch ``case`` (set up
     as the driver sets it up): ``blocks`` raw 64-step launches between
-    CUDA events while every DPU still runs, beside the eager card step
+    CUDA events while some DPU still runs, beside the eager card step
     (its plain version) on a copy of the same state."""
     import torch
     from repro_torch.core import compile_cache
-    from repro_torch.kernels.cycle_step import cases
-    cfg, binary, wram, mram, T = cases.launch("cross_dpu", n_dpus)
+    cfg, binary, wram, mram, T = case
     prep = compile_cache.prepare(cfg, binary, wram, mram, T,
                                  device=torch.device("cuda"))
     kern, K = prep.kernel, compile_cache.STEPS_PER_CHECK
@@ -368,8 +391,7 @@ def _route_step_us(n_dpus: int, blocks: int = 4) -> dict:
         kern.run(K)                        # uncounted
     t1.record()
     torch.cuda.synchronize()
-    check(kern.predicate(), f"cross_dpu at {n_dpus} DPUs stopped inside "
-          "the timed window")
+    check(kern.predicate(), f"{label} stopped inside the timed window")
     us = t0.elapsed_time(t1) * 1e3 / (blocks * K)
     t0.record()
     for _ in range(K):
@@ -379,7 +401,7 @@ def _route_step_us(n_dpus: int, blocks: int = 4) -> dict:
     res = {"route": kern.route, "dpus": int(prep.st["status"].shape[0]),
            "us_per_step": us, "plain_us_per_step":
            t0.elapsed_time(t1) * 1e3 / K}
-    log(f"[step] cycle_step cross_dpu at {n_dpus} DPUs: " + json.dumps(res))
+    log(f"[step] cycle_step {label}: " + json.dumps(res))
     return res
 
 
@@ -512,6 +534,126 @@ def phase_main_path(scale: float) -> dict:
     log(f"[main] VA 64 DPUs x 16 tasklets scale {scale}: oracle ok; "
         f"{json.dumps({k: v for k, v in res.items() if k != 'launch_args'})}")
     return res
+
+
+#: scale of each workload's full-width run in [workloads]: 1.0 but for
+#: SSORT, whose sample sort on 32 DPUs gives some DPU more than its
+#: merge buffer (sort.MERGE_MAX_WORDS) above 0.375 (cuts: PERF.md §4)
+FULL_SCALE = {"SSORT": 0.375}
+
+
+def _golden_runs(gold) -> int:
+    """(a) every workload at each golden configuration, and the remap
+    scenario, on the card: each must equal its JAX-made golden exactly
+    and launch cycle_step.  Returns the runs."""
+    import repro_torch.workloads as wl
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.faults import FaultPlan, kill_dpu
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.workloads import goldens
+    runs = 0
+    for key in goldens.CONFIGS:
+        t0 = time.perf_counter()
+        for name in sorted(wl.ALL):
+            l0 = step_ops.launches
+            rep, system, st = goldens.run_config(wl, DPUConfig, PIMSystem,
+                                                 key, name, device="cuda")
+            bad = goldens.differences(gold["entries"][key][name],
+                                      goldens.entry(rep, system, st))
+            check(not bad, f"{name} on {key} (cuda) differs from its golden "
+                  f"in {bad}")
+            check(step_ops.launches > l0, f"{name} on {key} launched no "
+                  "cycle_step")
+            runs += 1
+        log(f"[workloads] {key} ({goldens.CONFIGS[key][0]}, "
+            f"{goldens.CONFIGS[key][1]} threads, scale "
+            f"{goldens.CONFIGS[key][2]}): all {len(wl.ALL)} workloads equal "
+            f"to their goldens (cycles, issued, Timeline, SHA-256 of every "
+            f"KernelReport field and state leaf) "
+            f"({time.perf_counter() - t0:.1f} s)")
+    rep, system, st = goldens.run_remap(wl, DPUConfig, PIMSystem, FaultPlan,
+                                        kill_dpu, device="cuda")
+    got = goldens.remap_entry(rep, system, st)
+    bad = goldens.differences(gold["remap"], got)
+    check(not bad, f"remap scenario {goldens.REMAP} (cuda) differs from its "
+          f"golden in {bad}")
+    log(f"[workloads] remap {goldens.REMAP}: equal to its golden (fault log "
+        f"{got['fault_log']}, Timeline, state)")
+    return runs + 1
+
+
+def _full_width_run(name: str, scale: float) -> dict:
+    """(b) ``name`` at full width on the card (SSORT on its most, 32
+    DPUs: ``goldens.MAX_DPUS``), its numpy oracle inside
+    ``run()``: the wall, the simulation rate, the launches, and the share
+    of the wall spent outside the driver's K-step loops (set-up: the
+    state and MRAM image to the card and back, the host's work)."""
+    import torch
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.workloads.goldens import MAX_DPUS
+    inside = [0.0]
+    drive = compile_cache._drive
+
+    def timed_drive(prep, k):
+        t = time.perf_counter()
+        try:
+            return drive(prep, k)
+        finally:
+            inside[0] += time.perf_counter() - t
+
+    cfg = _full_cfg()
+    cfg = cfg.replace(n_dpus=min(cfg.n_dpus, MAX_DPUS.get(name, cfg.n_dpus)))
+    system = _system(cfg, "cuda")
+    s0 = compile_cache.stats()
+    l0 = step_ops.launches
+    compile_cache._drive = timed_drive
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = wl.get(name).run(system, 16, scale=scale, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        compile_cache._drive = drive
+    s1 = compile_cache.stats()
+    steps = s1["steps"] - s0["steps"]
+    res = {"workload": name, "dpus": cfg.n_dpus, "scale": scale,
+           "wall_s": wall,
+           "cycles": rep.cycles, "issued": rep.issued,
+           "kips": rep.issued / wall / 1e3, "steps": steps,
+           "steps_per_s": steps / wall,
+           "cycle_step_launches": step_ops.launches - l0,
+           "sim_launches": s1["launches"] - s0["launches"],
+           "outside_share": 1.0 - inside[0] / wall}
+    check(res["cycle_step_launches"] > 0, f"{name} launched no cycle_step")
+    check(res["cycle_step_launches"] * compile_cache.STEPS_PER_CHECK
+          == steps, f"{name}: {res['cycle_step_launches']} cycle_step "
+          f"launches for {steps} steps")
+    return res
+
+
+def phase_workloads() -> dict:
+    """Every workload of the registry on the card through cycle_step: (a)
+    against the JAX package's goldens at two configurations and the remap
+    scenario; (b) at full width (64 DPUs x 16 tasklets, scale 1.0 unless
+    FULL_SCALE cuts it), held by its own oracle, with its rate and
+    set-up share."""
+    import repro_torch.workloads as wl
+    from repro_torch.workloads import goldens
+    t0 = time.perf_counter()
+    runs = _golden_runs(goldens.load())
+    full = []
+    for name in sorted(wl.ALL):
+        res = _full_width_run(name, FULL_SCALE.get(name, 1.0))
+        log("[workloads] full width, oracle ok: " + json.dumps(res))
+        full.append(res)
+    secs = time.perf_counter() - t0
+    log(f"[workloads] {runs} golden runs and {len(full)} full-width runs "
+        f"({secs:.1f} s)")
+    return {"golden_runs": runs, "full": full, "seconds": secs}
 
 
 def phase_step_times(launch_args, n: int = 100) -> dict:
@@ -1093,6 +1235,7 @@ def main(argv=None) -> int:
             n=max(1, min(100, main_run["launches"] - 11)))
         from repro_torch.core.compile_cache import dpu_bucket
         times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
+        work = phase_workloads()
         phase_lm_parity()
         lm_run = phase_lm_main()
         lm_times = phase_lm_kernel_times()
@@ -1150,6 +1293,9 @@ def main(argv=None) -> int:
         f"{FULL_SYSTEM_DPUS} DPUs: "
         f"{step_run['us_per_step'][FULL_SYSTEM_DPUS]['us_per_step']:.2f}); "
         f"smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+    log(f"[report] workloads: {work['golden_runs']} golden runs equal; full "
+        f"width KIPS " + ", ".join(f"{r['workload']} {r['kips']:.1f}"
+                                   for r in work["full"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

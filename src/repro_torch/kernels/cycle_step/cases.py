@@ -13,7 +13,8 @@ that stop at different cycles, hit ``max_cycles`` in one run, and issue,
 in one slot of one cycle, 256-byte DMAs that cover the last WRAM word
 beside 1500-byte ones on other DPUs, so the copy window is the widest
 DMA's across DPUs.  :func:`cache_va` is the cache-mode VA (case study
-#4).  :func:`launch` turns a case into ``(cfg, binary, wram, mram, T)``.
+#4), :func:`va` VA's launch at any DPU count.  :func:`launch` turns a
+case into ``(cfg, binary, wram, mram, T)``.
 """
 from __future__ import annotations
 
@@ -315,6 +316,19 @@ def cache_va(n_dpus: int = 2, scale: float = 0.006):
     wram[:, :hd.args.shape[1]] = hd.args
     wram[:, base:] = hd.mram
     return cfg, binary, wram, np.zeros((n_dpus, 2), np.int32), 4
+
+
+def va(n_dpus: int, scale: float = 0.02, T: int = 16):
+    """``(cfg, binary, wram, mram, T)`` of VA's launch as the workload
+    sets it up (its args and MRAM image, seed 0), on ``n_dpus`` DPUs."""
+    import repro_torch.workloads as wl
+    cfg = DPUConfig(n_dpus=n_dpus, n_tasklets=T, mram_bytes=1 << 14)
+    W = wl.get("VA")
+    hd = W.host_data(cfg, scale, 0)
+    binary = W.build(T).binary(cfg.iram_instrs)
+    wram = np.zeros((n_dpus, 16), np.int32)
+    wram[:, :hd.args.shape[1]] = hd.args
+    return cfg, binary, wram, hd.mram, T
 
 
 def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),

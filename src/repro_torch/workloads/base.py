@@ -106,8 +106,7 @@ class Workload:
         re-executes lost shards on surviving DPUs via
         :func:`repro_torch.faults.remap.launch_with_remap` — workloads whose
         kernels are arg-addressed get degraded-mode execution for free
-        by routing launches through this hook.  That module is not
-        ported yet, so ``"remap"`` raises :class:`NotImplementedError`."""
+        by routing launches through this hook."""
         if system.faults is None:
             return system.launch(name, binary, args, mram,
                                  n_threads=n_threads, wram_extra=wram_extra,
@@ -116,10 +115,10 @@ class Workload:
             return system.launch(name, binary, args, mram,
                                  n_threads=n_threads, wram_extra=wram_extra,
                                  dpus=dpus, ndpus_reg=ndpus_reg)
-        raise NotImplementedError(
-            f"{name}: recovery='remap' needs repro_torch.faults.remap, which "
-            "is not ported yet (ROADMAP.md, modules still to port: "
-            "faults/remap); use recovery='raise' or the JAX package")
+        from repro_torch.faults.remap import launch_with_remap
+        return launch_with_remap(system, name, binary, args, mram,
+                                 n_threads=n_threads, wram_extra=wram_extra,
+                                 dpus=dpus, ndpus_reg=ndpus_reg)
 
     def readback(self, system: PIMSystem, hd: HostData, mem: np.ndarray):
         """Post-kernel epilogue: charge the host readback. Subclasses may

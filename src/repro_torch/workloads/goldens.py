@@ -1,0 +1,158 @@
+"""Workload goldens: what the JAX package simulates, for holding the port
+to it where JAX is not installed (the CUDA card's machine).
+
+``goldens.json`` (beside this module) holds one entry per workload at
+each configuration of :data:`CONFIGS`, and the :data:`REMAP` scenario.
+``tools/make_workload_goldens.py`` writes it from the JAX package; the
+CPU tests, the card tests and ``chip_smoke.py`` compare the port's runs
+with it through :func:`entry`, the one function every side uses.  The
+functions here take either package's objects (duck-typed) and import
+neither package's engine.
+
+An entry holds ``cycles`` and ``issued``, the ``Timeline`` (every field
+a run compares, floats exact through JSON) and ``digest``: a SHA-256
+over every ``KernelReport`` field (arrays by dtype, shape and bytes)
+and every leaf of the final state (sorted keys, dtype, shape, bytes).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+
+PATH = Path(__file__).with_name("goldens.json")
+
+#: name -> (DPUConfig fields, threads, scale, seed).  g4 is VA's golden
+#: configuration (tests/test_backend.py) at 8 tasklets with 256 KiB of
+#: MRAM a DPU (MLP's three 128 x 128 layers need 193 KiB); g64 is one
+#: UPMEM rank of the paper's figures (benchmarks/pim_figs.py _cfg).
+CONFIGS = {
+    "g4": (dict(n_dpus=4, n_ranks=2, n_channels=2, n_tasklets=8,
+                mram_bytes=1 << 18), 8, 0.02, 0),
+    "g64": (dict(n_dpus=64, n_tasklets=16, mram_bytes=1 << 21), 16, 0.02,
+            0),
+}
+
+#: workloads that take fewer DPUs than a configuration has: they run on
+#: their most (SSORT's splitter exchange: ``sort.MAX_D``)
+MAX_DPUS = {"SSORT": 32}
+
+#: the remap scenario: (workload, configuration, (dpu, launch) killed)
+REMAP = ("HST-S", "g4", (1, 0))
+
+#: the Timeline fields an entry holds (``total`` is a property)
+TIMELINE = ("h2d", "kernel", "d2h", "inter_dpu", "retry", "shed", "events",
+            "elapsed", "total")
+
+
+def _feed(h, value):
+    """Hash ``value`` canonically: numbers by value whatever their numpy
+    or Python type, arrays by dtype, shape and bytes, dicts by sorted
+    key."""
+    if isinstance(value, np.ndarray) or hasattr(value, "__array__") \
+            and not np.isscalar(value):
+        a = np.ascontiguousarray(np.asarray(value))
+        h.update(f"a:{a.dtype.str}:{a.shape}:".encode())
+        h.update(a.tobytes())
+    elif isinstance(value, dict):
+        h.update(f"d{len(value)}:".encode())
+        for k in sorted(value):
+            h.update(f"k:{k}:".encode())
+            _feed(h, value[k])
+    elif isinstance(value, (int, np.integer)):
+        h.update(f"i:{int(value)};".encode())
+    elif isinstance(value, (float, np.floating)):
+        h.update(f"f:{float(value).hex()};".encode())
+    elif isinstance(value, str):
+        h.update(f"s:{value!r};".encode())
+    else:
+        raise TypeError(f"cannot hash a {type(value).__name__}")
+
+
+def digest(report, state) -> str:
+    """SHA-256 of every ``KernelReport`` field and every state leaf."""
+    h = hashlib.sha256()
+    for f in dataclasses.fields(report):
+        h.update(f"field:{f.name}:".encode())
+        _feed(h, getattr(report, f.name))
+    for k in sorted(state):
+        h.update(f"leaf:{k}:".encode())
+        _feed(h, np.asarray(state[k]))
+    return h.hexdigest()
+
+
+def timeline(tl) -> dict:
+    """The Timeline fields of :data:`TIMELINE`, as JSON would hold them."""
+    out = {}
+    for name in TIMELINE:
+        v = getattr(tl, name)
+        if name == "events":
+            v = [[str(p), str(lbl), float(s), float(b)]
+                 for p, lbl, s, b in v]
+        elif v is not None:
+            v = float(v)
+        out[name] = v
+    return out
+
+
+def entry(report, system, state) -> dict:
+    """The golden entry of one run: ``report`` and ``state`` are what
+    ``Workload.run`` returned, ``system`` the ``PIMSystem`` it ran on."""
+    return {"cycles": int(report.cycles), "issued": int(report.issued),
+            "timeline": timeline(system.timeline),
+            "digest": digest(report, state)}
+
+
+def remap_entry(report, system, state) -> dict:
+    """:func:`entry` plus the fault log's kinds and DPUs."""
+    out = entry(report, system, state)
+    out["fault_log"] = [[f.kind, [int(d) for d in f.dpus]]
+                        for f in system.fault_log]
+    return out
+
+
+def run_config(workloads, config_cls, system_cls, key: str, name: str,
+               **system_kw):
+    """Run workload ``name`` at configuration ``key`` (on at most
+    :data:`MAX_DPUS` DPUs) with one package's registry, ``DPUConfig`` and
+    ``PIMSystem`` (``system_kw`` goes to the system, e.g. ``device=``);
+    returns ``(report, system, state)``."""
+    fields, threads, scale, seed = CONFIGS[key]
+    fields = dict(fields, n_dpus=min(fields["n_dpus"],
+                                     MAX_DPUS.get(name, fields["n_dpus"])))
+    system = system_cls(config_cls(**fields), **system_kw)
+    state, report = workloads.get(name).run(system, threads, scale=scale,
+                                            seed=seed)
+    return report, system, state
+
+
+def run_remap(workloads, config_cls, system_cls, fault_plan_cls, kill_dpu,
+              **system_kw):
+    """The :data:`REMAP` scenario with one package's classes."""
+    name, key, (dpu, launch) = REMAP
+    fields, threads, scale, seed = CONFIGS[key]
+    system = system_cls(config_cls(**fields),
+                        faults=fault_plan_cls(events=(kill_dpu(dpu, launch),)),
+                        recovery="remap", **system_kw)
+    state, report = workloads.get(name).run(system, threads, scale=scale,
+                                            seed=seed)
+    return report, system, state
+
+
+def load() -> dict:
+    """``goldens.json``: ``{"configs": ..., "entries": {key: {workload:
+    entry}}, "remap": entry}``."""
+    with open(PATH) as f:
+        return json.load(f)
+
+
+def differences(want: dict, got: dict) -> list:
+    """The keys of an entry where ``got`` differs from ``want`` (the
+    Timeline field by field)."""
+    bad = [k for k in want if k != "timeline" and want[k] != got.get(k)]
+    bad += [f"timeline.{k}" for k in want.get("timeline", {})
+            if want["timeline"][k] != got["timeline"].get(k)]
+    return bad

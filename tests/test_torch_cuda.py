@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import repro_torch.workloads as pt_wl  # noqa: E402
 from repro_torch.core import compile_cache  # noqa: E402
 from repro_torch.core.asm import DPU_ID, Program, TID  # noqa: E402
 from repro_torch.core.config import DPUConfig  # noqa: E402
@@ -385,3 +386,32 @@ def test_lm_prefill_on_card_matches_cpu(card, arch):
         if key != "pos":
             torch.testing.assert_close(cg[key].cpu(), cc[key], rtol=1e-3,
                                        atol=1e-3)
+
+
+# ---- every workload against the JAX package's goldens ----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(pt_wl.ALL))
+def test_workload_matches_golden_on_card(card, name):
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.workloads import goldens
+    before = step_ops.launches
+    rep, system, st = goldens.run_config(pt_wl, DPUConfig, PIMSystem, "g4",
+                                         name, device="cuda")
+    assert step_ops.launches > before, "the run launched no cycle_step"
+    got = goldens.entry(rep, system, st)
+    assert goldens.differences(goldens.load()["entries"]["g4"][name],
+                               got) == []
+
+
+@pytest.mark.cuda
+def test_remap_scenario_matches_golden_on_card(card):
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.faults import FaultPlan, kill_dpu
+    from repro_torch.workloads import goldens
+    rep, system, st = goldens.run_remap(pt_wl, DPUConfig, PIMSystem,
+                                        FaultPlan, kill_dpu, device="cuda")
+    got = goldens.remap_entry(rep, system, st)
+    assert goldens.differences(goldens.load()["remap"], got) == []
+    assert not system.active_mask[goldens.REMAP[2][0]]

@@ -51,6 +51,33 @@ def _cfg():
                      mram_bytes=1 << 16)
 
 
+def _small_cfg(n_tasklets, n_dpus=2, mram_bytes=1 << 16, **kw):
+    """The parity files' system: 2 DPUs on one rank and channel."""
+    return DPUConfig(n_dpus=n_dpus, n_ranks=1, n_channels=1,
+                     n_tasklets=n_tasklets, mram_bytes=mram_bytes, **kw)
+
+
+def _same_run(name, cfg, threads, scale, seed=0, **fault_kw):
+    """Run workload ``name`` on both packages' CPU systems of ``cfg``
+    (``fault_kw``: each package's ``faults=`` plan and ``recovery=``, as
+    ``(ref, port)`` pairs) and assert identical KernelReport, Timeline,
+    final state and fault log; returns the port's system."""
+    ref_kw = {k: v[0] for k, v in fault_kw.items()}
+    pt_kw = {k: v[1] for k, v in fault_kw.items()}
+    ref_sys = RefSystem(cfg, **ref_kw)
+    ref_st, ref_rep = ref_wl.get(name).run(ref_sys, threads, scale=scale,
+                                           seed=seed)
+    pt_sys = PtSystem(config_from(cfg), device="cpu", **pt_kw)
+    pt_st, pt_rep = pt_wl.get(name).run(pt_sys, threads, scale=scale,
+                                        seed=seed)
+    _assert_report(ref_rep, pt_rep)
+    _assert_timeline(ref_sys.timeline, pt_sys.timeline)
+    _assert_state(ref_st, pt_st)
+    assert [(f.kind, f.dpus, f.launch) for f in ref_sys.fault_log] == \
+        [(f.kind, f.dpus, f.launch) for f in pt_sys.fault_log]
+    return pt_sys
+
+
 @pytest.mark.parametrize("mode", ["inorder", "async"])
 @pytest.mark.parametrize("name", ["VA", "RED", "SEL", "UNI"])
 def test_report_timeline_state_match_reference(name, mode):
@@ -93,17 +120,9 @@ def test_transient_faults_retry_like_reference():
     _assert_state(ref_st, pt_st)
 
 
-def test_registry_names_unported_workloads():
-    assert sorted(pt_wl.ALL) == ["RED", "SCAN-RSS", "SCAN-SSA", "SEL", "UNI",
-                                 "VA"]
-    assert set(pt_wl.ALL) | set(pt_wl.NOT_PORTED) == set(ref_wl.ALL)
-    for name in pt_wl.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            pt_wl.get(name)
-
-
-def test_remap_recovery_is_not_ported_yet():
-    system = PtSystem(config_from(_cfg()), faults=PtFaultPlan(seed=1),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="faults/remap"):
-        pt_wl.get("VA").run(system, 8, scale=0.006)
+def test_registry_equals_reference():
+    assert sorted(pt_wl.ALL) == sorted(ref_wl.ALL)
+    assert len(pt_wl.ALL) == 18
+    assert pt_wl.CACHEABLE == ref_wl.CACHEABLE
+    for name in ref_wl.ALL:
+        assert type(pt_wl.get(name)).__name__ == type(ref_wl.get(name)).__name__
