@@ -3,11 +3,12 @@
 
 The studies of ``benchmarks/pim_figs.py`` with the same arguments and the
 same rows, run by ``repro_torch`` on the CUDA card (``device=None``; on
-the card every simulated cycle runs in the fused ``cycle_step`` kernel)
+the card every simulated cycle runs in a fused kernel, ``cycle_step`` for
+the scalar DPU and ``simt_step`` for the SIMT one)
 or on the CPU (``device="cpu"``).  One simulation sweep feeds Figs. 5-9;
 it is cached in reports/torch_pim_char.json keyed by (workload, threads,
-scale), apart from the JAX package's cache.  ``fig11_simt`` waits for the
-port of the SIMT engine.
+scale), apart from the JAX package's cache.  Fig. 11's SIMT designs run
+on the ``simt_step`` kernel.
 
     python benchmarks/torch_pim_figs.py [--scale 0.05] [--only fig12]
         [--device cpu]
@@ -32,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import repro_torch.workloads as wl  # noqa: E402
 from repro_torch.core.config import DPUConfig  # noqa: E402
 from repro_torch.core.host import PIMSystem  # noqa: E402
+from repro_torch.workloads.goldens import FIG11  # noqa: E402
 
 CHAR_WORKLOADS = ["VA", "RED", "SCAN-SSA", "SCAN-RSS", "SEL", "UNI", "HST-S",
                   "HST-L", "BS", "TS", "GEMV", "TRNS", "SpMV", "MLP"]
@@ -166,11 +168,20 @@ def fig10_strong_scaling(scale: float, device=None) -> List[Dict]:
 
 
 def fig11_simt(scale: float, device=None) -> List[Dict]:
-    """SIMT GEMV case study: needs the SIMT engine, not ported yet."""
-    raise NotImplementedError(
-        "fig11_simt runs the SIMT engine, which is not ported to "
-        "repro_torch yet (ROADMAP.md, modules still to port: core/simt.py "
-        "+ SimtBackend)")
+    """SIMT GEMV case study: Base / SIMT / +AC / +4x / +16x (on the card
+    the Base design runs on cycle_step, the SIMT designs on simt_step)."""
+    rows = []
+    base_c = None
+    for label, kw in FIG11.items():
+        sys_ = PIMSystem(_cfg(**kw), device=device)
+        _, rep = wl.get("GEMV").run(sys_, n_threads=16, scale=scale)
+        if base_c is None:
+            base_c = rep.cycles
+        rows.append({"bench": "fig11", "design": label,
+                     "cycles": rep.cycles,
+                     "speedup": round(base_c / rep.cycles, 2),
+                     "ipc": rep.to_row()["ipc"]})
+    return rows
 
 
 def fig12_ilp(scale: float, workloads=("TS", "GEMV", "RED", "VA", "HST-S"),
@@ -315,10 +326,7 @@ def main(argv=None) -> int:
                          f"names: {', '.join(studies(args.scale))}")
     for name, fn in selected.items():
         t0 = time.time()
-        try:
-            rows = fn()
-        except NotImplementedError as e:
-            rows = [{"not_ported": str(e)}]
+        rows = fn()
         for row in rows:
             print(json.dumps({"study": name, **row}, default=float),
                   flush=True)

@@ -6,11 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every CUDA kernel (alu_exec, cycle_step,
-             flash_attention's scalar and tensor-core kernels, ssd_scan's
-             scalar and tensor-core kernels; sm_90a) from the sources in
-             the checkout, all six libraries at once, into
-             build/repro_torch/; the registers and spills (ptxas -v) of
-             cycle_step and of the tensor-core SSD kernels are logged; the
+             simt_step, crf_step, flash_attention's scalar and tensor-core
+             kernels, ssd_scan's scalar and tensor-core kernels; sm_90a)
+             from the sources in the checkout, all eight libraries at
+             once, into build/repro_torch/; the registers and spills
+             (ptxas -v) of cycle_step, simt_step, crf_step and of the
+             tensor-core SSD kernels are logged; the
              tensor-core flash kernel's SASS (cuobjdump) must hold HGMMA
              (wgmma) in every instance, the tensor-core SSD kernels' HMMA
              (mma.sync);
@@ -53,7 +54,27 @@ Phases (any failure exits non-zero and prints no result line):
              1.0), each held by its own numpy oracle, with its wall, KIPS,
              steps per second, launches and the share of the wall outside
              the driver's cycle_step loops;
-7. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
+7. simt    — the SIMT engine and the HBM-PIM targets (case study #1,
+             Fig. 11): (a) simt_step and crf_step against their plain
+             versions (the eager card steps), every leaf bitwise after 1,
+             7 and all steps, on every case of
+             repro_torch/kernels/simt_step/cases.py (64 steps a launch)
+             and crf_step/cases.py (8 commands a launch); (b) every entry
+             of goldens.json's s4, s4ac, h4, c4 and fig11/*
+             configurations (a capped run must raise the golden's error
+             from the golden's capped state);
+             (c) at full width (64 DPUs x 16 tasklets, 2 MiB MRAM), each
+             under its numpy oracle with its wall, KIPS, steps per second,
+             kernel launches and set-up share: Fig. 11's five designs on
+             GEMV at scale 1.0 (the launches of simt_step counted over
+             them), GEMVS on hbmpim_cmd at scale 1.0 (crf_step's), BFS
+             on hbmpim, SSORT on hbmpim (32 DPUs, scale 0.375); (d) at
+             each kernel's path's launch (Fig. 11 SIMT+AC's; GEMVS's
+             first command stream): one 64-step launch bitwise against 64
+             eager card steps from the same state, every leaf, then its
+             ms per launch beside the eager card step's and its bytes
+             bound (the leaves the kernel touches and the words it moves);
+8. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
              2 layers in float32 (TF32 off), one 384-token prompt (two
              SSD chunks, the second ragged): prefill logits and caches
              agree within 1e-3; (b) the LM serving path
@@ -63,7 +84,7 @@ Phases (any failure exits non-zero and prints no result line):
              every flash / SSD call counted as a launch (all 32 llama3-8b
              prefill launches on the tensor-core flash kernel, all 24
              mamba2-130m prefill scans on the tensor-core SSD route);
-8. report  — the kernels line (launches, times, bounds), the card's name
+9. report  — the kernels line (launches, times, bounds), the card's name
              and power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
@@ -118,11 +139,15 @@ def _counters():
     counts both flash kernels, flash_attention_sm90 the tensor-core one;
     ssd_scan both SSD routes, ssd_scan_tc the tensor-core one."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
+    from repro_torch.kernels.crf_step import ops as crf_ops
     from repro_torch.kernels.cycle_step import ops as step_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.simt_step import ops as simt_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"alu_exec": (alu_ops, "launches"),
             "cycle_step": (step_ops, "launches"),
+            "simt_step": (simt_ops, "launches"),
+            "crf_step": (crf_ops, "launches"),
             "flash_attention": (flash_ops, "launches"),
             "flash_attention_sm90": (flash_ops, "launches_sm90"),
             "ssd_scan": (ssd_ops, "launches"),
@@ -214,20 +239,24 @@ def _ptxas_report(lib) -> dict:
 
 
 def phase_build() -> float:
-    """Build the six kernel libraries concurrently (one nvcc each), log
-    the registers and spills of cycle_step and of the tensor-core SSD
-    kernels, then check that every instance of the tensor-core flash
+    """Build the eight kernel libraries concurrently (one nvcc each), log
+    the registers and spills of cycle_step, simt_step, crf_step and of
+    the tensor-core SSD kernels, then check that every instance of the tensor-core flash
     kernel runs its products on wgmma (HGMMA in its SASS) and every
     instance of the tensor-core SSD kernels on mma.sync (HMMA)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     from repro_torch.kernels.alu_exec import alu_exec
+    from repro_torch.kernels.crf_step import crf_step
     from repro_torch.kernels.cycle_step import cycle_step
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.simt_step import simt_step
     from repro_torch.kernels.ssd_scan import ssd_scan
     libs = {"alu_exec": alu_exec.library,
             "cycle_step": cycle_step.library,
+            "simt_step": simt_step.library,
+            "crf_step": crf_step.library,
             "flash_attention": flash_attention.library,
             "flash_attention_sm90": flash_attention.library_sm90,
             "ssd_scan": ssd_scan.library,
@@ -240,12 +269,13 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
         f"-> {build.build_dir()}")
-    for name, (regs, stores, loads) in sorted(
-            _ptxas_report(built["cycle_step"]).items()):
-        kernel = re.search(r"\d(cycle_\w+?_kernel)", name)
-        log(f"[build] {kernel.group(1) if kernel else name} (ptxas -v): "
-            f"{regs} registers, spill stores {stores} B, spill loads "
-            f"{loads} B")
+    for lib in ("cycle_step", "simt_step", "crf_step"):
+        for name, (regs, stores, loads) in sorted(
+                _ptxas_report(built[lib]).items()):
+            kernel = re.search(r"\d((cycle|simt|crf)_\w+?_kernel)", name)
+            log(f"[build] {kernel.group(1) if kernel else name} (ptxas -v): "
+                f"{regs} registers, spill stores {stores} B, spill loads "
+                f"{loads} B")
     tc = _ptxas_report(built["ssd_scan_tc"]).values()
     log(f"[build] ssd_scan_tc (ptxas -v, {len(tc)} kernels): registers "
         f"{min(r for r, _, _ in tc)}-{max(r for r, _, _ in tc)}, spill "
@@ -543,8 +573,9 @@ FULL_SCALE = {"SSORT": 0.375}
 
 
 def _golden_runs(gold) -> int:
-    """(a) every workload at each golden configuration, and the remap
-    scenario, on the card: each must equal its JAX-made golden exactly
+    """(a) every workload at the scalar DPU's golden configurations
+    (``goldens.SCALAR_KEYS``; the SIMT and HBM-PIM ones are [simt]'s), and
+    the remap scenario, on the card: each must equal its JAX-made golden exactly
     and launch cycle_step.  Returns the runs."""
     import repro_torch.workloads as wl
     from repro_torch.core.config import DPUConfig
@@ -553,7 +584,7 @@ def _golden_runs(gold) -> int:
     from repro_torch.kernels.cycle_step import ops as step_ops
     from repro_torch.workloads import goldens
     runs = 0
-    for key in goldens.CONFIGS:
+    for key in goldens.SCALAR_KEYS:
         t0 = time.perf_counter()
         for name in sorted(wl.ALL):
             l0 = step_ops.launches
@@ -583,17 +614,16 @@ def _golden_runs(gold) -> int:
     return runs + 1
 
 
-def _full_width_run(name: str, scale: float) -> dict:
-    """(b) ``name`` at full width on the card (SSORT on its most, 32
-    DPUs: ``goldens.MAX_DPUS``), its numpy oracle inside
-    ``run()``: the wall, the simulation rate, the launches, and the share
-    of the wall spent outside the driver's K-step loops (set-up: the
-    state and MRAM image to the card and back, the host's work)."""
+def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
+    """Workload ``name`` on a card system of ``cfg``, its numpy oracle
+    inside ``run()``: the wall, the simulation rate, the launches of the
+    ``kernel`` counter, the driver's launches, and the share of the wall
+    spent outside the driver's K-step loops (set-up: the state and MRAM
+    image to the card and back, the host's work)."""
     import torch
     import repro_torch.workloads as wl
     from repro_torch.core import compile_cache
-    from repro_torch.kernels.cycle_step import ops as step_ops
-    from repro_torch.workloads.goldens import MAX_DPUS
+    mod, attr = _counters()[kernel]
     inside = [0.0]
     drive = compile_cache._drive
 
@@ -604,11 +634,9 @@ def _full_width_run(name: str, scale: float) -> dict:
         finally:
             inside[0] += time.perf_counter() - t
 
-    cfg = _full_cfg()
-    cfg = cfg.replace(n_dpus=min(cfg.n_dpus, MAX_DPUS.get(name, cfg.n_dpus)))
     system = _system(cfg, "cuda")
     s0 = compile_cache.stats()
-    l0 = step_ops.launches
+    l0 = getattr(mod, attr)
     compile_cache._drive = timed_drive
     try:
         torch.cuda.synchronize()
@@ -625,14 +653,23 @@ def _full_width_run(name: str, scale: float) -> dict:
            "cycles": rep.cycles, "issued": rep.issued,
            "kips": rep.issued / wall / 1e3, "steps": steps,
            "steps_per_s": steps / wall,
-           "cycle_step_launches": step_ops.launches - l0,
+           f"{kernel}_launches": getattr(mod, attr) - l0,
            "sim_launches": s1["launches"] - s0["launches"],
            "outside_share": 1.0 - inside[0] / wall}
-    check(res["cycle_step_launches"] > 0, f"{name} launched no cycle_step")
-    check(res["cycle_step_launches"] * compile_cache.STEPS_PER_CHECK
-          == steps, f"{name}: {res['cycle_step_launches']} cycle_step "
+    check(res[f"{kernel}_launches"] > 0, f"{name} launched no {kernel}")
+    check(res[f"{kernel}_launches"] * compile_cache.STEPS_PER_CHECK
+          == steps, f"{name}: {res[f'{kernel}_launches']} {kernel} "
           f"launches for {steps} steps")
     return res
+
+
+def _full_width_run(name: str, scale: float) -> dict:
+    """(b) ``name`` at full width on the card through cycle_step (SSORT
+    on its most, 32 DPUs: ``goldens.MAX_DPUS``)."""
+    from repro_torch.workloads.goldens import MAX_DPUS
+    cfg = _full_cfg()
+    cfg = cfg.replace(n_dpus=min(cfg.n_dpus, MAX_DPUS.get(name, cfg.n_dpus)))
+    return _timed_run(cfg, name, scale, "cycle_step")
 
 
 def phase_workloads() -> dict:
@@ -654,6 +691,226 @@ def phase_workloads() -> dict:
     log(f"[workloads] {runs} golden runs and {len(full)} full-width runs "
         f"({secs:.1f} s)")
     return {"golden_runs": runs, "full": full, "seconds": secs}
+
+
+#: commands a launch in [simt]'s crf_step cases (the cases are short)
+CRF_CASE_K = 8
+
+
+def _record_launches(fn):
+    """Run ``fn()`` with compile_cache.run recording its arguments;
+    returns (fn's result, the list of (args, kwargs))."""
+    from repro_torch.core import compile_cache
+    calls = []
+    run = compile_cache.run
+
+    def recording_run(*a, **kw):
+        calls.append((a, kw))
+        return run(*a, **kw)
+
+    compile_cache.run = recording_run
+    try:
+        return fn(), calls
+    finally:
+        compile_cache.run = run
+
+
+def _kernel_times(launch_args, label: str, n: int, dma_bytes_moved: int,
+                  skip=("wram", "mram", "atomic")) -> dict:
+    """A step kernel at a path's own launch, set up again with
+    ``compile_cache.prepare``: after 2 warm launches, one launch of 64
+    steps held bitwise against 64 eager card steps (the plain version)
+    from a copy of the same state, every leaf (``max_abs_err``: the
+    largest difference over the leaves); then the device ms per 64-step
+    launch, ``n`` raw launches between CUDA events (uncounted); the plain
+    version's time (the eager card step x 64) on the copy; the bytes
+    bound: every leaf of the kernel's ``LEAVES`` but ``skip`` read and
+    written once, and the memory words the timed launches move (the DMA'd
+    or bank words read from one memory and written to another,
+    ``dma_bytes_moved`` times their byte count, LW/SW words, one atomic
+    word read and written per sync instruction)."""
+    import torch
+    from repro_torch.core import compile_cache
+    from repro_torch.core.isa import CLS_LDST, CLS_SYNC
+    a, kw = launch_args
+    prep = compile_cache.prepare(*a, **kw)
+    kern, st = prep.kernel, prep.st
+    K = compile_cache.STEPS_PER_CHECK
+    for _ in range(2):
+        kern.run(K)
+    torch.cuda.synchronize()
+    plain = {k: v.clone() for k, v in st.items()}
+    kern.run(K)
+    for _ in range(K):
+        plain.update(prep.step_fn(prep.ir, plain))
+    torch.cuda.synchronize()
+    err, bad = 0.0, []
+    for k, want in plain.items():
+        got = st[k]
+        if want.dtype == torch.float32:        # bitwise, not by value
+            same = torch.equal(want.view(torch.int32), got.view(torch.int32))
+        else:
+            same = torch.equal(want, got)
+        if not same:
+            bad.append(k)
+        err = max(err, (want.double() - got.double()).abs().max().item())
+    check(not bad, f"{label}: the kernel's launch differs from {K} eager "
+          f"card steps in {bad} (max abs err {err})")
+    check(kern.predicate() == bool(prep.cond(plain)),
+          f"{label}: predicates differ after the compared launch")
+    before = {k: st[k].double().sum().item()
+              for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")}
+    cls0 = st["c_cls"].double().sum(0)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        kern.run(K)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / n
+    check(kern.predicate(), f"{label}: the launch ended inside the timed "
+          "window")
+    delta = {k: (st[k].double().sum().item() - v) / n
+             for k, v in before.items()}
+    cls = (st["c_cls"].double().sum(0) - cls0) / n
+    for _ in range(2):
+        plain.update(prep.step_fn(prep.ir, plain))
+    torch.cuda.synchronize()
+    m = 10
+    t0.record()
+    for _ in range(m):
+        plain.update(prep.step_fn(prep.ir, plain))
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1) / m * K
+    small = sum(st[k].numel() * st[k].element_size() for k in kern.LEAVES
+                if k not in skip)
+    dma = delta["c_dma_rd_bytes"] + delta["c_dma_wr_bytes"]
+    ldst, sync = cls[CLS_LDST].item(), cls[CLS_SYNC].item()
+    nbytes = 2 * small + dma_bytes_moved * dma + 4 * ldst + 8 * sync
+    ops = delta["c_issued"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR32_OPS_PER_S
+    res = {"ms": ms, "us_per_step": ms * 1e3 / K, "plain_ms": plain_ms,
+           "max_abs_err": err, "compared_steps": K,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "state_bytes": small,
+           "bytes_per_launch": nbytes, "dma_bytes_per_launch": dma,
+           "issued_per_launch": ops, "dpus": int(st["status"].shape[0]),
+           "timed_launches": n}
+    log(f"[simt] {label}: bitwise equal to {K} eager card steps; "
+        + json.dumps(res))
+    return res
+
+
+def phase_simt() -> dict:
+    """[simt] the SIMT engine and the HBM-PIM targets on the card: (a)
+    simt_step and crf_step bitwise against the eager card steps on every
+    case; (b) the SIMT and HBM-PIM goldens; (c) the full-width runs under
+    their oracles (Fig. 11's designs, GEMVS on hbmpim_cmd, BFS and SSORT
+    on hbmpim), each kernel's launches counted over its own path; (d) each
+    kernel's ms per launch at its path's launch."""
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.kernels.crf_step import cases as crf_cases
+    from repro_torch.kernels.cycle_step.cases import hold_against_plain
+    from repro_torch.kernels.simt_step import cases
+    from repro_torch.workloads import goldens
+    out = {"cases": 0, "steps": 0}
+    t0 = time.perf_counter()
+    runs = [(n, cases.launch(n), 64, None) for n in sorted(cases.CASES)]
+    runs += [(f"crf:{n}", crf_cases.launch(n), CRF_CASE_K,
+              crf_cases.edit_of(n)) for n in sorted(crf_cases.CASES)]
+    for name, case, k, edit in runs:
+        t1 = time.perf_counter()
+        try:
+            res = hold_against_plain(case, k, device="cuda", edit=edit)
+        except AssertionError as e:
+            raise SmokeError(f"{name}: kernel != eager card step "
+                             f"({case[0].n_dpus} DPUs): {e}")
+        check(res["alu_launches"] == 0,
+              f"{name}: {res['alu_launches']} alu_exec launches in the kernel")
+        log(f"[simt] {res['kernel']} {name} ({case[0].n_dpus} DPUs x "
+            f"{case[4]} lanes): bitwise equal after 1, 7 and {res['steps']} "
+            f"steps, {res['launches']} launches "
+            f"({time.perf_counter() - t1:.1f} s)")
+        out["cases"] += 1
+        out["steps"] += res["steps"]
+    log(f"[simt] {out['cases']} cases bitwise equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    gold = goldens.load()["entries"]
+    t1 = time.perf_counter()
+    runs = 0
+    for key in goldens.SIMT_KEYS:
+        for name in goldens.workloads_of(key, wl.ALL):
+            kernel = goldens.kernel_of(key, name)
+            mod, attr = _counters()[kernel]
+            l0 = getattr(mod, attr)
+            got = goldens.run_entry(wl, DPUConfig, PIMSystem, compile_cache,
+                                    key, name, device="cuda")
+            bad = goldens.differences(gold[key][name], got)
+            check(not bad, f"{name} on {key} (cuda) differs from its golden "
+                  f"in {bad}: {got.get('raises', '')}")
+            check(getattr(mod, attr) > l0, f"{name} on {key} launched no "
+                  f"{kernel}")
+            runs += 1
+    capped = sorted(f"{k}/{n}" for k in goldens.SIMT_KEYS for n in gold[k]
+                    if "raises" in gold[k][n])
+    out["golden_runs"] = runs
+    log(f"[simt] {runs} golden runs ({', '.join(goldens.SIMT_KEYS)}) equal "
+        f"to their goldens; capped at {goldens.CAP} cycles with the "
+        f"golden's error and capped state: {', '.join(capped)} "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # (c) full width, each kernel's launches counted over its own path
+    full = _full_cfg()
+    out["fig11"] = []
+    reset_launches()
+    (_, calls) = _record_launches(lambda: [
+        out["fig11"].append(dict(design=d, **_timed_run(
+            full.replace(**kw), "GEMV", 1.0,
+            "cycle_step" if d == "Base" else "simt_step")))
+        for d, kw in goldens.FIG11.items()])
+    fig11_launches = read_launches()
+    out["simt_step_launches"] = fig11_launches["simt_step"]
+    base_c = out["fig11"][0]["cycles"]
+    for r in out["fig11"]:
+        r["speedup"] = base_c / r["cycles"]
+        log("[simt] Fig. 11 full width, oracle ok: " + json.dumps(r))
+    check(fig11_launches["crf_step"] == 0 and fig11_launches["alu_exec"] == 0,
+          f"Fig. 11 launched {fig11_launches}")
+    simt_args = calls[2]            # SIMT+AC's one launch (GEMV: one each)
+    check(simt_args[0][0].coalescing and simt_args[0][0].simt_width == 16,
+          "the recorded launch is not SIMT+AC's")
+    reset_launches()
+    (r, calls_cmd) = _record_launches(lambda: _timed_run(
+        full.replace(backend="hbmpim_cmd"), "GEMVS", 1.0, "crf_step"))
+    out["gemvs_cmd"] = r
+    out["crf_step_launches"] = read_launches()["crf_step"]
+    log("[simt] GEMVS on hbmpim_cmd full width, oracle ok: " + json.dumps(r))
+    out["allbank"] = []
+    for name, dpus, scale in (("BFS", 64, 1.0), ("SSORT", 32, 0.375)):
+        r = _timed_run(full.replace(backend="hbmpim", n_dpus=dpus), name,
+                       scale, "simt_step")
+        out["allbank"].append(r)
+        log(f"[simt] {name} on hbmpim, oracle ok: " + json.dumps(r))
+
+    # (d) each kernel at its path's launch
+    # 2 warm launches, 1 compared, n timed: the launch still runs after
+    n = max(1, min(100, out["fig11"][2]["simt_step_launches"] - 4))
+    out["simt_times"] = _kernel_times(simt_args, "simt_step at Fig. 11 "
+                                      "SIMT+AC's full-width launch", n, 2)
+    per_launch = out["gemvs_cmd"]["crf_step_launches"] // len(calls_cmd)
+    out["crf_times"] = _kernel_times(
+        calls_cmd[0], "crf_step at GEMVS's first full-width command "
+        "stream", max(1, min(10, per_launch - 4)), 1, skip=("mram",))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[simt] phase {out['seconds']:.1f} s")
+    return out
 
 
 def phase_step_times(launch_args, n: int = 100) -> dict:
@@ -1236,6 +1493,7 @@ def main(argv=None) -> int:
         from repro_torch.core.compile_cache import dpu_bucket
         times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
         work = phase_workloads()
+        simt_run = phase_simt()
         phase_lm_parity()
         lm_run = phase_lm_main()
         lm_times = phase_lm_kernel_times()
@@ -1259,6 +1517,19 @@ def main(argv=None) -> int:
         "bound_ms": step_times["bound_ms"],
         "bound_by": step_times["bound_by"], "library_ms": None,
     }]
+    for name, times, src, csrc in (
+            ("simt_step", simt_run["simt_times"], "src/repro/core/simt.py:83",
+             "simt_step/csrc/simt_step.cu"),
+            ("crf_step", simt_run["crf_times"], "src/repro/core/hbmpim.py:208",
+             "crf_step/csrc/crf_step.cu")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{csrc}", "replaces": src,
+            "launches": simt_run[f"{name}_launches"],
+            "max_abs_err": times["max_abs_err"],
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+            "library_ms": None})
     replaces = {
         "flash_attention":
             ("src/repro/kernels/flash_attention/flash_attention.py:67",
@@ -1293,6 +1564,13 @@ def main(argv=None) -> int:
         f"{FULL_SYSTEM_DPUS} DPUs: "
         f"{step_run['us_per_step'][FULL_SYSTEM_DPUS]['us_per_step']:.2f}); "
         f"smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+    log(f"[report] simt: {simt_run['cases']} kernel cases bitwise, "
+        f"{simt_run['golden_runs']} golden runs equal; Fig. 11 full width "
+        + ", ".join(f"{r['design']} {r['wall_s']:.3f} s ({r['cycles']} "
+                    f"cycles)" for r in simt_run["fig11"])
+        + f"; simt_step {simt_run['simt_times']['us_per_step']:.3f} µs a "
+        f"step, crf_step {simt_run['crf_times']['us_per_step']:.3f} µs a "
+        "command")
     log(f"[report] workloads: {work['golden_runs']} golden runs equal; full "
         f"width KIPS " + ", ".join(f"{r['workload']} {r['kips']:.1f}"
                                    for r in work["full"]))

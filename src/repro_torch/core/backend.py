@@ -13,17 +13,19 @@ host launch path need to run an architecture:
   key;
 * :meth:`~ExecBackend.pad_lanes` — mask DPU-bucket padding rows so they
   never issue;
-* :meth:`~ExecBackend.report` — final state -> :class:`KernelReport`.
+* :meth:`~ExecBackend.report` — final state -> :class:`KernelReport`;
+* :meth:`~ExecBackend.card_kernel` — the driver of the backend's CUDA
+  kernel over a launch's state on the card.
 
-Only the UPMEM-style scalar backend is ported.  ``simt``, ``hbmpim`` and
-``hbmpim_cmd`` stay in the lazy table: looking one up raises
-:class:`NotImplementedError` naming the ROADMAP item that ports it.
+The UPMEM-style scalar and SIMT engines register here; the HBM-PIM
+all-bank targets (``"hbmpim"`` / ``"hbmpim_cmd"``) load lazily from
+:mod:`repro_torch.core.hbmpim` on first lookup, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core import engine, isa, stats
+from repro_torch.core import engine, isa, simt, stats
 from repro_torch.core.config import DPUConfig
 
 
@@ -61,6 +63,18 @@ class ExecBackend:
         """Aggregate the final state's counters into a KernelReport."""
         return stats.report_from_state(name, cfg, st, n_threads)
 
+    def card_kernel(self, cfg: DPUConfig, st, ir, image):
+        """The driver of this backend's CUDA kernel over the launch state
+        ``st`` (CUDA tensors, updated in place) and the (6, P) image
+        ``ir`` (``image``: the same as numpy): an object with
+        ``launch(k)`` (k steps, one counted launch) and ``predicate()``,
+        as :class:`~repro_torch.kernels.cycle_step.ops.CycleStep`.  A
+        backend without a kernel raises: on the card no other engine's
+        kernel may run its state, and nothing falls back."""
+        raise NotImplementedError(
+            f"execution backend {self.name!r} has no CUDA kernel: it runs "
+            "only on the CPU (device='cpu')")
+
     # ---- lane masking (engine-family layout; override if different) --------
     def pad_lanes(self, cfg: DPUConfig, st, logical_d: int) -> None:
         """Mask DPU-bucket padding rows (``logical_d:``) so they never
@@ -91,6 +105,35 @@ class ScalarBackend(ExecBackend):
         return (engine.make_step_traced(cfg, n_threads, device),
                 engine.make_cond(cfg))
 
+    def card_kernel(self, cfg, st, ir, image):
+        from repro_torch.kernels.cycle_step.ops import CycleStep
+        return CycleStep(cfg, st, ir, image=image)
+
+
+class SimtBackend(ExecBackend):
+    """SIMT vector DPU (case study #1): warps of ``simt_width`` tasklets."""
+
+    name = "simt"
+
+    def validate(self, cfg, binary, n_threads):
+        if cfg.simt_width <= 0:
+            raise AssertionError("simt backend needs simt_width > 0")
+        if n_threads % cfg.simt_width != 0:
+            raise AssertionError(
+                "n_tasklets must be a multiple of warp width")
+
+    def make_state(self, cfg, binary, wram_init, mram_init, n_threads):
+        return simt.make_state_np(cfg, binary, wram_init, mram_init,
+                                  n_threads)
+
+    def step_driver(self, cfg, n_threads, device):
+        return (simt.make_step_traced(cfg, n_threads, device),
+                engine.make_cond(cfg))
+
+    def card_kernel(self, cfg, st, ir, image):
+        from repro_torch.kernels.simt_step.ops import SimtStep
+        return SimtStep(cfg, st, ir, image=image)
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -98,18 +141,11 @@ class ScalarBackend(ExecBackend):
 
 _REGISTRY: Dict[str, ExecBackend] = {}
 
-#: backends imported on first get(); none of these modules is ported yet
+#: backends imported on first get() — registering at import time would
+#: make repro_torch.core.backend depend on every architecture module
 _LAZY = {
-    "simt": "repro_torch.core.simt",
     "hbmpim": "repro_torch.core.hbmpim",
     "hbmpim_cmd": "repro_torch.core.hbmpim",
-}
-
-#: where ROADMAP.md queues the port of each lazy backend
-_ROADMAP_ITEM = {
-    "simt": "ROADMAP.md, modules still to port: core/simt.py + SimtBackend",
-    "hbmpim": "ROADMAP.md, modules still to port: core/hbmpim.py",
-    "hbmpim_cmd": "ROADMAP.md, modules still to port: core/hbmpim.py",
 }
 
 
@@ -126,14 +162,7 @@ def get(name: str) -> ExecBackend:
     be = _REGISTRY.get(name)
     if be is None and name in _LAZY:
         import importlib
-        try:
-            importlib.import_module(_LAZY[name])
-        except ModuleNotFoundError as e:
-            if e.name != _LAZY[name]:
-                raise
-            raise NotImplementedError(
-                f"execution backend {name!r} is not ported to repro_torch "
-                f"yet ({_ROADMAP_ITEM[name]})") from None
+        importlib.import_module(_LAZY[name])
         be = _REGISTRY.get(name)
     if be is None:
         raise KeyError(
@@ -161,3 +190,4 @@ def resolve_backend(cfg: DPUConfig, backend: Optional[str] = None) -> str:
 
 
 register(ScalarBackend())
+register(SimtBackend())

@@ -19,10 +19,13 @@ relaunch rebuilds nothing.
   predicate on the device, so the steps taken after it turned false
   change nothing.
 * **The fused kernel** — on the card every K-step block is one launch of
-  the hand-written cycle-step kernel
-  (:mod:`repro_torch.kernels.cycle_step`), the ALU inside it, which
-  writes the predicate into a device flag; the host reads the flag once
-  per launch.  On the CPU the plain step runs, traced once per launch
+  the backend's hand-written kernel (:meth:`~repro_torch.core.backend
+  .ExecBackend.card_kernel`: :mod:`repro_torch.kernels.cycle_step` for
+  the scalar engine, the ALU inside it; :mod:`~repro_torch.kernels
+  .simt_step` for the SIMT engine and the all-bank compat target;
+  :mod:`~repro_torch.kernels.crf_step` for the CRF command model),
+  which writes the predicate into a device flag; the host reads the flag
+  once per launch.  A backend without a kernel raises there.  On the CPU the plain step runs, traced once per launch
   (:func:`_traced_step`) so Python leaves the loop.
 * **Devices** — ``device=None`` means the CUDA card; without one every
   entry point raises instead of running on the CPU.  ``device="cpu"``
@@ -52,7 +55,6 @@ from repro_torch.core.backend import resolve_backend
 from repro_torch.core.carry import (resolve_device, state_to_numpy,
                                     state_to_torch)
 from repro_torch.core.config import DPUConfig
-from repro_torch.kernels.cycle_step.ops import CycleStep
 
 #: smallest padded program length (instruction slots)
 PROGRAM_BUCKET_FLOOR = 64
@@ -106,18 +108,19 @@ class Prepared:
 
     ``st`` is the device state.  On the CPU the first step has run
     eagerly (it builds the per-launch caches) and ``cpu_step`` is the
-    step traced over this launch's image.  On CUDA, ``kernel`` is
-    the fused cycle-step kernel's :class:`~repro_torch.kernels.cycle_step
-    .ops.CycleStep` over ``st``: each :meth:`advance` is one launch that
-    updates ``st`` in place, and the predicate is the flag the kernel
-    writes.  ``steps`` counts the steps asked for so far."""
+    step traced over this launch's image.  On CUDA, ``kernel`` is the
+    backend's kernel driver over ``st`` (``ExecBackend.card_kernel``,
+    e.g. :class:`~repro_torch.kernels.cycle_step.ops.CycleStep`): each
+    :meth:`advance` is one launch that updates ``st`` in place, and the
+    predicate is the flag the kernel writes.  ``steps`` counts the steps
+    asked for so far."""
 
     entry: _Entry
     ir: torch.Tensor
     st: Dict[str, torch.Tensor]
     step_fn: Callable
     cond: Callable
-    kernel: Optional[CycleStep] = None
+    kernel: Optional[object] = None
     cpu_step: Optional[Callable] = None
     steps: int = 0
     pred: Optional[bool] = None
@@ -198,7 +201,7 @@ def prepare(cfg: DPUConfig, binary, wram_init, mram_init,
     """Set a launch up as :func:`run` drives it: look up (or build) the
     cache entry, pad the state to the buckets, place it and the
     instruction image on ``device``; on the CPU take the first step, on
-    CUDA set the fused kernel up over the state.  The arguments are
+    CUDA set the backend's kernel up over the state.  The arguments are
     :func:`run`'s; ``all_done`` marks every lane DONE (:func:`prewarm`)."""
     device = resolve_device(device)
     be = backends.get(resolve_backend(cfg, backend))
@@ -217,7 +220,7 @@ def prepare(cfg: DPUConfig, binary, wram_init, mram_init,
     step, cond = entry.driver(device)
     prep = Prepared(entry, ir, state_to_torch(st0, device), step, cond)
     if device.type == "cuda":
-        prep.kernel = CycleStep(cfg, prep.st, ir, image=ir_np)
+        prep.kernel = be.card_kernel(cfg, prep.st, ir, ir_np)
         alive = (st0["status"] != engine.DONE).any(-1) \
             & (st0["cycle"] < cfg.max_cycles)
         prep.pred = bool(alive.any())

@@ -14,7 +14,9 @@ in one slot of one cycle, 256-byte DMAs that cover the last WRAM word
 beside 1500-byte ones on other DPUs, so the copy window is the widest
 DMA's across DPUs.  :func:`cache_va` is the cache-mode VA (case study
 #4), :func:`va` VA's launch at any DPU count.  :func:`launch` turns a
-case into ``(cfg, binary, wram, mram, T)``.
+case into ``(cfg, binary, wram, mram, T)``; :func:`hold_against_plain`
+holds the card kernel of any backend's launch against its plain version
+(the SIMT and CRF kernels' cases use it too).
 """
 from __future__ import annotations
 
@@ -332,38 +334,43 @@ def va(n_dpus: int, scale: float = 0.02, T: int = 16):
 
 
 def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
-                       max_steps: int = 1 << 20) -> dict:
-    """Run the fused kernel and its plain version (the eager step on the
-    same device) side by side from one padded initial state, as the driver
-    pads it, until the predicate turns false: ``k`` steps per launch, and
-    launches cut short at ``checkpoints``.  After each checkpoint and at
-    the end every leaf must be bitwise equal (floats too) and the
-    predicates equal; raises ``AssertionError`` naming the first leaf that
-    differs.  ``case``: ``(cfg, binary, wram, mram, T)``.
+                       max_steps: int = 1 << 20, edit=None) -> dict:
+    """Run the card kernel of the case's backend (``ExecBackend
+    .card_kernel``: ``cycle_step``, ``simt_step`` or ``crf_step``) and its
+    plain version (the backend's eager step on the same device) side by
+    side from one padded initial state, as the driver pads it, until the
+    predicate turns false: ``k`` steps per launch, and launches cut short
+    at ``checkpoints``.  After each checkpoint and at the end every leaf
+    must be bitwise equal (floats too) and the predicates equal; raises
+    ``AssertionError`` naming the first leaf that differs.  ``case``:
+    ``(cfg, binary, wram, mram, T)``; ``edit``: a function that changes
+    the padded numpy state before both start (or None).
 
-    Returns ``{"steps", "launches", "alu_launches", "route"}``: the steps
-    taken, the kernel's launches, the ALU kernel's launches made inside
-    them (the fused kernel launches none) and the kernel's route
-    (``ops.launch_route``)."""
+    Returns ``{"steps", "launches", "alu_launches", "kernel", "route"}``:
+    the steps taken, the kernel's launches, the ALU kernel's launches made
+    inside them (the fused kernels launch none), the driver's class name
+    and its route (``CycleStep.route``; None for the others)."""
     import torch
-    from repro_torch.core import backend, compile_cache, engine
+    from repro_torch.core import backend, compile_cache
     from repro_torch.core.carry import state_to_torch
     from repro_torch.kernels.alu_exec import ops as alu_ops
-    from repro_torch.kernels.cycle_step import ops
     cfg, binary, wram, mram, T = case
+    be = backend.get(backend.resolve_backend(cfg))
     Dp = compile_cache.dpu_bucket(cfg.n_dpus)
-    st0 = compile_cache._padded_state(cfg, backend.get("scalar"), binary,
+    st0 = compile_cache._padded_state(cfg, be, binary,
                                       np.asarray(wram, np.int32),
                                       np.asarray(mram, np.int32), T, Dp)
+    if edit is not None:
+        edit(st0)
     P = compile_cache.program_bucket(binary.n_instrs,
                                      binary.opcode.shape[0])
     ir_np = np.stack([np.asarray(a[:P], np.int32) for a in binary.arrays])
     ir = torch.from_numpy(ir_np).to(device)
     fused = state_to_torch(st0, device)
     plain = state_to_torch(st0, device)
-    kern = ops.CycleStep(cfg, fused, ir, image=ir_np)
-    step = engine.make_step_traced(cfg, T, device)
-    cond = engine.make_cond(cfg)
+    kcfg = cfg.replace(n_dpus=Dp)
+    kern = be.card_kernel(kcfg, fused, ir, ir_np)
+    step, cond = be.step_driver(kcfg, T, torch.device(device))
     marks = sorted(checkpoints)
     n = launches = alu = 0
     while n < max_steps:
@@ -381,7 +388,8 @@ def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
         assert kern.predicate() == going, f"predicate after {n} steps"
         if not going:
             return {"steps": n, "launches": launches, "alu_launches": alu,
-                    "route": kern.route}
+                    "kernel": type(kern).__name__,
+                    "route": getattr(kern, "route", None)}
     raise AssertionError(f"still running after {max_steps} steps")
 
 

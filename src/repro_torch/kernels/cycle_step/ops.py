@@ -30,14 +30,14 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core.config import DPUConfig
 from repro_torch.kernels.cycle_step.cycle_step import (
     CONFIG, DPUS_PER_BLOCK, LEAVES, MAX_SLOTS, Args, config_fields,
-    cycle_step_cuda, leaf_table, library, max_dpus, pack_image)
+    cycle_step_cuda, leaf_table, max_dpus, pack_image)
 from repro_torch.kernels.cycle_step.ref import cycle_step_ref
+from repro_torch.kernels.step_driver import StepDriver
 
 #: CUDA kernel launches made by this module (a plain integer)
 launches = 0
@@ -77,7 +77,7 @@ def launch_route(n_dpus: int, n_threads: int) -> str:
     return "resident" if n_dpus <= max_dpus(n_threads) else "stepwise"
 
 
-class CycleStep:
+class CycleStep(StepDriver):
     """A launch's state on the card, checked once, advanced ``k`` steps a
     kernel launch.
 
@@ -87,57 +87,52 @@ class CycleStep:
     (saves a copy back), or None.  ``route`` is :func:`launch_route`'s
     choice for the state's DPU count."""
 
-    def __init__(self, cfg: DPUConfig, st: Dict[str, torch.Tensor],
-                 ir: torch.Tensor, image: Optional[np.ndarray] = None):
-        dev = st["status"].device if "status" in st else ir.device
-        if dev.type != "cuda":
-            raise ValueError(f"cycle_step: the kernel runs on CUDA tensors, "
-                             f"got {dev}")
-        D, T = _check_state(cfg, st, dev)
-        route(cfg, T)
-        if not (ir.device == dev and ir.dtype == torch.int32
-                and ir.dim() == 2 and ir.shape[0] == 6 and ir.shape[1] > 0):
-            raise ValueError(f"cycle_step: ir must be a (6, P) int32 tensor "
-                             f"on {dev}, got {tuple(ir.shape)} {ir.dtype} "
-                             f"on {ir.device}")
-        with torch.cuda.device(dev):    # builds the library at first use
-            self.route = launch_route(D, T)
-        if image is None:
-            image = ir.cpu().numpy()
-        P = ir.shape[1]
-        self.image = torch.from_numpy(pack_image(cfg, image)).to(dev)
-        W, M = st["wram"].shape[1], st["mram"].shape[1]
-        grid = -(-D // DPUS_PER_BLOCK)
-        # scratch of the kernel: one vote a block, the predicate, each
-        # DPU's published step and each step's DMA-width votes (the
-        # kernel leaves the latter zero for the next launch)
-        self.partial = torch.zeros(grid, dtype=torch.int32, device=dev)
-        self.flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.prog = torch.zeros(D, dtype=torch.int64, device=dev)
-        self.wide = torch.zeros(0, dtype=torch.int32, device=dev)
-        self.st = st
-        self.device = dev
-        fields, inv_bw, inv_win = config_fields(cfg, D, T, W, M, P, 1)
-        args = Args()
-        for i, name in enumerate(LEAVES):
-            args.leaf[i] = st[name].data_ptr()
-        args.image = self.image.data_ptr()
-        args.partial = self.partial.data_ptr()
-        args.flag = self.flag.data_ptr()
-        args.prog = self.prog.data_ptr()
-        args.base = 0
-        for i, v in enumerate(fields):
-            args.c[i] = v
-        args.inv_bw = float(inv_bw)
-        args.inv_win = float(inv_win)
-        self.args = args
-        self._k = CONFIG.index("K")
+    name = "cycle_step"
+    LEAVES = LEAVES
+    Args = Args
 
-    def launch(self, k: int) -> None:
-        """Advance ``k`` steps in one kernel launch on the current stream
-        (the kernel stops early once no DPU runs), counted."""
+    def state_keys(self, cfg, st):
+        return set(LEAVES)
+
+    def leaf_table(self, cfg, st):
+        if st["status"].dim() != 2 or st["wram"].dim() != 2 \
+                or st["mram"].dim() != 2:
+            raise ValueError("cycle_step: status, wram and mram must be 2-d")
+        D, T = st["status"].shape
+        return leaf_table(cfg, D, T, st["wram"].shape[1], st["mram"].shape[1])
+
+    def pack(self, cfg, image):
+        return pack_image(cfg, image)
+
+    def scratch(self, D):
+        # one vote a block, each DPU's published step and each step's
+        # DMA-width votes (the kernel leaves the latter zero for the next
+        # launch; sized by run)
+        grid = -(-D // DPUS_PER_BLOCK)
+        self.partial = torch.zeros(grid, dtype=torch.int32, device=self.device)
+        self.prog = torch.zeros(D, dtype=torch.int64, device=self.device)
+        self.wide = torch.zeros(0, dtype=torch.int32, device=self.device)
+        self.args.partial = self.partial.data_ptr()
+        self.args.prog = self.prog.data_ptr()
+
+    def configure(self, cfg, st, P):
+        D, T = st["status"].shape
+        route(cfg, T)
+        self._dt = (D, T)
+        fields, inv_bw, inv_win = config_fields(
+            cfg, D, T, st["wram"].shape[1], st["mram"].shape[1], P, 1)
+        for i, v in enumerate(fields):
+            self.args.c[i] = v
+        self.args.inv_bw = float(inv_bw)
+        self.args.inv_win = float(inv_win)
+        self.args.base = 0
+        return CONFIG.index("K")
+
+    def library(self):
+        self.route = launch_route(*self._dt)   # builds the library
+
+    def count(self):
         global launches
-        self.run(k)
         launches += 1
 
     def run(self, k: int) -> None:
@@ -152,10 +147,6 @@ class CycleStep:
                         torch.cuda.current_stream(self.device).cuda_stream,
                         self.route)
         self.args.base += k     # steps are numbered across launches
-
-    def predicate(self) -> bool:
-        """The termination predicate after the last launch (syncs)."""
-        return bool(self.flag.item())
 
 
 def cycle_step(cfg: DPUConfig, st: Dict[str, torch.Tensor], ir: torch.Tensor,
@@ -172,31 +163,3 @@ def cycle_step(cfg: DPUConfig, st: Dict[str, torch.Tensor], ir: torch.Tensor,
     kern.launch(k)
     return kern.predicate()
 
-
-def _check_state(cfg: DPUConfig, st: Dict[str, torch.Tensor], dev):
-    """Raise the precise reason the kernel cannot take ``st``; return
-    (D, T)."""
-    missing = [k for k in LEAVES if k not in st]
-    extra = [k for k in st if k not in LEAVES]
-    if missing or extra:
-        raise ValueError(f"cycle_step: state keys differ from the engine's: "
-                         f"missing {missing}, unexpected {extra}")
-    if st["status"].dim() != 2 or st["wram"].dim() != 2 \
-            or st["mram"].dim() != 2:
-        raise ValueError("cycle_step: status, wram and mram must be 2-d")
-    D, T = st["status"].shape
-    table = leaf_table(cfg, D, T, st["wram"].shape[1], st["mram"].shape[1])
-    for name, (dtype, shape) in table.items():
-        t = st[name]
-        if t.device != dev:
-            raise ValueError(f"cycle_step: {name} on {t.device}, status on "
-                             f"{dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"cycle_step: {name} must be {dtype}, got "
-                            f"{t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"cycle_step: {name} shape {tuple(t.shape)} != "
-                             f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"cycle_step: {name} must be contiguous")
-    return D, T

@@ -42,15 +42,7 @@ class GEMVS(GEMV):
 
     # ---- native all-bank path ----------------------------------------------
     def _run_allbank(self, system, scale: float, seed: int):
-        try:
-            import repro_torch.core.hbmpim as hbmpim
-        except ModuleNotFoundError as e:
-            if e.name != "repro_torch.core.hbmpim":
-                raise
-            raise NotImplementedError(
-                f"{self.name}: the all-bank path needs the HBM-PIM engine, "
-                "which is not ported to repro_torch yet (ROADMAP.md, "
-                "modules still to port: core/hbmpim.py)") from None
+        from repro_torch.core import hbmpim
 
         cfg = system.cfg
         D, W, C = cfg.n_dpus, cfg.hbm_lanes, GEMV_C

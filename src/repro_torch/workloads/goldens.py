@@ -13,6 +13,10 @@ An entry holds ``cycles`` and ``issued``, the ``Timeline`` (every field
 a run compares, floats exact through JSON) and ``digest``: a SHA-256
 over every ``KernelReport`` field (arrays by dtype, shape and bytes)
 and every leaf of the final state (sorted keys, dtype, shape, bytes).
+A run that raises (a kernel that hits ``max_cycles``) is recorded as
+``{"raises": "<type>: <first line>", "state_digest": ...}``: the error and
+the SHA-256 of every leaf of the last state the driver returned, the
+capped one (:func:`run_entry`).
 """
 from __future__ import annotations
 
@@ -25,16 +29,68 @@ import numpy as np
 
 PATH = Path(__file__).with_name("goldens.json")
 
+_G4 = dict(n_dpus=4, n_ranks=2, n_channels=2, n_tasklets=8,
+           mram_bytes=1 << 18)
+#: the SIMT and HBM-PIM configurations' cap: 2.5x the longest of their
+#: runs that ends (MLP on SIMT, 162,920 cycles).  HST-L and TRNS never end
+#: on the SIMT engine (a spin on a held mutex under min-PC reconvergence)
+#: and are recorded at it.
+CAP = 400_000
+#: Fig. 11's designs (benchmarks/pim_figs.py fig11_simt)
+FIG11 = {
+    "Base": {},
+    "SIMT": dict(simt_width=16),
+    "SIMT+AC": dict(simt_width=16, coalescing=True),
+    "SIMT+AC+4x": dict(simt_width=16, coalescing=True, mram_bw_scale=4.0),
+    "SIMT+AC+16x": dict(simt_width=16, coalescing=True, mram_bw_scale=16.0),
+}
+
 #: name -> (DPUConfig fields, threads, scale, seed).  g4 is VA's golden
 #: configuration (tests/test_backend.py) at 8 tasklets with 256 KiB of
 #: MRAM a DPU (MLP's three 128 x 128 layers need 193 KiB); g64 is one
-#: UPMEM rank of the paper's figures (benchmarks/pim_figs.py _cfg).
+#: UPMEM rank of the paper's figures (benchmarks/pim_figs.py _cfg).  s4,
+#: s4ac and h4 are g4 on the SIMT engine (4 wide; 8 wide with the
+#: coalescer) and on the HBM-PIM all-bank compat target; c4 is GEMVS's
+#: native CRF path (tests/test_hbmpim.py:144's scale and seed); fig11/* are
+#: Fig. 11's designs (one DPU, 16 tasklets, the figures' 2 MiB MRAM).
 CONFIGS = {
-    "g4": (dict(n_dpus=4, n_ranks=2, n_channels=2, n_tasklets=8,
-                mram_bytes=1 << 18), 8, 0.02, 0),
+    "g4": (_G4, 8, 0.02, 0),
     "g64": (dict(n_dpus=64, n_tasklets=16, mram_bytes=1 << 21), 16, 0.02,
             0),
+    "s4": (dict(_G4, simt_width=4, max_cycles=CAP), 8, 0.02, 0),
+    "s4ac": (dict(_G4, simt_width=8, coalescing=True, max_cycles=CAP), 8,
+             0.02, 0),
+    "h4": (dict(_G4, backend="hbmpim", max_cycles=CAP), 8, 0.02, 0),
+    "c4": (dict(_G4, backend="hbmpim_cmd", max_cycles=CAP), 8, 0.05, 3),
 }
+CONFIGS.update({
+    f"fig11/{design}": (dict(n_dpus=1, n_tasklets=16, mram_bytes=1 << 21,
+                             max_cycles=CAP, **kw), 16, 0.05, 0)
+    for design, kw in FIG11.items()})
+
+#: configurations that hold some workloads only (default: every one)
+ONLY = {"c4": ("GEMVS",), **{f"fig11/{d}": ("GEMV",) for d in FIG11}}
+
+
+def kernel_of(key: str, name: str) -> str:
+    """The card kernel that workload ``name`` of configuration ``key``
+    runs on: GEMVS on an HBM-PIM backend is the CRF command stream
+    (``crf_step``); the SIMT engine and the all-bank compat target are
+    ``simt_step``; the scalar DPU is ``cycle_step``."""
+    fields = CONFIGS[key][0]
+    be = fields.get("backend", "")
+    if name == "GEMVS" and be.startswith("hbmpim"):
+        return "crf_step"
+    if be not in ("", "scalar") or fields.get("simt_width", 0) > 0:
+        return "simt_step"
+    return "cycle_step"
+
+
+#: the scalar DPU's configurations (every workload, on cycle_step), and
+#: the others: the SIMT and HBM-PIM ones
+SCALAR_KEYS = tuple(k for k in CONFIGS if k not in ONLY
+                    and kernel_of(k, "") == "cycle_step")
+SIMT_KEYS = tuple(k for k in CONFIGS if k not in SCALAR_KEYS)
 
 #: workloads that take fewer DPUs than a configuration has: they run on
 #: their most (SSORT's splitter exchange: ``sort.MAX_D``)
@@ -73,9 +129,10 @@ def _feed(h, value):
 
 
 def digest(report, state) -> str:
-    """SHA-256 of every ``KernelReport`` field and every state leaf."""
+    """SHA-256 of every ``KernelReport`` field (none if ``report`` is None)
+    and every state leaf."""
     h = hashlib.sha256()
-    for f in dataclasses.fields(report):
+    for f in dataclasses.fields(report) if report is not None else ():
         h.update(f"field:{f.name}:".encode())
         _feed(h, getattr(report, f.name))
     for k in sorted(state):
@@ -104,6 +161,44 @@ def entry(report, system, state) -> dict:
     return {"cycles": int(report.cycles), "issued": int(report.issued),
             "timeline": timeline(system.timeline),
             "digest": digest(report, state)}
+
+
+def workloads_of(key: str, names) -> list:
+    """The workloads of ``names`` that configuration ``key`` holds."""
+    return sorted(n for n in names if n in ONLY.get(key, names))
+
+
+def raised(exc: BaseException) -> dict:
+    """The entry of a run that raised: the exception's type and the first
+    line of its message."""
+    return {"raises": f"{type(exc).__name__}: "
+                      f"{str(exc).splitlines()[0] if str(exc) else ''}"}
+
+
+def run_entry(workloads, config_cls, system_cls, cache, key: str,
+              name: str, **system_kw) -> dict:
+    """:func:`entry` of :func:`run_config`'s run, or, if the run raises
+    ``RuntimeError`` (a kernel that hits ``max_cycles``), :func:`raised`
+    with ``state_digest``, the :func:`digest` of the last state that
+    ``cache.run`` (the package's ``compile_cache``) returned."""
+    last = []
+    run = cache.run
+
+    def recording_run(*a, **kw):
+        out = run(*a, **kw)
+        last[:] = [out]
+        return out
+
+    cache.run = recording_run
+    try:
+        return entry(*run_config(workloads, config_cls, system_cls, key,
+                                 name, **system_kw))
+    except RuntimeError as e:
+        if not last:
+            raise
+        return dict(raised(e), state_digest=digest(None, last[0]))
+    finally:
+        cache.run = run
 
 
 def remap_entry(report, system, state) -> dict:
@@ -154,5 +249,5 @@ def differences(want: dict, got: dict) -> list:
     Timeline field by field)."""
     bad = [k for k in want if k != "timeline" and want[k] != got.get(k)]
     bad += [f"timeline.{k}" for k in want.get("timeline", {})
-            if want["timeline"][k] != got["timeline"].get(k)]
+            if want["timeline"][k] != got.get("timeline", {}).get(k)]
     return bad

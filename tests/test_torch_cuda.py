@@ -18,6 +18,10 @@ from repro_torch.core.asm import DPU_ID, Program, TID  # noqa: E402
 from repro_torch.core.config import DPUConfig  # noqa: E402
 from repro_torch.kernels.alu_exec import ops  # noqa: E402
 from repro_torch.kernels.alu_exec.ref import alu_exec_ref  # noqa: E402
+from repro_torch.kernels.crf_step import cases as crf_cases  # noqa: E402
+from repro_torch.kernels.cycle_step import cases as step_cases  # noqa: E402
+from repro_torch.kernels.simt_step import cases as simt_cases  # noqa: E402
+from repro_torch.workloads import goldens  # noqa: E402
 
 INT_MIN, INT_MAX = -2**31, 2**31 - 1
 EDGE = [(9, INT_MIN, -1), (9, 5, 0), (5, 1, 33), (7, -8, 1), (8, 2**30, 2),
@@ -415,3 +419,49 @@ def test_remap_scenario_matches_golden_on_card(card):
     got = goldens.remap_entry(rep, system, st)
     assert goldens.differences(goldens.load()["remap"], got) == []
     assert not system.active_mask[goldens.REMAP[2][0]]
+
+
+# ---------------------------------------------------------------------------
+# the SIMT and CRF step kernels: bitwise against their plain versions (the
+# eager card steps) on every case, and the SIMT / HBM-PIM goldens
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(simt_cases.CASES))
+def test_simt_step_matches_plain_version(card, name):
+    res = step_cases.hold_against_plain(simt_cases.launch(name), 64,
+                                        device="cuda")
+    assert res["kernel"] == "SimtStep" and res["alu_launches"] == 0
+    assert res["launches"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(crf_cases.CASES))
+def test_crf_step_matches_plain_version(card, name):
+    res = step_cases.hold_against_plain(crf_cases.launch(name), 4,
+                                        device="cuda",
+                                        edit=crf_cases.edit_of(name))
+    assert res["kernel"] == "CrfStep" and res["launches"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", goldens.SIMT_KEYS)
+def test_simt_and_hbmpim_goldens_on_card(card, key):
+    """Every workload of the SIMT and HBM-PIM configurations equals its
+    JAX-made golden (a capped run raises the same error from the same
+    capped state), through the configuration's kernel."""
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.kernels.crf_step import ops as crf_ops
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.kernels.simt_step import ops as simt_ops
+    kernels = {"crf_step": crf_ops, "simt_step": simt_ops,
+               "cycle_step": step_ops}
+    gold = goldens.load()["entries"][key]
+    for name in goldens.workloads_of(key, pt_wl.ALL):
+        mod = kernels[goldens.kernel_of(key, name)]
+        before = mod.launches
+        got = goldens.run_entry(pt_wl, DPUConfig, PIMSystem, compile_cache,
+                                key, name, device="cuda")
+        assert goldens.differences(gold[name], got) == [], name
+        assert mod.launches > before, name

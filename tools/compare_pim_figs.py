@@ -55,6 +55,7 @@ def main(argv=None) -> int:
                                                                 s),
             "fig9_instr_mix": lambda: pim_figs.fig9_instr_mix(need_char(), s),
             "fig10_scaling": lambda: pim_figs.fig10_strong_scaling(s),
+            "fig11_simt": lambda: pim_figs.fig11_simt(s),
             "fig12_ilp": lambda: pim_figs.fig12_ilp(s),
             "fig13_mram_bw": lambda: pim_figs.fig13_mram_bw(s),
             "fig15_cache": lambda: pim_figs.fig15_cache_vs_scratchpad(s),
