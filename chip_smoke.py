@@ -29,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
              steps, 64 steps a launch, on every knob case of
              repro_torch/kernels/cycle_step/cases.py (the case studies'
              branches, 24 and 32 tasklets, 4 and 8 issue slots, 40 DPUs
-             across blocks, the cache-mode VA) on the resident route, and
+             across blocks, the cache-mode VA) on each of its three
+             routes (resident_smem, resident, stepwise), cross_dpu at
+             the resident_smem route's limit unpadded (every block of
+             the card resident: 396 DPUs on an H100) on that route, and
              cross_dpu above the resident limit (one DPU past it, and a
              full 2,560-DPU system) and a whole VA launch (scale 0.02, 16
              tasklets) at 2,560 DPUs on the stepwise route; each route's
@@ -42,9 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
              (benchmarks/pim_figs.py simulation-rate study): (a) at scale
              0.02 the card (cycle_step) and the CPU give identical
              KernelReport and Timeline; (b) VA at --scale (the simulator's
-             main path) passes its numpy oracle with one cycle_step launch
-             per 64-step block and no alu_exec launch; cycle_step's ms per
-             64-step launch there beside the eager card step's;
+             main path) passes its numpy oracle with one counted
+             cycle_step launch per 64-step block (the driver queues the
+             next block before it reads the last one's flag; the one
+             launch queued past the end, in which no DPU runs, is
+             counted apart as idle) and no alu_exec launch; cycle_step's ms per 64-step launch there on
+             its two resident routes in turns (global-WRAM and
+             shared-memory WRAM: the main path's must be the faster),
+             their registers, shared memory and spills, beside the eager
+             card step's;
 6. workloads — every workload of repro_torch.workloads (all 18) on the
              card through cycle_step: (a) at the two golden configurations
              of repro_torch/workloads/goldens.py (4 DPUs x 8 tasklets and
@@ -55,9 +64,9 @@ Phases (any failure exits non-zero and prints no result line):
              steps per second, launches and the share of the wall outside
              the driver's cycle_step loops;
 7. simt    — the SIMT engine and the HBM-PIM targets (case study #1,
-             Fig. 11): (a) simt_step and crf_step against their plain
-             versions (the eager card steps), every leaf bitwise after 1,
-             7 and all steps, on every case of
+             Fig. 11): (a) simt_step (on both of its routes) and crf_step
+             against their plain versions (the eager card steps), every
+             leaf bitwise after 1, 7 and all steps, on every case of
              repro_torch/kernels/simt_step/cases.py (64 steps a launch)
              and crf_step/cases.py (8 commands a launch); (b) every entry
              of goldens.json's s4, s4ac, h4, c4 and fig11/*
@@ -71,9 +80,11 @@ Phases (any failure exits non-zero and prints no result line):
              on hbmpim, SSORT on hbmpim (32 DPUs, scale 0.375); (d) at
              each kernel's path's launch (Fig. 11 SIMT+AC's; GEMVS's
              first command stream): one 64-step launch bitwise against 64
-             eager card steps from the same state, every leaf, then its
-             ms per launch beside the eager card step's and its bytes
-             bound (the leaves the kernel touches and the words it moves);
+             eager card steps from the same state, every leaf (simt_step
+             on both of its routes), then its ms per launch (simt_step's
+             two routes in turns, the path's the faster) beside the eager
+             card step's and its bytes bound (the leaves the kernel
+             touches and the words it moves);
 8. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
              2 layers in float32 (TF32 off), one 384-token prompt (two
              SSD chunks, the second ragged): prefill logits and caches
@@ -154,15 +165,29 @@ def _counters():
             "ssd_scan_tc": (ssd_ops, "launches_tc")}
 
 
+#: the kernels driven by the pipelined K-block loop, which also count the
+#: launches it queued past a run's end (``idle_launches``: counted in
+#: ``launches`` as well; no DPU runs in them)
+PIPELINED = ("cycle_step", "simt_step", "crf_step")
+
+
 def reset_launches():
-    """Set every kernel's launch count to 0 (just before a path runs)."""
+    """Set every kernel's launch count, and the pipelined kernels' counts
+    of idle launches, to 0 (just before a path runs)."""
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    for name in PIPELINED:
+        _counters()[name][0].idle_launches = 0
 
 
 def read_launches() -> dict:
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _counters().items()}
+
+
+def read_idle() -> dict:
+    """Each pipelined kernel's launches queued past a run's end."""
+    return {name: _counters()[name][0].idle_launches for name in PIPELINED}
 
 
 def cuda_time_ms(fn, n: int = 1000, warm: int = 50) -> float:
@@ -220,8 +245,8 @@ def _sass_functions(lib, cuobjdump) -> dict:
 
 
 def _ptxas_report(lib) -> dict:
-    """Kernel (entry function) -> (registers, spill stores, spill loads)
-    from the library's ptxas -v build log."""
+    """Kernel (entry function) -> (registers, spill stores, spill loads,
+    static shared memory bytes) from the library's ptxas -v build log."""
     import re
     from repro_torch.kernels import build
     log = build.build_log(lib)
@@ -230,10 +255,12 @@ def _ptxas_report(lib) -> dict:
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", part)
+        smem = re.search(r"(\d+) bytes smem", part)
         check(regs and spills, f"no ptxas -v report for {part[:200]!r}")
         out[part.split("'", 1)[0]] = (int(regs.group(1)),
                                       int(spills.group(1)),
-                                      int(spills.group(2)))
+                                      int(spills.group(2)),
+                                      int(smem.group(1)) if smem else 0)
     check(out, f"no ptxas -v report in the build log: {log[-1000:]!r}")
     return out
 
@@ -270,7 +297,7 @@ def phase_build() -> float:
     log(f"[build] {', '.join(libs)}: built and loaded in {secs:.2f} s "
         f"-> {build.build_dir()}")
     for lib in ("cycle_step", "simt_step", "crf_step"):
-        for name, (regs, stores, loads) in sorted(
+        for name, (regs, stores, loads, _) in sorted(
                 _ptxas_report(built[lib]).items()):
             kernel = re.search(r"\d((cycle|simt|crf)_\w+?_kernel)", name)
             log(f"[build] {kernel.group(1) if kernel else name} (ptxas -v): "
@@ -278,9 +305,9 @@ def phase_build() -> float:
                 f"{loads} B")
     tc = _ptxas_report(built["ssd_scan_tc"]).values()
     log(f"[build] ssd_scan_tc (ptxas -v, {len(tc)} kernels): registers "
-        f"{min(r for r, _, _ in tc)}-{max(r for r, _, _ in tc)}, spill "
-        f"stores up to {max(a for _, a, _ in tc)} B, spill loads up to "
-        f"{max(b for _, _, b in tc)} B")
+        f"{min(t[0] for t in tc)}-{max(t[0] for t in tc)}, spill "
+        f"stores up to {max(t[1] for t in tc)} B, spill loads up to "
+        f"{max(t[2] for t in tc)} B")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     funcs = _sass_functions(built["flash_attention_sm90"], cuobjdump)
     hgmma = [f.count("HGMMA") for k, f in funcs.items()
@@ -345,23 +372,35 @@ FULL_SYSTEM_DPUS = 2560
 VA_STEP_SCALE = 0.02
 
 
+#: cycle_step's routes, in the order the picker prefers them
+STEP_ROUTES = ("resident_smem", "resident", "stepwise")
+
+
 def phase_step() -> dict:
     """cycle_step against the eager card step, 64 steps a launch
     (cases.hold_against_plain: bitwise after 1, 7 and all steps): every
-    knob case on the resident route, and cross_dpu one DPU above the
-    resident limit and at a full 2,560-DPU system on the stepwise route;
-    returns the cases' total steps and launches."""
+    knob case on each of the three routes (one plain run, a kernel driver
+    a route), cross_dpu at the resident_smem route's limit, unpadded, on
+    that route, and cross_dpu one DPU above the resident limit and at a
+    full 2,560-DPU system on the stepwise route (the only one that holds
+    them); returns the cases' total steps and launches."""
     from repro_torch.kernels.cycle_step import cases
-    from repro_torch.kernels.cycle_step.cycle_step import max_dpus
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.kernels.cycle_step.cycle_step import (card_limits,
+                                                           max_dpus)
     limit = max_dpus(4)
-    runs = [(name, None, "resident")
+    cfg = cases.launch("cross_dpu", 1)[0]
+    smem_limit = step_ops.smem_dpus(4, cfg.wram_words,
+                                    card_limits(4), cfg.atomic_bits)
+    runs = [(name, None, STEP_ROUTES, None)
             for name in sorted(cases.CASES) + ["cache_va"]]
-    runs += [("cross_dpu", limit + 1, "stepwise"),
-             ("cross_dpu", FULL_SYSTEM_DPUS, "stepwise"),
-             ("va", FULL_SYSTEM_DPUS, "stepwise")]
+    runs += [("cross_dpu", smem_limit, ("resident_smem",), smem_limit),
+             ("cross_dpu", limit + 1, ("stepwise",), None),
+             ("cross_dpu", FULL_SYSTEM_DPUS, ("stepwise",), None),
+             ("va", FULL_SYSTEM_DPUS, ("stepwise",), None)]
     total = {"cases": 0, "steps": 0, "launches": 0, "max_abs_err": None}
     t0 = time.perf_counter()
-    for name, n_dpus, route in runs:
+    for name, n_dpus, routes, dpus in runs:
         t1 = time.perf_counter()
         if name == "cache_va":
             case = cases.cache_va()
@@ -370,17 +409,20 @@ def phase_step() -> dict:
         else:
             case = cases.launch(name, n_dpus)
         try:
-            res = cases.hold_against_plain(case, 64, device="cuda")
+            res = cases.hold_against_plain(
+                case, 64, device="cuda", dpus=dpus,
+                routes=None if len(routes) == 1 else routes)
         except AssertionError as e:
             raise SmokeError(f"cycle_step != eager card step on {name} "
                              f"({case[0].n_dpus} DPUs): {e}")
         check(res["alu_launches"] == 0,
               f"{name}: {res['alu_launches']} alu_exec launches in cycle_step")
-        check(res["route"] == route, f"{name} ({case[0].n_dpus} DPUs) took "
-              f"the {res['route']} route, not the {route} one")
-        log(f"[step] {name} ({case[0].n_dpus} DPUs x {case[4]} tasklets, "
-            f"{res['route']} route): bitwise equal after 1, 7 and "
-            f"{res['steps']} steps, {res['launches']} launches "
+        check(tuple(res["routes"]) == routes, f"{name} ({case[0].n_dpus} "
+              f"DPUs) took the {res['routes']} routes, not {routes}")
+        log(f"[step] {name} ({dpus or case[0].n_dpus} DPUs x {case[4]} "
+            f"tasklets, "
+            f"{'/'.join(routes)}): bitwise equal after 1, 7 and "
+            f"{res['steps']} steps, {res['launches']} launches a route "
             f"({time.perf_counter() - t1:.1f} s)")
         total["cases"] += 1
         total["steps"] += res["steps"]
@@ -541,7 +583,7 @@ def phase_main_path(scale: float) -> dict:
         _, rep = _va(system, 16, scale)    # raises on an oracle mismatch
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches, idle = read_launches(), read_idle()
     finally:
         compile_cache.run = run
     steps = compile_cache.stats()["steps"] - steps0
@@ -549,14 +591,23 @@ def phase_main_path(scale: float) -> dict:
     check(len(calls) == 1, f"VA made {len(calls)} driver launches")
     check(launches["cycle_step"] > 0,
           "cycle_step was never launched on the main path")
-    check(launches["cycle_step"] == checks
+    # the one launch queued past the run's end is counted apart
+    check(idle["cycle_step"] == len(calls),
+          f"{idle['cycle_step']} cycle_step launches queued past the end "
+          f"of {len(calls)} driver launch")
+    check(launches["cycle_step"] - idle["cycle_step"] == checks
           and steps == checks * compile_cache.STEPS_PER_CHECK,
-          f"cycle_step launches {launches['cycle_step']} != host checks "
-          f"{checks} ({steps} steps)")
+          f"cycle_step launches {launches['cycle_step']} less "
+          f"{idle['cycle_step']} idle != host checks {checks} ({steps} "
+          "steps)")
     check(launches["alu_exec"] == 0,
           f"alu_exec launched {launches['alu_exec']} times on the main path")
-    res = {"scale": scale, "cycles": rep.cycles, "issued": rep.issued,
+    from repro_torch.kernels.cycle_step.ops import launch_route
+    res = {"route": launch_route(compile_cache.dpu_bucket(cfg.n_dpus), 16,
+                                 cfg.wram_words, cfg.atomic_bits),
+           "scale": scale, "cycles": rep.cycles, "issued": rep.issued,
            "steps": steps, "launches": launches["cycle_step"],
+           "idle_launches": idle["cycle_step"],
            "alu_exec_launches": launches["alu_exec"], "wall_s": wall,
            "kips": rep.issued / wall / 1e3,
            "cycles_per_s": rep.cycles / wall,
@@ -636,7 +687,7 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
 
     system = _system(cfg, "cuda")
     s0 = compile_cache.stats()
-    l0 = getattr(mod, attr)
+    l0, i0 = getattr(mod, attr), mod.idle_launches
     compile_cache._drive = timed_drive
     try:
         torch.cuda.synchronize()
@@ -654,12 +705,16 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
            "kips": rep.issued / wall / 1e3, "steps": steps,
            "steps_per_s": steps / wall,
            f"{kernel}_launches": getattr(mod, attr) - l0,
+           f"{kernel}_idle_launches": mod.idle_launches - i0,
            "sim_launches": s1["launches"] - s0["launches"],
            "outside_share": 1.0 - inside[0] / wall}
-    check(res[f"{kernel}_launches"] > 0, f"{name} launched no {kernel}")
-    check(res[f"{kernel}_launches"] * compile_cache.STEPS_PER_CHECK
-          == steps, f"{name}: {res[f'{kernel}_launches']} {kernel} "
-          f"launches for {steps} steps")
+    ran = res[f"{kernel}_launches"] - res[f"{kernel}_idle_launches"]
+    check(ran > 0, f"{name} launched no {kernel}")
+    check(res[f"{kernel}_idle_launches"] <= res["sim_launches"],
+          f"{name}: more idle {kernel} launches than driver launches")
+    check(ran * compile_cache.STEPS_PER_CHECK == steps,
+          f"{name}: {ran} {kernel} launches (idle ones apart) for {steps} "
+          "steps")
     return res
 
 
@@ -715,69 +770,85 @@ def _record_launches(fn):
         compile_cache.run = run
 
 
+def _prepared_on(a, kw, route):
+    """``compile_cache.prepare(*a, **kw)`` with its kernel driver re-made
+    on ``route`` (``StepDriver.like``; None: the kernel's own pick)."""
+    from repro_torch.core import compile_cache
+    prep = compile_cache.prepare(*a, **kw)
+    if route is not None:
+        prep.kernel = prep.kernel.like(prep.st, route)
+    return prep
+
+
 def _kernel_times(launch_args, label: str, n: int, dma_bytes_moved: int,
-                  skip=("wram", "mram", "atomic")) -> dict:
+                  skip=("wram", "mram", "atomic"), routes=None) -> dict:
     """A step kernel at a path's own launch, set up again with
-    ``compile_cache.prepare``: after 2 warm launches, one launch of 64
-    steps held bitwise against 64 eager card steps (the plain version)
-    from a copy of the same state, every leaf (``max_abs_err``: the
-    largest difference over the leaves); then the device ms per 64-step
-    launch, ``n`` raw launches between CUDA events (uncounted); the plain
-    version's time (the eager card step x 64) on the copy; the bytes
-    bound: every leaf of the kernel's ``LEAVES`` but ``skip`` read and
-    written once, and the memory words the timed launches move (the DMA'd
-    or bank words read from one memory and written to another,
-    ``dma_bytes_moved`` times their byte count, LW/SW words, one atomic
-    word read and written per sync instruction)."""
+    ``compile_cache.prepare`` (once for each of ``routes``, each on its own
+    state; None: the kernel's own pick): after 2 warm launches, one launch
+    of 64 steps of each held bitwise against 64 eager card steps (the
+    plain version) from a copy of the same state, every leaf
+    (``max_abs_err``: the largest difference over the leaves); then the
+    device ms per 64-step launch, windows of ``n`` raw launches between
+    CUDA events (uncounted), the routes in turns (a, b, b, a), the path's
+    own route's the result; the plain version's time (the eager card step
+    x 64) on the copy; the bytes bound: every leaf of the kernel's
+    ``LEAVES`` but ``skip`` read and written once, and the memory words
+    the timed launches move (the DMA'd or bank words read from one memory
+    and written to another, ``dma_bytes_moved`` times their byte count,
+    LW/SW words, one atomic word read and written per sync
+    instruction)."""
     import torch
     from repro_torch.core import compile_cache
     from repro_torch.core.isa import CLS_LDST, CLS_SYNC
     a, kw = launch_args
-    prep = compile_cache.prepare(*a, **kw)
-    kern, st = prep.kernel, prep.st
     K = compile_cache.STEPS_PER_CHECK
-    for _ in range(2):
-        kern.run(K)
+    preps = {r: _prepared_on(a, kw, r) for r in (routes or (None,))}
+    main = compile_cache.prepare(*a, **kw).kernel
+    main_route = getattr(main, "route", None)
+    for prep in preps.values():
+        for _ in range(2):
+            prep.kernel.run(K)
     torch.cuda.synchronize()
-    plain = {k: v.clone() for k, v in st.items()}
-    kern.run(K)
+    first = next(iter(preps.values()))
+    plain = {k: v.clone() for k, v in first.st.items()}
+    for prep in preps.values():
+        prep.kernel.run(K)
     for _ in range(K):
-        plain.update(prep.step_fn(prep.ir, plain))
+        plain.update(first.step_fn(first.ir, plain))
     torch.cuda.synchronize()
     err, bad = 0.0, []
-    for k, want in plain.items():
-        got = st[k]
-        if want.dtype == torch.float32:        # bitwise, not by value
-            same = torch.equal(want.view(torch.int32), got.view(torch.int32))
-        else:
-            same = torch.equal(want, got)
-        if not same:
-            bad.append(k)
-        err = max(err, (want.double() - got.double()).abs().max().item())
+    for r, prep in preps.items():
+        for k, want in plain.items():
+            got = prep.st[k]
+            if want.dtype == torch.float32:    # bitwise, not by value
+                same = torch.equal(want.view(torch.int32),
+                                   got.view(torch.int32))
+            else:
+                same = torch.equal(want, got)
+            if not same:
+                bad.append(f"{k} ({r})")
+            err = max(err, (want.double() - got.double()).abs().max().item())
+        check(prep.kernel.predicate() == bool(first.cond(plain)),
+              f"{label}: predicates differ after the compared launch ({r})")
     check(not bad, f"{label}: the kernel's launch differs from {K} eager "
           f"card steps in {bad} (max abs err {err})")
-    check(kern.predicate() == bool(prep.cond(plain)),
-          f"{label}: predicates differ after the compared launch")
+    key = main_route if routes else None
+    prep = preps[key]
+    kern, st = prep.kernel, prep.st
     before = {k: st[k].double().sum().item()
               for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")}
     cls0 = st["c_cls"].double().sum(0)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        kern.run(K)
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / n
-    check(kern.predicate(), f"{label}: the launch ended inside the timed "
-          "window")
-    delta = {k: (st[k].double().sum().item() - v) / n
+    turns = _in_turns({r: p.kernel for r, p in preps.items()}, K, n)
+    ms = turns[key]["ms"]
+    delta = {k: (st[k].double().sum().item() - v) / (2 * n)
              for k, v in before.items()}
-    cls = (st["c_cls"].double().sum(0) - cls0) / n
+    cls = (st["c_cls"].double().sum(0) - cls0) / (2 * n)
     for _ in range(2):
         plain.update(prep.step_fn(prep.ir, plain))
     torch.cuda.synchronize()
     m = 10
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(m):
         plain.update(prep.step_fn(prep.ir, plain))
@@ -791,14 +862,21 @@ def _kernel_times(launch_args, label: str, n: int, dma_bytes_moved: int,
     nbytes = 2 * small + dma_bytes_moved * dma + 4 * ldst + 8 * sync
     ops = delta["c_issued"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR32_OPS_PER_S
-    res = {"ms": ms, "us_per_step": ms * 1e3 / K, "plain_ms": plain_ms,
+    res = {"route": main_route, "ms": ms, "us_per_step": ms * 1e3 / K,
+           "plain_ms": plain_ms,
            "max_abs_err": err, "compared_steps": K,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "state_bytes": small,
            "bytes_per_launch": nbytes, "dma_bytes_per_launch": dma,
            "issued_per_launch": ops, "dpus": int(st["status"].shape[0]),
-           "timed_launches": n}
+           "timed_launches": 2 * n}
+    if routes:
+        res["routes"] = turns
+        other = [r for r in routes if r != main_route]
+        check(all(ms <= 1.05 * turns[r]["ms"] for r in other),
+              f"{label}: the path takes {main_route} ({ms:.5f} ms a "
+              f"launch), slower than {turns}")
     log(f"[simt] {label}: bitwise equal to {K} eager card steps; "
         + json.dumps(res))
     return res
@@ -821,20 +899,25 @@ def phase_simt() -> dict:
     from repro_torch.workloads import goldens
     out = {"cases": 0, "steps": 0}
     t0 = time.perf_counter()
-    runs = [(n, cases.launch(n), 64, None) for n in sorted(cases.CASES)]
+    runs = [(n, cases.launch(n), 64, None, ("resident_smem", "global"))
+            for n in sorted(cases.CASES)]
     runs += [(f"crf:{n}", crf_cases.launch(n), CRF_CASE_K,
-              crf_cases.edit_of(n)) for n in sorted(crf_cases.CASES)]
-    for name, case, k, edit in runs:
+              crf_cases.edit_of(n), None) for n in sorted(crf_cases.CASES)]
+    for name, case, k, edit, routes in runs:
         t1 = time.perf_counter()
         try:
-            res = hold_against_plain(case, k, device="cuda", edit=edit)
+            res = hold_against_plain(case, k, device="cuda", edit=edit,
+                                     routes=routes)
         except AssertionError as e:
             raise SmokeError(f"{name}: kernel != eager card step "
                              f"({case[0].n_dpus} DPUs): {e}")
         check(res["alu_launches"] == 0,
               f"{name}: {res['alu_launches']} alu_exec launches in the kernel")
+        check(routes is None or tuple(res["routes"]) == routes,
+              f"{name} took the {res['routes']} routes, not {routes}")
         log(f"[simt] {res['kernel']} {name} ({case[0].n_dpus} DPUs x "
-            f"{case[4]} lanes): bitwise equal after 1, 7 and {res['steps']} "
+            f"{case[4]} lanes{', ' + '/'.join(routes) if routes else ''}): "
+            f"bitwise equal after 1, 7 and {res['steps']} "
             f"steps, {res['launches']} launches "
             f"({time.perf_counter() - t1:.1f} s)")
         out["cases"] += 1
@@ -877,6 +960,7 @@ def phase_simt() -> dict:
         for d, kw in goldens.FIG11.items()])
     fig11_launches = read_launches()
     out["simt_step_launches"] = fig11_launches["simt_step"]
+    out["simt_step_idle_launches"] = read_idle()["simt_step"]
     base_c = out["fig11"][0]["cycles"]
     for r in out["fig11"]:
         r["speedup"] = base_c / r["cycles"]
@@ -891,6 +975,7 @@ def phase_simt() -> dict:
         full.replace(backend="hbmpim_cmd"), "GEMVS", 1.0, "crf_step"))
     out["gemvs_cmd"] = r
     out["crf_step_launches"] = read_launches()["crf_step"]
+    out["crf_step_idle_launches"] = read_idle()["crf_step"]
     log("[simt] GEMVS on hbmpim_cmd full width, oracle ok: " + json.dumps(r))
     out["allbank"] = []
     for name, dpus, scale in (("BFS", 64, 1.0), ("SSORT", 32, 0.375)):
@@ -900,70 +985,127 @@ def phase_simt() -> dict:
         log(f"[simt] {name} on hbmpim, oracle ok: " + json.dumps(r))
 
     # (d) each kernel at its path's launch
-    # 2 warm launches, 1 compared, n timed: the launch still runs after
-    n = max(1, min(100, out["fig11"][2]["simt_step_launches"] - 4))
+    # 2 warm launches, 1 compared, 2n timed: the launch still runs after
+    n = max(1, min(100, (out["fig11"][2]["simt_step_launches"] - 4) // 2))
     out["simt_times"] = _kernel_times(simt_args, "simt_step at Fig. 11 "
-                                      "SIMT+AC's full-width launch", n, 2)
+                                      "SIMT+AC's full-width launch", n, 2,
+                                      routes=("global", "resident_smem"))
+    from repro_torch.kernels.simt_step import simt_step as k_simt
+    from repro_torch.kernels.simt_step.ops import smem_bytes
+    lib = k_simt.library()
+    full_T = full.n_tasklets
+    for r, kernel, dyn in (
+            ("global", "simt_run_kernel",
+             k_simt.DPUS_PER_BLOCK * full_T * 24 * 4),
+            ("resident_smem", "simt_smem_kernel",
+             smem_bytes(full_T, full.wram_words, full.atomic_bits))):
+        out["simt_times"]["routes"][r].update(_kernel_build(lib, kernel),
+                                              dynamic_smem_bytes=dyn)
+    t = out["simt_times"]
+    log("[kernels] simt_step at Fig. 11 SIMT+AC's full-width launch (old: "
+        "global, new: resident_smem, in turns; the path's route "
+        f"{t['route']}): bound {t['bound_ms']} ms ({t['bound_by']}); "
+        + json.dumps(t["routes"]))
     per_launch = out["gemvs_cmd"]["crf_step_launches"] // len(calls_cmd)
     out["crf_times"] = _kernel_times(
         calls_cmd[0], "crf_step at GEMVS's first full-width command "
-        "stream", max(1, min(10, per_launch - 4)), 1, skip=("mram",))
+        "stream", max(1, min(10, (per_launch - 4) // 2)), 1, skip=("mram",))
     out["seconds"] = time.perf_counter() - t0
     log(f"[simt] phase {out['seconds']:.1f} s")
     return out
 
 
+def _in_turns(kerns: dict, K: int, n: int) -> dict:
+    """Device ms per K-step launch of each kernel driver of ``kerns``
+    (route -> driver, each over its own copy of one launch's state), in
+    turns: windows of ``n`` raw launches back to back between CUDA events
+    (uncounted, no flag reads), in the order a, b, b, a; each route's mean
+    over its two windows, and every window's."""
+    import torch
+    order = list(kerns) + list(kerns)[::-1]
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    windows = {r: [] for r in kerns}
+    for r in order:
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(n):
+            kerns[r].run(K)
+        t1.record()
+        torch.cuda.synchronize()
+        windows[r].append(t0.elapsed_time(t1) / n)
+    for r, kern in kerns.items():
+        check(kern.predicate(), f"the launch ended inside {r}'s timed "
+              "windows: run a larger --scale")
+    return {r: {"ms": sum(w) / len(w), "windows_ms": w}
+            for r, w in windows.items()}
+
+
+def _kernel_build(lib, kernel: str) -> dict:
+    """A kernel's registers, static shared memory and spills from its
+    library's ptxas -v log (``kernel``: part of its entry's name)."""
+    for name, (regs, stores, loads, smem) in _ptxas_report(lib).items():
+        if kernel in name:
+            return {"registers": regs, "static_smem_bytes": smem,
+                    "spill_stores": stores, "spill_loads": loads}
+    raise SmokeError(f"no ptxas -v report of {kernel}")
+
+
 def phase_step_times(launch_args, n: int = 100) -> dict:
     """cycle_step's device ms per 64-step launch on the main path's own
     launch (VA at --scale, 64 DPUs), set up again with
-    ``compile_cache.prepare``: ``n`` raw launches back to back between
-    CUDA events (uncounted, no predicate reads) after 10 warm ones; the
-    plain version's time, the eager card step x 64, on a copy of the
-    state at the same point; the bound from the bytes and instructions of
-    the timed launches."""
+    ``compile_cache.prepare`` once for each resident route (the
+    global-WRAM one, old, and the shared-memory one, new, each on its own
+    state): 10 warm launches each, then windows of ``n`` raw launches in
+    turns (old, new, new, old); the main path's route must be the faster
+    (within 5%).  The plain version's time, the eager card step x 64, on a
+    copy of the main path's route's state; the bound from the bytes and
+    instructions of its timed launches; each route's kernel's registers,
+    shared memory and spills."""
     import torch
     from repro_torch.core import compile_cache
     from repro_torch.core.isa import CLS_LDST, CLS_SYNC
-    from repro_torch.kernels.cycle_step.cycle_step import DPUS_PER_BLOCK
+    from repro_torch.kernels.cycle_step import cycle_step
+    from repro_torch.kernels.cycle_step.ops import launch_route, smem_bytes
     a, kw = launch_args
     cfg = a[0]
-    prep = compile_cache.prepare(*a, **kw)
-    kern, st = prep.kernel, prep.st
     K = compile_cache.STEPS_PER_CHECK
-
-    def launch():
-        kern.run(K)                        # uncounted
-
-    for _ in range(10):
-        launch()
+    kerns, preps = {}, {}
+    for r in ("resident", "resident_smem"):
+        preps[r] = _prepared_on(a, kw, r)
+        kerns[r] = preps[r].kernel
+        for _ in range(10):
+            kerns[r].run(K)
     torch.cuda.synchronize()
+    main = launch_route(compile_cache.dpu_bucket(cfg.n_dpus),
+                        int(preps["resident"].st["status"].shape[1]),
+                        cfg.wram_words, cfg.atomic_bits)
+    prep, st = preps[main], preps[main].st
     plain = {k: v.clone() for k, v in st.items()}
     before = {k: st[k].double().sum().item()
               for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")}
     cls0 = st["c_cls"].double().sum(0)
     cycles0 = st["cycle"].clone()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        launch()
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / n
-    check(kern.predicate(), "the main path's launch ended inside the "
-          "timed window: run a larger --scale")
-    delta = {k: (st[k].double().sum().item() - v) / n
+    turns = _in_turns(kerns, K, n)
+    ms = turns[main]["ms"]
+    other = "resident" if main == "resident_smem" else "resident_smem"
+    check(ms <= 1.05 * turns[other]["ms"], f"the main path takes {main} "
+          f"({ms:.5f} ms a launch), slower than {other} "
+          f"({turns[other]['ms']:.5f})")
+    delta = {k: (st[k].double().sum().item() - v) / (2 * n)
              for k, v in before.items()}
-    cls = (st["c_cls"].double().sum(0) - cls0) / n
+    cls = (st["c_cls"].double().sum(0) - cls0) / (2 * n)
     win = cfg.timeseries_window
     windows = ((torch.div(st["cycle"], win, rounding_mode="floor")
                 - torch.div(cycles0, win, rounding_mode="floor"))
-               .double().sum().item() / n)
+               .double().sum().item() / (2 * n))
     # eager card step x 64 on the same state
     for _ in range(3):
         plain.update(prep.step_fn(prep.ir, plain))
     torch.cuda.synchronize()
     m = 20
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(m):
         plain.update(prep.step_fn(prep.ir, plain))
@@ -987,7 +1129,10 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
     nbytes = 2 * small + 2 * dma + 4 * ldst + 8 * sync + 4 * windows
     ops = delta["c_issued"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR32_OPS_PER_S
-    res = {"ms": ms, "us_per_step": ms * 1e3 / K, "plain_ms": plain_ms,
+    lib = cycle_step.library()
+    T, W = int(st["status"].shape[1]), int(st["wram"].shape[1])
+    res = {"route": main, "ms": ms, "us_per_step": ms * 1e3 / K,
+           "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "state_bytes": small,
@@ -995,10 +1140,17 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
            "ldst_per_launch": ldst, "sync_per_launch": sync,
            "windows_per_launch": windows, "issued_per_launch": ops,
            "cycles_per_launch": float((st["cycle"] - cycles0).double()
-                                      .mean()) / n,
-           "dpus": int(st["status"].shape[0]),
-           "dpus_per_block": DPUS_PER_BLOCK}
-    log(f"[kernels] cycle_step at the main path's launch: " + json.dumps(res))
+                                      .mean()) / (2 * n),
+           "dpus": int(st["status"].shape[0]), "timed_launches": 2 * n,
+           "routes": {
+               "resident": dict(turns["resident"], **_kernel_build(
+                   lib, "cycle_step_kernel"), dynamic_smem_bytes=(
+                       cycle_step.DPUS_PER_BLOCK * (T * 24 + 24) * 4)),
+               "resident_smem": dict(turns["resident_smem"], **_kernel_build(
+                   lib, "cycle_step_smem_kernel"),
+                   dynamic_smem_bytes=smem_bytes(T, W, cfg.atomic_bits))}}
+    log(f"[kernels] cycle_step at the main path's launch ({main} route): "
+        + json.dumps(res))
     return res
 
 
@@ -1516,6 +1668,7 @@ def main(argv=None) -> int:
         "ms": step_times["ms"], "plain_ms": step_times["plain_ms"],
         "bound_ms": step_times["bound_ms"],
         "bound_by": step_times["bound_by"], "library_ms": None,
+        "idle_launches": main_run["idle_launches"],
     }]
     for name, times, src, csrc in (
             ("simt_step", simt_run["simt_times"], "src/repro/core/simt.py:83",
@@ -1529,7 +1682,8 @@ def main(argv=None) -> int:
             "max_abs_err": times["max_abs_err"],
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "idle_launches": simt_run[f"{name}_idle_launches"]})
     replaces = {
         "flash_attention":
             ("src/repro/kernels/flash_attention/flash_attention.py:67",

@@ -67,8 +67,9 @@ class ExecBackend:
         """The driver of this backend's CUDA kernel over the launch state
         ``st`` (CUDA tensors, updated in place) and the (6, P) image
         ``ir`` (``image``: the same as numpy): an object with
-        ``launch(k)`` (k steps, one counted launch) and ``predicate()``,
-        as :class:`~repro_torch.kernels.cycle_step.ops.CycleStep`.  A
+        ``launch(k)`` (k steps, one counted launch), ``predicate()`` and
+        ``drive(k)`` (to the end, pipelined), as
+        :class:`~repro_torch.kernels.cycle_step.ops.CycleStep`.  A
         backend without a kernel raises: on the card no other engine's
         kernel may run its state, and nothing falls back."""
         raise NotImplementedError(

@@ -24,8 +24,11 @@ relaunch rebuilds nothing.
   the scalar engine, the ALU inside it; :mod:`~repro_torch.kernels
   .simt_step` for the SIMT engine and the all-bank compat target;
   :mod:`~repro_torch.kernels.crf_step` for the CRF command model),
-  which writes the predicate into a device flag; the host reads the flag
-  once per launch.  A backend without a kernel raises there.  On the CPU the plain step runs, traced once per launch
+  which writes the predicate into a flag in pinned host memory; the
+  host queues launch n + 1 before it reads launch n's flag, so the card
+  does not wait for the host between blocks; the one launch queued past
+  the end changes nothing (no DPU runs), and its steps are not counted.  A
+  backend without a kernel raises there.  On the CPU the plain step runs, traced once per launch
   (:func:`_traced_step`) so Python leaves the loop.
 * **Devices** — ``device=None`` means the CUDA card; without one every
   entry point raises instead of running on the CPU.  ``device="cpu"``
@@ -112,8 +115,9 @@ class Prepared:
     backend's kernel driver over ``st`` (``ExecBackend.card_kernel``,
     e.g. :class:`~repro_torch.kernels.cycle_step.ops.CycleStep`): each
     :meth:`advance` is one launch that updates ``st`` in place, and the
-    predicate is the flag the kernel writes.  ``steps`` counts the steps
-    asked for so far."""
+    predicate is the flag the kernel writes; :meth:`finish` runs the
+    launch to its end with each launch queued before the last one's flag
+    is read.  ``steps`` counts the steps asked for so far."""
 
     entry: _Entry
     ir: torch.Tensor
@@ -145,6 +149,17 @@ class Prepared:
             self.kernel.launch(k)
             self.pred = None
         self.steps += k
+
+    def finish(self, k: int) -> None:
+        """Advance ``k`` steps a block until the predicate is false.  On
+        CUDA the kernel driver's pipelined loop (``drive``): the launch
+        queued past the end adds no steps."""
+        if self.kernel is None or not self.running():
+            while self.running():
+                self.advance(k)
+            return
+        self.steps += k * self.kernel.drive(k)
+        self.pred = False
 
 
 _LOCK = threading.Lock()
@@ -257,8 +272,7 @@ def _traced_step(step: Callable, ir: torch.Tensor,
 
 def _drive(prep: Prepared, k: int) -> Dict[str, torch.Tensor]:
     """Run a prepared launch to termination, ``k`` steps per check."""
-    while prep.running():          # the one host sync per k steps
-        prep.advance(k)
+    prep.finish(k)                 # one flag read per k steps
     prep.entry.steps += prep.steps
     prep.entry.launches += 1
     return prep.st

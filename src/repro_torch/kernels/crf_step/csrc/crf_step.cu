@@ -26,8 +26,8 @@
 //   ran) + (still running) into vote[parity]; crf_tail_kernel reads G =
 //   vote >> 1, the first step at which no bank ran, and gives each bank
 //   that stopped earlier its steps up to G (a bank that is not DONE
-//   executes them), then writes the predicate into `flag` and clears the
-//   other parity's vote for the next launch.
+//   executes them), then writes the predicate into flag[parity] and
+//   clears the other parity's vote for the next launch.
 //
 // What bounds it: a command moves at most 3 x hbm_lanes words of MRAM a
 // bank; the chain of a command (decode, three reads, writeback) is a few
@@ -80,8 +80,10 @@ struct Args {
   const int32_t* image;  // (P, 8): op, dst, a, b, target, 3 pad words
   int32_t* stop;         // (D,): steps each bank ran in this launch's phase 1
   int32_t* vote;         // (2,): max over banks of 2 * stop + still running
-  int32_t* flag;         // the termination predicate after the launch
-  int32_t parity;        // which vote this launch uses
+  // (2,) in pinned host memory the card writes: the termination predicate
+  // after a launch of parity p in flag[p]
+  int32_t* flag;
+  int32_t parity;        // which vote and flag this launch uses
   int32_t c[N_CFG];
   float burst;           // float32(hbm_lanes * 4)
 };
@@ -331,7 +333,8 @@ __global__ void __launch_bounds__(DPB * 32) crf_tail_kernel(const Args args) {
   const int G = vote >> 1;
   const int d = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *args.flag = vote & 1;
+    args.flag[args.parity] = vote & 1;
+    __threadfence_system();
     args.vote[args.parity ^ 1] = 0;
   }
   if (d >= args.c[C_D] || __ldcg(args.stop + d) >= G) return;

@@ -6,9 +6,9 @@ gated commands of the CRF image ``ir`` and returns the termination
 predicate.  CPU tensors go to the plain version (:mod:`.ref`); CUDA
 tensors launch the hand-written kernel (:mod:`.crf_step`), or raise —
 there is no fallback.  :class:`CrfStep` is the same split for a driver;
-``launches`` counts kernel launches.  :func:`route` says which
-configurations the kernel takes: ``hbm_lanes`` up to 32 (one warp's
-lanes), at any bank count.
+``launches`` counts kernel launches, ``idle_launches`` those queued past
+a run's end.  :func:`route` says which configurations the kernel takes:
+``hbm_lanes`` up to 32 (one warp's lanes), at any bank count.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from repro_torch.kernels.step_driver import StepDriver
 
 #: CUDA kernel launches made by this module (a plain integer)
 launches = 0
+#: of those, the launches queued past a run's end (no DPU ran in them)
+idle_launches = 0
 
 #: SIMD lanes of one bank: one warp's lanes
 MAX_LANES = 32
@@ -48,9 +50,10 @@ class CrfStep(StepDriver):
     Args = k_crf.Args
 
     def __init__(self, cfg: DPUConfig, st: Dict[str, torch.Tensor],
-                 ir: torch.Tensor, image: Optional[np.ndarray] = None):
+                 ir: torch.Tensor, image: Optional[np.ndarray] = None,
+                 **kw):
         route(cfg)
-        super().__init__(cfg, st, ir, image)
+        super().__init__(cfg, st, ir, image, **kw)
 
     def state_keys(self, cfg, st):
         return set(k_crf.STATE_KEYS)
@@ -80,6 +83,10 @@ class CrfStep(StepDriver):
     def count(self):
         global launches
         launches += 1
+
+    def count_idle(self):
+        global idle_launches
+        idle_launches += 1
 
 
 def crf_step(cfg: DPUConfig, st: Dict[str, torch.Tensor], ir: torch.Tensor,

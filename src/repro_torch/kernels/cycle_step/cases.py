@@ -334,7 +334,8 @@ def va(n_dpus: int, scale: float = 0.02, T: int = 16):
 
 
 def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
-                       max_steps: int = 1 << 20, edit=None) -> dict:
+                       max_steps: int = 1 << 20, edit=None,
+                       routes=None, dpus: int = None) -> dict:
     """Run the card kernel of the case's backend (``ExecBackend
     .card_kernel``: ``cycle_step``, ``simt_step`` or ``crf_step``) and its
     plain version (the backend's eager step on the same device) side by
@@ -344,19 +345,25 @@ def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
     must be bitwise equal (floats too) and the predicates equal; raises
     ``AssertionError`` naming the first leaf that differs.  ``case``:
     ``(cfg, binary, wram, mram, T)``; ``edit``: a function that changes
-    the padded numpy state before both start (or None).
+    the padded numpy state before both start (or None); ``routes``: the
+    kernel's routes asked for (``StepDriver.like``), each driver on its
+    own copy of the state, all held against the one plain run (None: one
+    driver, the kernel's own pick); ``dpus``: the DPUs the state is padded
+    to (None: the driver's bucket, ``compile_cache.dpu_bucket``).
 
-    Returns ``{"steps", "launches", "alu_launches", "kernel", "route"}``:
-    the steps taken, the kernel's launches, the ALU kernel's launches made
-    inside them (the fused kernels launch none), the driver's class name
-    and its route (``CycleStep.route``; None for the others)."""
+    Returns ``{"steps", "launches", "alu_launches", "kernel", "route",
+    "routes"}``: the steps taken, each kernel's launches, the ALU kernel's
+    launches made inside them (the fused kernels launch none), the
+    driver's class name, and its route (``CycleStep.route``; None for
+    the others), and every route's."""
     import torch
     from repro_torch.core import backend, compile_cache
     from repro_torch.core.carry import state_to_torch
     from repro_torch.kernels.alu_exec import ops as alu_ops
     cfg, binary, wram, mram, T = case
     be = backend.get(backend.resolve_backend(cfg))
-    Dp = compile_cache.dpu_bucket(cfg.n_dpus)
+    Dp = dpus or compile_cache.dpu_bucket(cfg.n_dpus)
+    assert Dp >= cfg.n_dpus, f"dpus {Dp} < the case's {cfg.n_dpus}"
     st0 = compile_cache._padded_state(cfg, be, binary,
                                       np.asarray(wram, np.int32),
                                       np.asarray(mram, np.int32), T, Dp)
@@ -366,30 +373,36 @@ def hold_against_plain(case, k: int, device="cuda", checkpoints=(1, 7),
                                      binary.opcode.shape[0])
     ir_np = np.stack([np.asarray(a[:P], np.int32) for a in binary.arrays])
     ir = torch.from_numpy(ir_np).to(device)
-    fused = state_to_torch(st0, device)
     plain = state_to_torch(st0, device)
     kcfg = cfg.replace(n_dpus=Dp)
-    kern = be.card_kernel(kcfg, fused, ir, ir_np)
+    kern = be.card_kernel(kcfg, state_to_torch(st0, device), ir, ir_np)
+    kerns = [kern] if routes is None else [
+        kern.like(state_to_torch(st0, device), r) for r in routes]
     step, cond = be.step_driver(kcfg, T, torch.device(device))
     marks = sorted(checkpoints)
     n = launches = alu = 0
     while n < max_steps:
         size = min([k] + [m - n for m in marks if m > n])
         alu0 = alu_ops.launches
-        kern.launch(size)
+        for kern in kerns:
+            kern.launch(size)
         alu += alu_ops.launches - alu0
         launches += 1
         for _ in range(size):
             plain.update(step(ir, plain))
         n += size
         going = bool(cond(plain))
-        if n in marks or not going:
-            _assert_same(plain, fused, f"after {n} steps")
-        assert kern.predicate() == going, f"predicate after {n} steps"
+        for kern in kerns:
+            tag = f"after {n} steps ({getattr(kern, 'route', None)})"
+            if n in marks or not going:
+                _assert_same(plain, kern.st, tag)
+            assert kern.predicate() == going, f"predicate {tag}"
         if not going:
             return {"steps": n, "launches": launches, "alu_launches": alu,
-                    "kernel": type(kern).__name__,
-                    "route": getattr(kern, "route", None)}
+                    "kernel": type(kerns[0]).__name__,
+                    "route": getattr(kerns[0], "route", None),
+                    "routes": [getattr(kern, "route", None)
+                               for kern in kerns]}
     raise AssertionError(f"still running after {max_steps} steps")
 
 

@@ -17,8 +17,9 @@
 //   in its lane's registers for the K steps; each DPU's scalars in every
 //   lane of its warp (computed redundantly); the counters one to a lane
 //   (lane i holds counter i, lane i holds c_hist[i]); the register file
-//   in shared memory; WRAM, MRAM, atomics, TLB, D$ and the time series
-//   stay in device memory (L2-resident at one rank);
+//   in shared memory; MRAM, TLB, D$ and the time series stay in device
+//   memory (L2-resident at one rank), and WRAM and the atomics too but on
+//   the resident_smem route;
 // * two values cross DPUs: `go` (any DPU running: a stopped DPU still
 //   retires DMAs, releases barriers, drains its port and accumulates the
 //   time series while others run) and, per issue slot, whether any DPU's
@@ -35,21 +36,40 @@
 //   start) and such a DMA waits for every DPU's plan of its step.  The
 //   waits need every warp resident: one block, or a cooperative launch;
 // * after K steps the kernel writes the termination predicate into
-//   `flag`; the host reads it once per launch.
+//   flag[parity], pinned host memory; the host reads launch n's flag
+//   while launch n + 1 (the other parity) runs.
 //
-// Above the resident limit (cycle_step_max_dpus) a cooperative launch is
-// refused, so the stepwise route takes every step as two ordinary
-// launches and lets the kernel boundary order the DPUs: a plan launch in
-// which each running DPU ORs its step's wide bits and `go` (kGo) into
-// wide[t], then a run launch that reads them instead of waiting.  Each
-// launch loads its DPU's state from device memory and the run launch
-// stores it back; after the K steps one more plan launch ORs the
-// predicate into `flag`.  The same step_dpu, the same result bit for bit;
-// speed is not its aim.
+// Three routes run step_dpu, the same result bit for bit (ops.py picks):
+// * resident_smem (cycle_step_smem_kernel), the main path's: one DPU a
+//   block, the DPU's WRAM row and atomics in shared memory for the
+//   launch (one bulk copy in, one out), so LW, SW, the atomics and the
+//   WRAM side of a DMA never wait on L2.  A step's plan goes to the DPU's
+//   ring in one relaxed 64-bit store, tagged with its absolute step (no
+//   fence a step: a reader checks the tag); a DPU publishes kStopped,
+//   after the one fence left, once it runs no more.  Slot 0's MRAM window
+//   is loaded at plan time, and a window's words are all loaded before
+//   any is stored.  Floor division and remainder by a power of two are a
+//   shift and a mask.  Up to as many DPUs as the card holds such blocks
+//   at once (396 of 64 KiB WRAM on an H100: three blocks an SM; the
+//   Python side's picker counts them from cycle_step_card_limits());
+// * resident (cycle_step_kernel): four DPUs a block, WRAM in device
+//   memory, each step's plan published with an atomicOr and a fence; for
+//   rows that do not fit in shared memory (the cache study's 8 MiB WRAM)
+//   and up to cycle_step_max_dpus() DPUs (2,112 on an H100);
+// * stepwise, above that, where a cooperative launch is refused: every
+//   step as two ordinary launches, the kernel boundary ordering the
+//   DPUs: a plan launch in which each running DPU ORs its step's wide
+//   bits and `go` (kGo) into wide[t], then a run launch that reads them
+//   instead of waiting.  Each launch loads its DPU's state from device
+//   memory and the run launch stores it back; after the K steps one more
+//   plan launch ORs the predicate into wide[K], which a one-warp launch
+//   moves to flag[parity].  Speed is not its aim.
 //
 // What bounds it: not bytes (the state of a 64-DPU rank is ~0.7 MB, read
 // and written once a launch) but the serial chain of each step, a few
-// hundred dependent instructions and shared/L2 accesses.
+// hundred dependent instructions and shared/L2 accesses.  A build with
+// -DSTEP_SECTIONS sums each section's clock64() cycles
+// (../../step_common.cuh; tools/torch_step_profile.py --sections).
 //
 // Integer arithmetic wraps through uint32_t; floor division and remainder
 // are torch's (floor), not C++'s (truncation); float32 counters use
@@ -65,8 +85,10 @@
 #include <cstdint>
 
 #include "../../alu_exec/csrc/alu_exec.cuh"
+#include "../../step_common.cuh"
 
 namespace cg = cooperative_groups;
+using step_common::Sections;
 
 namespace {
 
@@ -130,20 +152,37 @@ struct Args {
   void* leaf[N_LEAVES];
   const int32_t* image;  // (P, N_FIELDS)
   uint32_t* partial;     // (gridDim.x,): per-block vote at the launch's end
-  int32_t* flag;         // the termination predicate after the launch
+  // (2,) in pinned host memory the card writes: the termination predicate
+  // after a launch of parity p in flag[p] (the host reads launch n's while
+  // launch n + 1 runs)
+  int32_t* flag;
   // (D,): per DPU, 1 + the absolute index of the last step whose issue
-  // plan it has published, or kStopped once it runs no more
+  // plan it has published (resident route), or kStopped once it runs no
+  // more (both resident routes)
   long long* prog;
-  // (K,): bit s of step t: a DMA of slot s is wide; kGo (stepwise route
-  // only): some DPU runs at step t
+  // (K + 1,): bit s of step t: a DMA of slot s is wide; kGo (stepwise
+  // route only): some DPU runs at step t; wide[K] (stepwise): some DPU
+  // runs after the launch
   uint32_t* wide;
+  // (D, ring_k), resident_smem route: entry t of a DPU is its issue plan
+  // of step t of the launch that wrote it last, (absolute step + 1) << 8
+  // | wide bits, one relaxed 64-bit store
+  unsigned long long* ring;
+  long long* sections;   // (N_SECTIONS,) cycle sums (STEP_SECTIONS builds)
   long long base;        // absolute index of this launch's first step
+  int32_t parity;        // which flag this launch writes
+  int32_t ring_k;        // entries of a DPU's ring (>= K)
   int32_t c[N_CFG];
   float inv_bw;          // float32(1) / float32(effective_mram_bw)
   float inv_win;         // float32(1) / float32(timeseries_window)
 };
 constexpr long long kStopped = 0x7fffffffffffffffLL;
 constexpr uint32_t kGo = 1u << 31;
+
+// How a launch orders the DPUs (the kernel that runs step_dpu): one
+// cooperative launch with WRAM in device memory, a plan and a run launch
+// a step, or one cooperative launch with WRAM in shared memory.
+enum Route { R_RESIDENT, R_STEPWISE, R_SMEM };
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -228,11 +267,57 @@ struct Dpu {
 struct Warp {
   int lane, d, T, W, M, D, P, small, SS;
   bool act;
-  int32_t* wram;   // this DPU's row
+  int32_t* wram;   // this DPU's row (in shared memory on R_SMEM)
   int32_t* mram;
   int32_t* sregs;  // the register file, in shared memory
   int32_t* splan;  // per slot: valid, tsel, pidx
+  int32_t* atomic;  // R_SMEM: this DPU's atomics row, in shared memory
+  // R_SMEM: log2 of T, row_bytes, page_bytes, line_bytes, n_sets and
+  // timeseries_window where they are powers of two, else -1
+  int sh_T, sh_row, sh_page, sh_line, sh_sets, sh_win;
 };
+
+// floordiv and remainder of step_dpu: on R_SMEM by shift and mask where
+// the divisor is a power of two (the same floor semantics)
+template <int R>
+__device__ __forceinline__ int fdiv(int x, int d, int sh) {
+  if constexpr (R == R_SMEM) return step_common::floordiv_p2(x, d, sh);
+  else return floordiv(x, d);
+}
+template <int R>
+__device__ __forceinline__ int frem(int x, int n, int sh) {
+  if constexpr (R == R_SMEM) return step_common::remainder_p2(x, n, sh);
+  else return remainder(x, n);
+}
+
+// R_SMEM: the MRAM words of a slot's MRAM-to-WRAM DMA, loaded ahead of the
+// copy: lane l holds word l + 32 i of the window in v[i].  `ok`: slot 0's
+// window, loaded at plan time.  The plan's slot 0 in registers (its
+// values are the warp's): `valid`, `tsel` and, when valid, `in`.
+constexpr int WIN_REGS = MAX_DMA_WORDS / 32;
+struct Window {
+  int v[WIN_REGS];
+  bool ok, valid;
+  int tsel;
+  Instr in;
+};
+
+// Issue the loads of the 512 words of the MRAM window at word mb0, each
+// clamped into the row as the copy clamps it (so every address is in the
+// row, and no load waits on a test); they complete while the warp goes on.
+// Through L2 only: MRAM streams, and L1 keeps the instruction image.
+__device__ __forceinline__ void load_window(Window& p, const int32_t* mram,
+                                            int mb0, int M, int lane) {
+  if (mb0 >= 0 && mb0 <= M - MAX_DMA_WORDS) {  // inside: one base address
+    const int32_t* q = mram + mb0 + lane;
+#pragma unroll
+    for (int i = 0; i < WIN_REGS; ++i) p.v[i] = __ldcg(q + 32 * i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < WIN_REGS; ++i)
+      p.v[i] = __ldcg(mram + clampi(mb0 + lane + 32 * i, 0, M - 1));
+  }
+}
 
 __device__ __forceinline__ bool dpu_running(const Dpu& u, const Warp& w,
                                             const int* c) {
@@ -244,8 +329,11 @@ __device__ __forceinline__ bool dpu_running(const Dpu& u, const Warp& w,
 // DRAM step and the barrier release that come first only make threads
 // RUN with next_issue = cycle + 1, which cannot issue this cycle).
 // Returns bit s set when slot s issues a DMA wider than small_dma_words.
+// R_SMEM: slot 0's plan and instruction into *p0 too.
+template <int R>
 __device__ __forceinline__ uint32_t plan(const Dpu& u, const Warp& w,
-                                         const Args& args) {
+                                         const Args& args,
+                                         Window* p0 = nullptr) {
   const int* c = args.c;
   uint32_t bits = 0;
   bool already = false, slot_block = false;
@@ -253,16 +341,28 @@ __device__ __forceinline__ uint32_t plan(const Dpu& u, const Warp& w,
   for (int s = 0; s < w.SS; ++s) {
     const bool ready = w.act && u.status == RUN && u.next_issue <= u.cycle
                        && !already;
-    const bool valid = u.port_busy == 0 && __any_sync(FULL, ready)
-                       && !slot_block;
-    const int tsel = argmin_first(ready ? remainder(w.lane - u.rr, w.T) : INF,
-                                  w.act);
+    int tsel;
+    bool valid;
+    if constexpr (R == R_SMEM) {
+      // the first ready lane from rr on, round robin (argmin_first of the
+      // priority (lane - rr) mod T, from one ballot); lane 0 if none
+      const unsigned rb = __ballot_sync(FULL, ready);
+      const unsigned hi = rb >> u.rr, lo = rb & ((1u << u.rr) - 1u);
+      tsel = hi ? u.rr + __ffs(hi) - 1 : lo ? __ffs(lo) - 1 : 0;
+      valid = u.port_busy == 0 && rb != 0 && !slot_block;
+    } else {
+      valid = u.port_busy == 0 && __any_sync(FULL, ready) && !slot_block;
+      tsel = argmin_first(ready ? remainder(w.lane - u.rr, w.T) : INF,
+                          w.act);
+    }
     int pidx = __shfl_sync(FULL, u.pc, tsel);
     if (pidx < 0) pidx += w.P;  // JAX gather: wrap once, then clamp
     pidx = clampi(pidx, 0, w.P - 1);
     bool hazard = false;
     if (valid) {
       const Instr in = fetch(args.image, pidx);
+      if constexpr (R == R_SMEM)
+        if (s == 0) p0->in = in;
       if (in.f(B_DMA)) {
         const int size = clampi(in.f(B_UIV) ? in.imm
                                 : w.sregs[tsel * NREGS + in.rd],
@@ -270,6 +370,12 @@ __device__ __forceinline__ uint32_t plan(const Dpu& u, const Warp& w,
         if (((size + 3) >> 2) > w.small) bits |= 1u << s;
       }
       hazard = !c[C_URF] && in.f(B_TWO) && ((in.ra & 1) == (in.rb & 1));
+    }
+    if constexpr (R == R_SMEM) {
+      if (s == 0) {
+        p0->valid = valid;
+        p0->tsel = tsel;
+      }
     }
     if (w.lane == 0) {
       w.splan[s * 3] = valid;
@@ -300,14 +406,50 @@ __device__ __noinline__ bool wide_anywhere(const Args& args, const Warp& w,
   return (atomicOr(args.wide + t, 0u) >> s) & 1u;
 }
 
+// R_SMEM: the same answer from the DPUs' rings: DPU e's entry t holds its
+// plan of step `step` once e has taken it (the tag is the absolute step,
+// so an entry of an earlier launch never passes for this one), and e's
+// prog word turns kStopped, after a fence, once e runs no more: then its
+// plans of the steps it took are visible, and it takes no later one.
+// (Its arguments are values, not the Args: a noinline callee would make
+// the kernel copy its parameters to local memory.)
+__device__ __noinline__ bool wide_ring(const unsigned long long* ring,
+                                       int ring_k, const long long* prog,
+                                       int D, int lane, long long step, int t,
+                                       int s) {
+  const unsigned long long want = static_cast<unsigned long long>(step + 1);
+  uint32_t bits = 0;
+  for (int e = lane; e < D; e += 32) {
+    const volatile unsigned long long* r =
+        ring + static_cast<size_t>(e) * ring_k + t;
+    const volatile long long* p = prog + e;
+    for (;;) {
+      unsigned long long v = *r;
+      if ((v >> 8) == want) {
+        bits |= static_cast<uint32_t>(v);
+        break;
+      }
+      if (*p == kStopped) {
+        __threadfence();
+        v = *r;
+        if ((v >> 8) == want) bits |= static_cast<uint32_t>(v);
+        break;
+      }
+    }
+  }
+  return (__reduce_or_sync(FULL, bits) >> s) & 1u;
+}
+
 // One simulated cycle of this DPU with go = true (some DPU runs): the
 // DRAM engine, the barrier release, the planned issue slots (none when
 // the DPU itself has stopped) and the cycle's classification.
-// kResident: the route (how a DMA learns the other DPUs' widths).
-template <bool kResident>
+// R: the route (where WRAM lives, how a DMA learns the other DPUs'
+// widths); `pre`: R_SMEM's slot-0 MRAM window, loaded at plan time.
+template <int R>
 __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
                                          const Args& args, bool running,
-                                         int t) {
+                                         int t, const Window& pre,
+                                         Sections& sec) {
   const int* c = args.c;
   const int lane = w.lane, d = w.d, T = w.T, W = w.W, M = w.M;
   const bool act = w.act;
@@ -325,7 +467,7 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
   if (comp) u.eng_active = false;
   const bool can = !u.eng_active && __any_sync(FULL, act && u.req_valid);
   if (can) {
-    const int row = floordiv(u.req_mram, c[C_ROW_BYTES]);
+    const int row = fdiv<R>(u.req_mram, c[C_ROW_BYTES], w.sh_row);
     const int score = u.req_valid ? wsub(row == u.open_row ? INF : 0,
                                          u.req_enq)
                                   : -INF;
@@ -334,15 +476,15 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     const int m_j = __shfl_sync(FULL, u.req_mram, j);
     const int row_j = __shfl_sync(FULL, row, j);
     const bool hit_j = row_j == u.open_row;
-    const int end_row = floordiv(wsub(wadd(m_j, b_j < 1 ? 1 : b_j), 1),
-                                 c[C_ROW_BYTES]);
+    const int end_row = fdiv<R>(wsub(wadd(m_j, b_j < 1 ? 1 : b_j), 1),
+                                c[C_ROW_BYTES], w.sh_row);
     int service = wadd(hit_j ? c[C_ROW_HIT] : c[C_ROW_MISS],
                        wmul(wsub(end_row, row_j), c[C_ROW_MISS]));
     service = wadd(service, static_cast<int>(ceilf(__fmul_rn(
                                 __int2float_rn(b_j), args.inv_bw))));
     if (c[C_MMU]) {
       const int E = c[C_E];
-      const int page = floordiv(m_j, c[C_PAGE_BYTES]);
+      const int page = fdiv<R>(m_j, c[C_PAGE_BYTES], w.sh_page);
       int32_t* tags = leaf<int32_t>(args, L_TLB_TAGS) + d * E;
       int32_t* lru = leaf<int32_t>(args, L_TLB_LRU) + d * E;
       int first, victim;
@@ -378,15 +520,21 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
   }
   const int n_ready0 = __popc(__ballot_sync(
       FULL, act && u.status == RUN && u.next_issue <= cyc));
+  sec.mark(step_common::S_DRAM);
 
   // ---- issue slots ----
   bool issued_any = false;
 #pragma unroll 1
   for (int s = 0; running && s < w.SS; ++s) {
-    if (!w.splan[s * 3]) continue;  // uniform: nothing of the slot runs
+    // uniform: nothing of the slot runs
+    if (R == R_SMEM && s == 0 ? !pre.valid : !w.splan[s * 3]) continue;
     issued_any = true;
-    const int tsel = w.splan[s * 3 + 1];
-    const Instr in = fetch(args.image, w.splan[s * 3 + 2]);
+    const int tsel = R == R_SMEM && s == 0 ? pre.tsel : w.splan[s * 3 + 1];
+    Instr in;
+    if constexpr (R == R_SMEM)
+      in = s == 0 ? pre.in : fetch(args.image, w.splan[s * 3 + 2]);
+    else
+      in = fetch(args.image, w.splan[s * 3 + 2]);
     const int pcv = __shfl_sync(FULL, u.pc, tsel);
     const int32_t* rf = w.sregs + tsel * NREGS;
     const int a = rf[in.ra], breg = rf[in.rb], rd_old = rf[in.rd];
@@ -395,8 +543,12 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     const int addr = wadd(a, in.imm);
     const int widx = clampi(addr >> 2, 0, W - 1);
     const int ldval = in.f(B_LW) ? wram[widx] : 0;
-    const int ld_dest = __shfl_sync(FULL, u.last_dest, tsel);
-    const int ld_ready = __shfl_sync(FULL, u.last_ready, tsel);
+    // (R_SMEM: only forwarding reads them)
+    int ld_dest = 0, ld_ready = 0;
+    if (R != R_SMEM || c[C_FWD]) {
+      ld_dest = __shfl_sync(FULL, u.last_dest, tsel);
+      ld_ready = __shfl_sync(FULL, u.last_ready, tsel);
+    }
     const int res = in.f(B_ALU) ? alu_exec_one(in.op, a, b)
                     : in.f(B_LW) ? ldval
                     : in.f(B_JAL) ? wadd(pcv, 1) : spc;
@@ -410,8 +562,8 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     // cache-centric mode: LW/SW through the D$ timing model
     if (c[C_CACHE] && in.f(B_MEM)) {
       const int ways = c[C_WAYS], line_bytes = c[C_LINE_BYTES];
-      const int line = floordiv(addr, line_bytes);
-      const int set = remainder(line, c[C_NSETS]);
+      const int line = fdiv<R>(addr, line_bytes, w.sh_line);
+      const int set = frem<R>(line, c[C_NSETS], w.sh_sets);
       const size_t base = (static_cast<size_t>(d) * c[C_NSETS] + set) * ways;
       int32_t* tags = leaf<int32_t>(args, L_DC_TAGS) + base;
       int32_t* lru = leaf<int32_t>(args, L_DC_LRU) + base;
@@ -444,8 +596,12 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     // atomics
     bool acq_retry = false;
     if (in.f(B_ACQ) || in.f(B_REL)) {
-      int32_t* at = leaf<int32_t>(args, L_ATOMIC) + d * c[C_A]
-                    + clampi(in.imm, 0, c[C_A] - 1);
+      int32_t* at;
+      if constexpr (R == R_SMEM)
+        at = w.atomic + clampi(in.imm, 0, c[C_A] - 1);
+      else
+        at = leaf<int32_t>(args, L_ATOMIC) + d * c[C_A]
+             + clampi(in.imm, 0, c[C_A] - 1);
       const int aold = *at;
       acq_retry = in.f(B_ACQ) && aold != 0;
       __syncwarp();
@@ -455,6 +611,7 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     // DMA: latch the request, copy now (timing is the DRAM engine's)
     int size = 0;
     if (in.f(B_DMA)) {
+      sec.mark(step_common::S_ISSUE);
       const bool st = in.f(B_SDMA);
       size = clampi(in.f(B_UIV) ? in.imm : rd_old, 0, MAX_DMA_BYTES);
       if (sel) {
@@ -480,26 +637,75 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
       if (small < MAX_DMA_WORDS) {
         if (sw > small)
           nw = MAX_DMA_WORDS;
-        else if (sw == small && (b0 + small - 1 >= top || b0 <= -small)
-                 && (kResident
-                         ? wide_anywhere(args, w, args.base + t, t, s)
-                         : ((__ldcg(args.wide + t) >> s) & 1u)))
-          nw = MAX_DMA_WORDS;
-      }
-      const int last = nw - 1;
-      for (int k = lane; k < nw; k += 32) {
-        const int wc = clampi(wb0 + k, 0, W - 1);
-        const int mc = clampi(mb0 + k, 0, M - 1);
-        if (!st) {
-          const int rep = wc == W - 1 ? last
-                          : wc == 0 ? min(-wb0, last) : k;
-          if (rep == k && k < sw) wram[wc] = mram[mc];
-        } else {
-          const int rep = mc == M - 1 ? last
-                          : mc == 0 ? min(-mb0, last) : k;
-          if (rep == k && k < sw) mram[mc] = wram[wc];
+        else if (sw == small && (b0 + small - 1 >= top || b0 <= -small)) {
+          bool wide;
+          if constexpr (R == R_RESIDENT)
+            wide = wide_anywhere(args, w, args.base + t, t, s);
+          else if constexpr (R == R_SMEM)
+            wide = wide_ring(args.ring, args.ring_k, args.prog, w.D, lane,
+                             args.base + t, t, s);
+          else
+            wide = (__ldcg(args.wide + t) >> s) & 1u;
+          if (wide) nw = MAX_DMA_WORDS;
         }
       }
+      const int last = nw - 1;
+      if constexpr (R == R_SMEM) {
+        // every word of the window is loaded before any is stored: the
+        // words a lane writes are distinct, and source and destination
+        // lie in different memories
+        Window v;
+        if (!st) {
+          if (s == 0 && pre.ok) v = pre;
+          else load_window(v, mram, mb0, M, lane);
+        } else {
+#pragma unroll
+          for (int i = 0; i < WIN_REGS; ++i)
+            v.v[i] = wram[clampi(wb0 + lane + 32 * i, 0, W - 1)];
+        }
+        // a window inside its destination row writes word k at k (no word
+        // is clipped onto an end word): one base address, no tests a word
+        const int b0d = st ? mb0 : wb0, nd = st ? M : W;
+        const int lim = min(nw, sw);
+        if (b0d >= 0 && b0d <= nd - nw) {
+          int32_t* q = (st ? mram : wram) + b0d + lane;
+#pragma unroll
+          for (int i = 0; i < WIN_REGS; ++i)
+            if (lane + 32 * i < lim) q[32 * i] = v.v[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < WIN_REGS; ++i) {
+            const int k = lane + 32 * i;
+            if (k >= lim) continue;
+            const int wc = clampi(wb0 + k, 0, W - 1);
+            const int mc = clampi(mb0 + k, 0, M - 1);
+            if (!st) {
+              const int rep = wc == W - 1 ? last
+                              : wc == 0 ? min(-wb0, last) : k;
+              if (rep == k) wram[wc] = v.v[i];
+            } else {
+              const int rep = mc == M - 1 ? last
+                              : mc == 0 ? min(-mb0, last) : k;
+              if (rep == k) mram[mc] = v.v[i];
+            }
+          }
+        }
+      } else {
+        for (int k = lane; k < nw; k += 32) {
+          const int wc = clampi(wb0 + k, 0, W - 1);
+          const int mc = clampi(mb0 + k, 0, M - 1);
+          if (!st) {
+            const int rep = wc == W - 1 ? last
+                            : wc == 0 ? min(-wb0, last) : k;
+            if (rep == k && k < sw) wram[wc] = mram[mc];
+          } else {
+            const int rep = mc == M - 1 ? last
+                            : mc == 0 ? min(-mb0, last) : k;
+            if (rep == k && k < sw) mram[mc] = wram[wc];
+          }
+        }
+      }
+      sec.mark(step_common::S_DMA);
     }
 
     // control flow
@@ -542,7 +748,8 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     // leaves the port busy for exactly the next cycle
     if (!c[C_URF] && in.f(B_TWO) && (in.ra & 1) == (in.rb & 1))
       u.port_busy += 2;
-    u.rr = (tsel + 1) % T;
+    if constexpr (R == R_SMEM) u.rr = frem<R>(tsel + 1, T, w.sh_T);
+    else u.rr = (tsel + 1) % T;
 
     const bool rd_dma = in.f(B_DMA) && !in.f(B_SDMA);
     const bool wr_dma = in.f(B_DMA) && in.f(B_SDMA);
@@ -556,6 +763,7 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
   }
 
   // ---- classify the cycle and advance ----
+  sec.mark(step_common::S_ISSUE);
   const int ni = __reduce_min_sync(
       FULL, act ? (u.status == RUN ? u.next_issue : INF) : INT_MAX);
   const int df = u.eng_active ? u.eng_finish : INF;
@@ -582,8 +790,8 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
     if (lane == F_TS_ACC) {
       u.fcnt = __fadd_rn(u.fcnt, __int2float_rn(n_ready0));
       const int win = c[C_WIN];
-      const int w_old = floordiv(cyc, win);
-      if (floordiv(new_cycle, win) > w_old) {
+      const int w_old = fdiv<R>(cyc, win, w.sh_win);
+      if (fdiv<R>(new_cycle, win, w.sh_win) > w_old) {
         leaf<float>(args, L_TS_BUF)[d * c[C_L]
                                     + clampi(w_old, 0, c[C_L] - 1)] =
             __fmul_rn(u.fcnt, args.inv_win);
@@ -598,6 +806,8 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
                           + ((lane == K_IDLE_MEM && mem) ? delta : 0)
                           + ((lane == K_IDLE_REV && rev) ? delta : 0)
                           + ((lane == K_IDLE_RF && rf) ? delta : 0));
+  sec.mark(step_common::S_CLASSIFY);
+  sec.step();
 }
 
 // The largest vote of every warp of the launch: one block barrier and,
@@ -765,6 +975,11 @@ cycle_step_kernel(const Args args) {
   w.sregs = smem + warp * T * NREGS;
   w.splan = smem + dpb * T * NREGS + warp * MAX_SLOTS * 3;
 
+  Sections sec;
+  sec.begin_launch();
+  Window none;
+  none.ok = none.valid = false;
+
   // ---- load the state of this warp's DPU ----
   Dpu u{};
   u.status = DONE;
@@ -805,6 +1020,7 @@ cycle_step_kernel(const Args args) {
     for (int k = lane; k < T * NREGS; k += 32) w.sregs[k] = r[k];
   }
   __syncwarp();
+  sec.mark(step_common::S_LOAD);
 
   // ---- phase 1: this DPU's steps while it runs ----
   int stop = 0;          // the first step of the launch it does not run
@@ -812,7 +1028,8 @@ cycle_step_kernel(const Args args) {
   if (live) {
     for (stop = 0; stop < K; ++stop) {
       if (!dpu_running(u, w, c)) break;
-      const uint32_t bits = plan(u, w, args);
+      sec.start();
+      const uint32_t bits = plan<R_RESIDENT>(u, w, args);
       if (lane == 0) {
         if (bits) atomicOr(args.wide + stop, bits);
         __threadfence();
@@ -820,7 +1037,8 @@ cycle_step_kernel(const Args args) {
             args.base + stop + 1;
       }
       __syncwarp();
-      step_dpu<true>(u, w, args, true, stop);
+      sec.mark(step_common::S_PLAN);
+      step_dpu<R_RESIDENT>(u, w, args, true, stop, none, sec);
     }
     run_end = stop == K && dpu_running(u, w, c);
     if (!run_end && lane == 0) {  // it will not run again
@@ -830,15 +1048,21 @@ cycle_step_kernel(const Args args) {
   }
 
   // ---- G and the predicate: one vote over the launch ----
+  sec.start();
   const int vote = vote_max(live ? 2 * stop + run_end : 0, args.partial);
   const int G = vote >> 1;
+  sec.mark(step_common::S_VOTE);
 
   // ---- phase 2: go was true up to step G for the DPUs that stopped ----
   if (live) {
-    for (int t = stop; t < G; ++t) step_dpu<true>(u, w, args, false, t);
+    for (int t = stop; t < G; ++t) {
+      sec.start();
+      step_dpu<R_RESIDENT>(u, w, args, false, t, none, sec);
+    }
   }
 
   // ---- store the state back ----
+  sec.start();
   if (live) {
     const int i = d * T + lane;
     if (w.act) {
@@ -878,13 +1102,166 @@ cycle_step_kernel(const Args args) {
   if (blockIdx.x == 0) {
     // every DPU has passed phase 1: the next launch starts from no votes
     for (int t = threadIdx.x; t < K; t += blockDim.x) args.wide[t] = 0;
-    if (threadIdx.x == 0) *args.flag = vote & 1;
+    if (threadIdx.x == 0) {
+      args.flag[args.parity] = vote & 1;
+      __threadfence_system();
+    }
   }
+  sec.mark(step_common::S_STORE);
+  sec.end_launch(args.sections, live && lane == 0);
+}
+
+// Words of the resident_smem kernel's shared memory before the WRAM row:
+// the register file and the issue plan (load_dpu's layout for one warp a
+// block), rounded up to 16 bytes; then WRAM and the atomics, each rounded
+// up to 16 bytes.
+__host__ __device__ int smem_head_words(int T) {
+  return (T * NREGS + MAX_SLOTS * 3 + 3) & ~3;
+}
+__host__ __device__ size_t smem_route_bytes(int T, int W, int A) {
+  return 4 * (static_cast<size_t>(smem_head_words(T)) + ((W + 3) & ~3)
+              + ((A + 3) & ~3));
+}
+
+// R_SMEM: the loads of slot 0's MRAM-to-WRAM DMA window, issued at plan
+// time (the plan names the slot's tasklet and instruction, and nothing
+// before slot 0 in the step changes its registers or MRAM).
+__device__ __forceinline__ void prefetch_slot0(Window& p, const Warp& w) {
+  p.ok = false;
+  if (!p.valid || !p.in.f(B_DMA) || p.in.f(B_SDMA)) return;
+  const int32_t* rf = w.sregs + p.tsel * NREGS;
+  load_window(p, w.mram, rf[p.in.rb] >> 2, w.M, w.lane);
+  p.ok = true;
+}
+
+// The resident_smem route: K steps of every DPU as cycle_step_kernel takes
+// them, one DPU (warp) a block, with the DPU's WRAM row and atomics in
+// shared memory for the launch: brought in by one bulk copy at the start
+// (while the scalars load) and taken back by one at the end, so LW, SW,
+// the atomics and the WRAM side of every DMA touch shared memory only.
+// Each step's issue plan goes to the DPU's ring in one relaxed store (no
+// fence a step); a DPU publishes kStopped, after the one fence left, once
+// it runs no more.  Slot 0's MRAM window is loaded at plan time.  Floor
+// division and remainder by a power of two are a shift and a mask.
+// Every block must be resident (a cooperative launch past one block,
+// refused otherwise).
+__global__ void __launch_bounds__(32, 1)
+cycle_step_smem_kernel(const Args args) {
+  const int* c = args.c;
+  const int d = blockIdx.x, lane = threadIdx.x;
+  const int T = c[C_T], W = c[C_W], A = c[C_A], K = c[C_K];
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ __align__(8) uint64_t s_bar;
+  Sections sec;
+  sec.begin_launch();
+  Window none;
+  none.ok = none.valid = false;
+
+  // ---- WRAM and atomics into shared memory, the scalars into registers ----
+  int32_t* swram = smem + smem_head_words(T);
+  int32_t* satom = swram + ((W + 3) & ~3);
+  int32_t* gwram = leaf<int32_t>(args, L_WRAM) + static_cast<size_t>(d) * W;
+  int32_t* gatom = leaf<int32_t>(args, L_ATOMIC) + static_cast<size_t>(d) * A;
+  const bool bulk = W % 4 == 0 && A % 4 == 0
+                    && ((reinterpret_cast<uintptr_t>(gwram)
+                         | reinterpret_cast<uintptr_t>(gatom)) & 15) == 0;
+  const uint32_t bar = step_common::smem_u32(&s_bar);
+  const uint32_t sdst[2] = {step_common::smem_u32(swram),
+                            step_common::smem_u32(satom)};
+  const uint32_t nbytes[2] = {4u * W, 4u * A};
+  if (bulk && lane == 0 && d < c[C_D]) {
+    const void* gsrc[2] = {gwram, gatom};
+    step_common::bulk_load(bar, 2, sdst, gsrc, nbytes);
+  }
+  Warp w;
+  Dpu u;
+  const bool live = load_dpu(args, smem, w, u);
+  if (live) {
+    if (bulk) {
+      step_common::bulk_wait(bar);
+    } else {
+      for (int k = lane; k < W; k += 32) swram[k] = gwram[k];
+      for (int k = lane; k < A; k += 32) satom[k] = gatom[k];
+      __syncwarp();
+    }
+  }
+  w.wram = swram;
+  w.atomic = satom;
+  w.sh_T = step_common::pow2_shift(T);
+  w.sh_row = step_common::pow2_shift(c[C_ROW_BYTES]);
+  w.sh_page = step_common::pow2_shift(c[C_PAGE_BYTES]);
+  w.sh_line = step_common::pow2_shift(c[C_LINE_BYTES]);
+  w.sh_sets = step_common::pow2_shift(c[C_NSETS]);
+  w.sh_win = step_common::pow2_shift(c[C_WIN]);
+  sec.mark(step_common::S_LOAD);
+
+  // ---- phase 1: this DPU's steps while it runs ----
+  int stop = 0;
+  bool run_end = false;
+  if (live) {
+    volatile unsigned long long* ring =
+        args.ring + static_cast<size_t>(d) * args.ring_k;
+    for (stop = 0; stop < K; ++stop) {
+      if (!dpu_running(u, w, c)) break;
+      sec.start();
+      Window pre;
+      const uint32_t bits = plan<R_SMEM>(u, w, args, &pre);
+      prefetch_slot0(pre, w);
+      if (lane == 0)
+        ring[stop] = (static_cast<unsigned long long>(args.base + stop + 1)
+                      << 8) | bits;
+      sec.mark(step_common::S_PLAN);
+      step_dpu<R_SMEM>(u, w, args, true, stop, pre, sec);
+    }
+    run_end = stop == K && dpu_running(u, w, c);
+    if (!run_end && lane == 0) {  // it will not run again
+      __threadfence();
+      *reinterpret_cast<volatile long long*>(args.prog + d) = kStopped;
+    }
+  }
+
+  // ---- G and the predicate: one vote over the launch ----
+  sec.start();
+  const int vote = vote_max(live ? 2 * stop + run_end : 0, args.partial);
+  const int G = vote >> 1;
+  sec.mark(step_common::S_VOTE);
+
+  // ---- phase 2 ----
+  if (live) {
+    for (int t = stop; t < G; ++t) {
+      sec.start();
+      step_dpu<R_SMEM>(u, w, args, false, t, none, sec);
+    }
+  }
+
+  // ---- the state, WRAM and the atomics back ----
+  sec.start();
+  if (live) {
+    if (bulk) {   // the rows' copy out runs while the scalars are stored
+      step_common::bulk_store_fence();
+      __syncwarp();
+      if (lane == 0) {
+        void* gdst[2] = {gwram, gatom};
+        step_common::bulk_store(2, gdst, sdst, nbytes);
+      }
+    } else {
+      for (int k = lane; k < W; k += 32) gwram[k] = swram[k];
+      for (int k = lane; k < A; k += 32) gatom[k] = satom[k];
+    }
+    store_dpu(args, w, u);
+    if (bulk && lane == 0) step_common::bulk_store_wait();
+  }
+  if (d == 0 && lane == 0) {
+    args.flag[args.parity] = vote & 1;
+    __threadfence_system();
+  }
+  sec.mark(step_common::S_STORE);
+  sec.end_launch(args.sections, live && lane == 0);
 }
 
 // Stepwise route, the plan launch of step t < K: each running DPU ORs
 // its issue plan's wide bits and kGo into wide[t].  At t == K (after the
-// launch's last step) each running DPU ORs 1 into `flag` instead.
+// launch's last step) each running DPU ORs kGo into wide[K] instead.
 __global__ void __launch_bounds__(DPB * 32)
 cycle_plan_kernel(const Args args, int t) {
   extern __shared__ int32_t smem[];
@@ -892,10 +1269,10 @@ cycle_plan_kernel(const Args args, int t) {
   Dpu u;
   if (!load_dpu(args, smem, w, u) || !dpu_running(u, w, args.c)) return;
   if (t == args.c[C_K]) {
-    if (w.lane == 0) atomicOr(args.flag, 1);
+    if (w.lane == 0) atomicOr(args.wide + t, kGo);
     return;
   }
-  const uint32_t bits = plan(u, w, args);
+  const uint32_t bits = plan<R_STEPWISE>(u, w, args);
   if (w.lane == 0) atomicOr(args.wide + t, bits | kGo);
 }
 
@@ -910,9 +1287,25 @@ cycle_run_kernel(const Args args, int t) {
   Dpu u;
   if (!load_dpu(args, smem, w, u)) return;
   const bool running = dpu_running(u, w, args.c);
-  if (running) plan(u, w, args);
-  step_dpu<false>(u, w, args, running, t);
+  if (running) plan<R_STEPWISE>(u, w, args);
+  Window none;
+  none.ok = none.valid = false;
+  Sections sec;
+  step_dpu<R_STEPWISE>(u, w, args, running, t, none, sec);
   store_dpu(args, w, u);
+}
+
+// Stepwise route, after the launch's steps: the predicate (wide[K]) into
+// flag[parity], and wide cleared for the next launch.  One warp.
+__global__ void cycle_flag_kernel(const Args args) {
+  const int K = args.c[C_K];
+  const uint32_t go = __ldcg(args.wide + K);
+  __syncwarp();
+  if (threadIdx.x == 0) {
+    args.flag[args.parity] = go != 0;
+    __threadfence_system();
+  }
+  for (int t = threadIdx.x; t <= K; t += 32) args.wide[t] = 0;
 }
 
 size_t smem_bytes(int dpb, int T) {
@@ -920,6 +1313,13 @@ size_t smem_bytes(int dpb, int T) {
 }
 
 }  // namespace
+
+// A launch the runtime refused: the error, taken out of the runtime's
+// last-error slot so that the next launch does not report it again.
+static int refused(cudaError_t e) {
+  cudaGetLastError();
+  return static_cast<int>(e);
+}
 
 extern "C" {
 
@@ -949,7 +1349,8 @@ int cycle_step_max_dpus(int T) {
 static bool args_ok(const Args* args) {
   const int D = args->c[C_D], T = args->c[C_T];
   return D >= 1 && T >= 1 && T <= 32 && args->c[C_SS] >= 1
-         && args->c[C_SS] <= MAX_SLOTS && args->c[C_K] >= 1;
+         && args->c[C_SS] <= MAX_SLOTS && args->c[C_K] >= 1
+         && (args->parity & ~1) == 0;
 }
 
 // Launch K steps (args->c[C_K]) over args->c[C_D] DPUs, DPB DPUs (warps)
@@ -973,7 +1374,7 @@ int cycle_step_launch(const void* argp, void* stream) {
     cudaError_t e = cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(cycle_step_kernel), dim3(grid),
         dim3(dpb * 32), params, smem, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return refused(e);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -996,15 +1397,92 @@ int cycle_step_launch_stepwise(const void* argp, void* stream) {
     cycle_run_kernel<<<grid, dpb * 32, smem, s>>>(*args, t);
     e = cudaGetLastError();
   }
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(args->flag, 0, sizeof(int32_t), s);
   if (e == cudaSuccess) {
     cycle_plan_kernel<<<grid, dpb * 32, smem, s>>>(*args, K);
     e = cudaGetLastError();
   }
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(args->wide, 0, sizeof(uint32_t) * K, s);
+  if (e == cudaSuccess) {
+    cycle_flag_kernel<<<1, 32, 0, s>>>(*args);
+    e = cudaGetLastError();
+  }
   return static_cast<int>(e);
+}
+
+// The resident_smem route's shared memory a block (bytes) for T tasklets,
+// W WRAM words and A atomic words.
+int cycle_step_smem_bytes(int T, int W, int A) {
+  const size_t b = smem_route_bytes(T, W, A);
+  return b > static_cast<size_t>(INT_MAX) ? INT_MAX : static_cast<int>(b);
+}
+
+// What the current device allows the resident_smem kernel, into out[5]:
+// SMs, the dynamic shared memory a block may opt in to, the shared memory
+// of an SM, what a block takes besides its dynamic shared memory (the
+// runtime's reservation and the kernel's static shared memory), and the
+// kernel's blocks an SM holds with no dynamic shared memory (registers,
+// the block limit).  Returns minus the cudaError_t on failure, else 0.
+int cycle_step_card_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  int reserved = 0;
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out + 1,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        out + 2, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, cycle_step_smem_kernel);
+  out[3] = reserved + static_cast<int>(attr.sharedSizeBytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 4, cycle_step_smem_kernel, 32, 0);
+  return e == cudaSuccess ? 0 : -static_cast<int>(e);
+}
+
+// Let the resident_smem kernel take `bytes` of dynamic shared memory (once
+// for each larger size).
+static cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      cycle_step_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+// Launch K steps over args->c[C_D] DPUs on the resident_smem route, one
+// DPU a block: an ordinary launch for one DPU, else a cooperative one
+// (refused unless every block is resident).  Returns the cudaError_t as
+// int.
+int cycle_step_launch_smem(const void* argp, void* stream) {
+  const Args* args = static_cast<const Args*>(argp);
+  if (!args_ok(args) || args->ring == nullptr
+      || args->ring_k < args->c[C_K])
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int D = args->c[C_D];
+  const size_t smem = smem_route_bytes(args->c[C_T], args->c[C_W],
+                                       args->c[C_A]);
+  cudaError_t e = allow_smem(smem);
+  if (e != cudaSuccess) return refused(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 1) {
+    cycle_step_smem_kernel<<<1, 32, smem, s>>>(*args);
+  } else {
+    Args copy = *args;
+    void* params[] = {&copy};
+    e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(cycle_step_smem_kernel), dim3(D),
+        dim3(32), params, smem, s);
+    if (e != cudaSuccess) return refused(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

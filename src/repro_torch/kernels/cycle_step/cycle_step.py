@@ -28,13 +28,17 @@ import torch
 
 from repro_torch.core import engine, isa
 from repro_torch.core.config import DPUConfig
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.step_driver import RouteLimits, StepLibrary
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "cycle_step.cu",)
-HEADERS = (CSRC.parents[1] / "alu_exec" / "csrc" / "alu_exec.cuh",)
-#: ptxas reports registers and spills (kept in the build log)
-FLAGS = ("-Xptxas", "-v")
+HEADERS = (CSRC.parents[1] / "alu_exec" / "csrc" / "alu_exec.cuh",
+           CSRC.parents[1] / "step_common.cuh")
+#: the sections of ``step_common.cuh``'s ``enum Section``: a step's parts
+#: in the order it runs them, a launch's parts outside its steps, then the
+#: steps taken and the launch's cycles
+SECTIONS = ("plan", "dram", "issue", "dma", "classify", "load", "vote",
+            "store", "steps", "launch")
 
 #: state leaves in the kernel's order (``enum Leaf``), which is
 #: ``engine.make_state_np``'s
@@ -143,69 +147,56 @@ class Args(ctypes.Structure):
                 ("flag", ctypes.c_void_p),
                 ("prog", ctypes.c_void_p),
                 ("wide", ctypes.c_void_p),
+                ("ring", ctypes.c_void_p),
+                ("sections", ctypes.c_void_p),
                 ("base", ctypes.c_int64),
+                ("parity", ctypes.c_int32),
+                ("ring_k", ctypes.c_int32),
                 ("c", ctypes.c_int32 * len(CONFIG)),
                 ("inv_bw", ctypes.c_float),
                 ("inv_win", ctypes.c_float)]
 
 
-_FNS = {}
-
-#: how a launch orders the DPUs -> its C launcher: ``"resident"``, one
-#: cooperative launch of K steps (every block resident: at most
-#: :func:`max_dpus` DPUs), or ``"stepwise"``, a plan and a run launch a
-#: step (any number of DPUs)
-LAUNCHERS = {"resident": "cycle_step_launch",
+#: how a launch orders the DPUs -> its C launcher: ``"resident_smem"``,
+#: one cooperative launch of K steps, one DPU a block with its WRAM row in
+#: shared memory (as many DPUs as the card holds such blocks at once);
+#: ``"resident"``, the same with WRAM in device memory, four DPUs a block
+#: (at most :func:`max_dpus`); or ``"stepwise"``, a plan and a run launch
+#: a step (any number of DPUs)
+LAUNCHERS = {"resident_smem": "cycle_step_launch_smem",
+             "resident": "cycle_step_launch",
              "stepwise": "cycle_step_launch_stepwise"}
 
+#: the kernel's library (``step_driver.StepLibrary``: the plain and the
+#: ``STEP_SECTIONS`` build, its layout checked against this module's)
+LIB = StepLibrary(
+    "cycle_step", SOURCES, HEADERS,
+    layout=dict(max_slots=MAX_SLOTS, dpus_per_block=DPUS_PER_BLOCK,
+                n_leaves=len(LEAVES), n_config=len(CONFIG),
+                n_fields=N_FIELDS, args_bytes=ctypes.sizeof(Args)),
+    launchers=LAUNCHERS)
 
-def library() -> ctypes.CDLL:
-    """Build (once) and load the kernel's shared library, and check that
-    its layout is this module's."""
-    lib = load_library("cycle_step", SOURCES, HEADERS, FLAGS)
-    if not _FNS:
-        for name in ("max_slots", "dpus_per_block", "n_leaves",
-                     "n_config", "n_fields", "args_bytes"):
-            fn = getattr(lib, f"cycle_step_{name}")
-            fn.argtypes, fn.restype = [], ctypes.c_int
-            _FNS[name] = fn()
-        want = dict(max_slots=MAX_SLOTS, dpus_per_block=DPUS_PER_BLOCK,
-                    n_leaves=len(LEAVES), n_config=len(CONFIG),
-                    n_fields=N_FIELDS, args_bytes=ctypes.sizeof(Args))
-        bad = {k: (_FNS[k], v) for k, v in want.items() if _FNS[k] != v}
-        if bad:
-            raise RuntimeError(f"cycle_step library layout differs: {bad}")
-        for route, name in LAUNCHERS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _FNS[route] = fn
-        fn = lib.cycle_step_max_dpus
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        _FNS["max_dpus"] = fn
-    return lib
+
+def library(sections: bool = False) -> ctypes.CDLL:
+    """Build (once) and load the kernel's shared library (``sections``:
+    the profiling build)."""
+    return LIB.load(sections)
 
 
 def max_dpus(n_threads: int) -> int:
     """The most DPUs of ``n_threads`` tasklets the resident route can take
     on the current CUDA device: every block of the kernel resident at
     once.  Raises on a CUDA error."""
-    if not _FNS:
-        library()
-    n = _FNS["max_dpus"](n_threads)
+    fn = library().cycle_step_max_dpus
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(n_threads)
     if n < 0:
         raise RuntimeError(f"cycle_step occupancy query failed: cudaError "
                            f"{-n}")
     return n
 
 
-def cycle_step_cuda(args: Args, stream: int, route: str) -> None:
-    """Launch ``args.c[K]`` steps on ``stream`` (a ``cudaStream_t`` as
-    int) by ``route`` (a key of :data:`LAUNCHERS`).  Raises on a launch
-    error."""
-    if not _FNS:
-        library()
-    err = _FNS[route](ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"cycle_step kernel launch ({route}) failed: "
-                           f"cudaError {err}")
+def card_limits(n_threads: int) -> RouteLimits:
+    """The current device's limits for launches of ``n_threads``
+    tasklets: the resident_smem kernel's and :func:`max_dpus`."""
+    return LIB.card_limits(max_dpus(n_threads))

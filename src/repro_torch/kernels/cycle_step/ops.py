@@ -10,21 +10,27 @@ on the current stream, or raise — there is no fallback.
 :class:`CycleStep` is the same wrapper split for a driver: it checks the
 state once (every leaf's device, dtype, shape and contiguity) and then
 launches ``k`` steps at a time, updating the leaves in place; the kernel
-writes the predicate into a device flag that :meth:`CycleStep.predicate`
-reads (one host sync per launch).  ``launches`` counts kernel launches
-(never plain-version calls); callers may reset it to 0.
+writes the predicate into a flag that :meth:`CycleStep.predicate` reads
+(one host sync per launch).  ``launches`` counts kernel launches (never
+plain-version calls), ``idle_launches`` those of them that the pipelined
+loop queued past a run's end (no DPU ran in them); callers may reset
+both to 0.
 
 :func:`route` says which configurations the kernel takes: every knob of
 the scalar engine (the Table I defaults, ``forwarding``, ``unified_rf``,
 ``superscalar`` up to :data:`MAX_SLOTS`, ``mmu``, ``cache_mode``,
 ``event_skip``, ``collect_detail``, ``mram_bw_scale``) with at most 32
 tasklets, one warp's lanes (UPMEM has at most 24), at any DPU count.
-:func:`launch_route` says how a launch of D DPUs runs: ``"resident"``
-(one cooperative launch of K steps, no barrier a step) up to
-:func:`~repro_torch.kernels.cycle_step.cycle_step.max_dpus` DPUs, as
-many as the card holds blocks of the kernel at once, ``"stepwise"`` (a
-plan and a run launch a step) above it.  Both give the same state bit
-for bit.
+:func:`launch_route` says how a launch of D DPUs runs: :func:`pick_route`
+(a pure function of the launch's sizes and a card's :class:`RouteLimits`)
+with the current card's limits: ``"resident_smem"`` (one cooperative launch of K
+steps, one DPU a block with its WRAM row and atomics in shared memory)
+while a DPU's rows fit in a block's shared memory and every block fits
+on the card at once (396 DPUs of 64 KiB WRAM on an H100), else
+``"resident"`` (the same with WRAM in device memory, four DPUs a block)
+up to :func:`~repro_torch.kernels.cycle_step.cycle_step.max_dpus` DPUs
+(2,112 on an H100), else ``"stepwise"`` (a plan and a run launch a
+step).  All three give the same state bit for bit.
 """
 from __future__ import annotations
 
@@ -33,14 +39,18 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.config import DPUConfig
+from repro_torch.kernels.cycle_step import cycle_step as k_step
 from repro_torch.kernels.cycle_step.cycle_step import (
-    CONFIG, DPUS_PER_BLOCK, LEAVES, MAX_SLOTS, Args, config_fields,
-    cycle_step_cuda, leaf_table, max_dpus, pack_image)
+    CONFIG, LAUNCHERS, LEAVES, LIB, MAX_SLOTS, Args, config_fields,
+    leaf_table, pack_image)
 from repro_torch.kernels.cycle_step.ref import cycle_step_ref
-from repro_torch.kernels.step_driver import StepDriver
+from repro_torch.kernels.step_driver import (RouteLimits, StepDriver,
+                                             smem_dpus_of, smem_route_bytes)
 
 #: CUDA kernel launches made by this module (a plain integer)
 launches = 0
+#: of those, the launches queued past a run's end (no DPU ran in them)
+idle_launches = 0
 
 #: tasklets of one DPU: one warp's lanes
 MAX_TASKLETS = 32
@@ -70,11 +80,53 @@ def route(cfg: DPUConfig, n_threads: Optional[int] = None) -> str:
     return "cycle_step"
 
 
-def launch_route(n_dpus: int, n_threads: int) -> str:
-    """How a launch of ``n_dpus`` DPUs of ``n_threads`` tasklets runs on
-    the current CUDA device: ``"resident"`` when every block fits at
-    once (:func:`max_dpus`), else ``"stepwise"`` (builds the library)."""
-    return "resident" if n_dpus <= max_dpus(n_threads) else "stepwise"
+def smem_bytes(n_threads: int, wram_words: int,
+               atomic_words: int = DPUConfig.atomic_bits) -> int:
+    """The resident_smem route's shared memory a block: the register file
+    and the issue plan, WRAM and the atomics, each rounded up to 16 bytes
+    (``smem_route_bytes`` in the kernel)."""
+    return smem_route_bytes(n_threads, wram_words, atomic_words,
+                            plan_words=MAX_SLOTS * 3)
+
+
+def smem_dpus(n_threads: int, wram_words: int, lim: RouteLimits,
+              atomic_words: int = DPUConfig.atomic_bits) -> int:
+    """The most DPUs the resident_smem route holds at once on a card of
+    limits ``lim``: 0 when a DPU's rows do not fit in a block."""
+    return smem_dpus_of(smem_bytes(n_threads, wram_words, atomic_words),
+                        lim)
+
+
+def route_of(n_dpus: int, smem_held: int, resident_held: int) -> str:
+    """``"resident_smem"`` up to ``smem_held`` DPUs, else ``"resident"``
+    up to ``resident_held``, else ``"stepwise"``."""
+    if n_dpus <= smem_held:
+        return "resident_smem"
+    if n_dpus <= resident_held:
+        return "resident"
+    return "stepwise"
+
+
+def pick_route(n_dpus: int, n_threads: int, wram_words: int,
+               lim: RouteLimits,
+               atomic_words: int = DPUConfig.atomic_bits) -> str:
+    """How a launch of ``n_dpus`` DPUs of ``n_threads`` tasklets and
+    ``wram_words`` of WRAM runs on a card of limits ``lim``: a pure
+    function, :func:`route_of` with :func:`smem_dpus` and
+    ``lim.resident_dpus``."""
+    return route_of(n_dpus,
+                    smem_dpus(n_threads, wram_words, lim, atomic_words),
+                    lim.resident_dpus)
+
+
+def launch_route(n_dpus: int, n_threads: int,
+                 wram_words: int = DPUConfig().wram_words,
+                 atomic_words: int = DPUConfig.atomic_bits) -> str:
+    """:func:`pick_route` with the current CUDA device's limits
+    (:func:`~repro_torch.kernels.cycle_step.cycle_step.card_limits`;
+    builds the library)."""
+    return pick_route(n_dpus, n_threads, wram_words,
+                      k_step.card_limits(n_threads), atomic_words)
 
 
 class CycleStep(StepDriver):
@@ -85,10 +137,15 @@ class CycleStep(StepDriver):
     of ``engine.make_state_np``), updated in place; ``ir``: the (6, P)
     int32 instruction image on the same card; ``image``: ``ir`` as numpy
     (saves a copy back), or None.  ``route`` is :func:`launch_route`'s
-    choice for the state's DPU count."""
+    choice for the state's sizes, or the route asked for (a key of
+    ``LAUNCHERS``: a launch the card refuses then raises).  ``sections``:
+    an int64 CUDA tensor of ``len(SECTIONS)`` for the profiling build,
+    or None."""
 
     name = "cycle_step"
     LEAVES = LEAVES
+    ROUTES = tuple(LAUNCHERS)
+    SECTIONS = True
     Args = Args
 
     def state_keys(self, cfg, st):
@@ -105,20 +162,22 @@ class CycleStep(StepDriver):
         return pack_image(cfg, image)
 
     def scratch(self, D):
-        # one vote a block, each DPU's published step and each step's
-        # DMA-width votes (the kernel leaves the latter zero for the next
-        # launch; sized by run)
-        grid = -(-D // DPUS_PER_BLOCK)
-        self.partial = torch.zeros(grid, dtype=torch.int32, device=self.device)
+        # one vote a block (a block is one DPU on resident_smem), each
+        # DPU's published step or kStopped, each step's DMA-width votes
+        # and (stepwise) the predicate word (the kernels leave them zero
+        # for the next launch), each DPU's ring of issue plans
+        # (resident_smem); the last two sized by call
+        self.partial = torch.zeros(D, dtype=torch.int32, device=self.device)
         self.prog = torch.zeros(D, dtype=torch.int64, device=self.device)
         self.wide = torch.zeros(0, dtype=torch.int32, device=self.device)
+        self.ring = torch.zeros(0, dtype=torch.int64, device=self.device)
         self.args.partial = self.partial.data_ptr()
         self.args.prog = self.prog.data_ptr()
 
     def configure(self, cfg, st, P):
         D, T = st["status"].shape
         route(cfg, T)
-        self._dt = (D, T)
+        self._dims = (D, T, st["wram"].shape[1], cfg.atomic_bits)
         fields, inv_bw, inv_win = config_fields(
             cfg, D, T, st["wram"].shape[1], st["mram"].shape[1], P, 1)
         for i, v in enumerate(fields):
@@ -129,24 +188,33 @@ class CycleStep(StepDriver):
         return CONFIG.index("K")
 
     def library(self):
-        self.route = launch_route(*self._dt)   # builds the library
+        k_step.library(self.sections is not None)
+
+    def pick_route(self):
+        return launch_route(*self._dims)
+
+    def call(self, stream):
+        k = self.args.c[self._k]
+        if k + 1 > self.wide.numel():
+            self.wide = torch.zeros(k + 1, dtype=torch.int32,
+                                    device=self.device)
+            self.args.wide = self.wide.data_ptr()
+        if self.route == "resident_smem" and k > self.args.ring_k:
+            # a new ring holds no tag of this run's steps: zero is none
+            self.ring = torch.zeros(self._dims[0] * k, dtype=torch.int64,
+                                    device=self.device)
+            self.args.ring = self.ring.data_ptr()
+            self.args.ring_k = k
+        LIB.launch(self.route, self.args, stream, self.sections is not None)
+        self.args.base += k     # steps are numbered across launches
 
     def count(self):
         global launches
         launches += 1
 
-    def run(self, k: int) -> None:
-        """:meth:`launch` without the count (timing loops)."""
-        if k < 1:
-            raise ValueError(f"cycle_step: k = {k} < 1")
-        if k > self.wide.numel():
-            self.wide = torch.zeros(k, dtype=torch.int32, device=self.device)
-            self.args.wide = self.wide.data_ptr()
-        self.args.c[self._k] = k
-        cycle_step_cuda(self.args,
-                        torch.cuda.current_stream(self.device).cuda_stream,
-                        self.route)
-        self.args.base += k     # steps are numbered across launches
+    def count_idle(self):
+        global idle_launches
+        idle_launches += 1
 
 
 def cycle_step(cfg: DPUConfig, st: Dict[str, torch.Tensor], ir: torch.Tensor,

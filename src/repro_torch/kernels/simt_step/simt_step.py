@@ -25,13 +25,12 @@ import torch
 
 from repro_torch.core import isa, simt
 from repro_torch.core.config import DPUConfig
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.step_driver import RouteLimits, StepLibrary
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "simt_step.cu",)
-HEADERS = (CSRC.parents[1] / "alu_exec" / "csrc" / "alu_exec.cuh",)
-#: ptxas reports registers and spills (kept in the build log)
-FLAGS = ("-Xptxas", "-v")
+HEADERS = (CSRC.parents[1] / "alu_exec" / "csrc" / "alu_exec.cuh",
+           CSRC.parents[1] / "step_common.cuh")
 
 #: the state leaves the kernel reads or writes, in its order (``enum Leaf``)
 LEAVES = (
@@ -110,42 +109,34 @@ class Args(ctypes.Structure):
                 ("stop", ctypes.c_void_p),
                 ("vote", ctypes.c_void_p),
                 ("flag", ctypes.c_void_p),
+                ("sections", ctypes.c_void_p),
                 ("parity", ctypes.c_int32),
                 ("c", ctypes.c_int32 * len(CONFIG)),
                 ("inv_bw", ctypes.c_float)]
 
 
-_FNS = {}
+#: the kernel's routes -> C launcher: ``"resident_smem"``, one launch of K
+#: steps, one DPU a block with its WRAM row and atomics in shared memory,
+#: the tail folded in (every block resident at once); ``"global"``, WRAM
+#: in device memory, a run and a tail kernel a launch (any DPU count)
+LAUNCHERS = {"resident_smem": "simt_step_launch_smem",
+             "global": "simt_step_launch"}
+
+#: the kernel's library (``step_driver.StepLibrary``)
+LIB = StepLibrary(
+    "simt_step", SOURCES, HEADERS,
+    layout=dict(dpus_per_block=DPUS_PER_BLOCK, n_leaves=len(LEAVES),
+                n_config=len(CONFIG), n_fields=N_FIELDS,
+                args_bytes=ctypes.sizeof(Args)),
+    launchers=LAUNCHERS)
 
 
-def library() -> ctypes.CDLL:
-    """Build (once) and load the kernel's shared library, and check that
-    its layout is this module's."""
-    lib = load_library("simt_step", SOURCES, HEADERS, FLAGS)
-    if not _FNS:
-        for name in ("dpus_per_block", "n_leaves", "n_config", "n_fields",
-                     "args_bytes"):
-            fn = getattr(lib, f"simt_step_{name}")
-            fn.argtypes, fn.restype = [], ctypes.c_int
-            _FNS[name] = fn()
-        want = dict(dpus_per_block=DPUS_PER_BLOCK, n_leaves=len(LEAVES),
-                    n_config=len(CONFIG), n_fields=N_FIELDS,
-                    args_bytes=ctypes.sizeof(Args))
-        bad = {k: (_FNS[k], v) for k, v in want.items() if _FNS[k] != v}
-        if bad:
-            raise RuntimeError(f"simt_step library layout differs: {bad}")
-        fn = lib.simt_step_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FNS["launch"] = fn
-    return lib
+def library(sections: bool = False) -> ctypes.CDLL:
+    """Build (once) and load the kernel's shared library (``sections``:
+    the profiling build)."""
+    return LIB.load(sections)
 
 
-def simt_step_cuda(args: Args, stream: int) -> None:
-    """Launch ``args.c[K]`` steps on ``stream`` (a ``cudaStream_t`` as
-    int).  Raises on a launch error."""
-    if not _FNS:
-        library()
-    err = _FNS["launch"](ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"simt_step kernel launch failed: cudaError {err}")
+def card_limits() -> RouteLimits:
+    """The current device's limits for the resident_smem kernel."""
+    return LIB.card_limits()

@@ -6,6 +6,8 @@ runs on a machine with the card and no JAX:
 
 The CPU-side parity against the JAX package is in the other
 tests/test_torch_*.py files."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -95,7 +97,8 @@ def _prog(nt=4):
 @pytest.mark.cuda
 def test_card_driver_matches_cpu(card):
     """The card's driver (the fused cycle-step kernel) gives the CPU's
-    state bit for bit: one launch per K-step block, no ALU launch."""
+    state bit for bit: one launch per K-step block, and the one queued
+    past the end counted as idle; no ALU launch."""
     from repro_torch.kernels.cycle_step import ops as cs_ops
     cfg = DPUConfig(n_dpus=3, n_tasklets=16, mram_bytes=1 << 14,
                     superscalar=2, forwarding=True, unified_rf=True)
@@ -104,13 +107,14 @@ def test_card_driver_matches_cpu(card):
     mram = np.arange(3 * cfg.mram_words, dtype=np.int32).reshape(3, -1)
     want = compile_cache.run(cfg, binary, wram, mram, 4, device="cpu")
     steps0, launches0 = compile_cache.stats()["steps"], ops.launches
-    fused0 = cs_ops.launches
+    fused0, idle0 = cs_ops.launches, cs_ops.idle_launches
     got = compile_cache.run(cfg, binary, wram, mram, 4, device=card)
     for k in want:
         assert want[k].tobytes() == got[k].tobytes(), k
     steps = compile_cache.stats()["steps"] - steps0
     assert ops.launches == launches0
-    assert (cs_ops.launches - fused0) * compile_cache.STEPS_PER_CHECK \
+    assert cs_ops.idle_launches - idle0 == 1
+    assert (cs_ops.launches - fused0 - 1) * compile_cache.STEPS_PER_CHECK \
         == steps > 0
 
 
@@ -124,50 +128,74 @@ def _step_case_names():
     return sorted(cases.CASES) + ["cache_va"]
 
 
+STEP_ROUTES = ["resident_smem", "resident", "stepwise"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", STEP_ROUTES)
 @pytest.mark.parametrize("k", [1, 64])
 @pytest.mark.parametrize("name", _step_case_names())
-def test_cycle_step_matches_eager_card_step(card, name, k):
-    """Every leaf bitwise after 1, 7 and all steps, ``k`` steps a launch:
-    one launch per K-block (or checkpoint), no ALU launch inside them."""
+def test_cycle_step_matches_eager_card_step(card, name, k, route):
+    """Every leaf bitwise after 1, 7 and all steps, ``k`` steps a launch,
+    on each route: one launch per K-block (or checkpoint), no ALU launch
+    inside them.  The cases' launches take resident_smem by themselves."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
     before = cs_ops.launches
-    res = cases.hold_against_plain(_step_case(name), k, device=card)
+    res = cases.hold_against_plain(_step_case(name), k, device=card,
+                                   routes=None if route == "resident_smem"
+                                   else (route,))
     assert res["alu_launches"] == 0
-    assert res["route"] == "resident"
+    assert res["route"] == route
     assert cs_ops.launches - before == res["launches"]
     assert res["steps"] >= 7
     assert res["launches"] == 1 + -(-6 // k) + -(-(res["steps"] - 7) // k)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_dpus", [1, 5, 130])
+@pytest.mark.parametrize("n_dpus", [1, 5, 130, "smem", "smem+1"])
 def test_cycle_step_dpu_counts_agree(card, n_dpus):
     """cross_dpu at 1 DPU (one block), 5 (padded to 8: a cooperative
-    launch of 2 blocks) and 130 (padded to 256: 64 blocks); the DMA-width
-    waits cross blocks."""
+    launch of 8 one-DPU blocks on resident_smem) and 130 (padded to 256),
+    and, unpadded, at the resident_smem route's limit (396 DPUs on an
+    H100: every block of the card resident, three an SM) and one past it
+    (the resident route): the DMA-width waits cross blocks."""
     from repro_torch.kernels.cycle_step import cases
-    cases.hold_against_plain(cases.launch("cross_dpu", n_dpus), 64,
-                             device=card)
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    from repro_torch.kernels.cycle_step.cycle_step import card_limits
+    cfg = cases.launch("cross_dpu", 1)[0]
+    limit = cs_ops.smem_dpus(4, cfg.wram_words, card_limits(4),
+                             cfg.atomic_bits)
+    assert limit >= 64                   # one 64-DPU rank at least
+    n = {"smem": limit, "smem+1": limit + 1}.get(n_dpus, n_dpus)
+    D = n if isinstance(n_dpus, str) else compile_cache.dpu_bucket(n)
+    res = cases.hold_against_plain(cases.launch("cross_dpu", n), 64,
+                                   device=card, dpus=D)
+    assert res["route"] == ("resident_smem" if D <= limit else "resident")
+    assert res["route"] == cs_ops.launch_route(D, 4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_dpus", ["limit+1", 2560])
 def test_cycle_step_runs_more_dpus_than_resident(card, n_dpus):
     """Above the resident limit (max_dpus: every block of the cooperative
-    launch at once) a launch takes the stepwise route, a plan and a run
-    launch a step, and is bitwise the eager card step: cross_dpu at one
-    DPU past the limit and at a full 2,560-DPU UPMEM system (both padded
-    to 4,096)."""
+    launch at once) a launch takes the stepwise route by itself, a plan
+    and a run launch a step, and is bitwise the eager card step: cross_dpu
+    at one DPU past the limit and at a full 2,560-DPU UPMEM system (both
+    padded to 4,096)."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
+    from repro_torch.kernels.cycle_step.cycle_step import card_limits
     from repro_torch.kernels.cycle_step.cycle_step import max_dpus
     limit = max_dpus(4)
     assert limit >= 64                   # one 64-DPU rank at least
     assert cs_ops.launch_route(limit, 4) == "resident"
     n = limit + 1 if n_dpus == "limit+1" else n_dpus
     assert n > limit
+    for D in (n, compile_cache.dpu_bucket(n)):
+        assert cs_ops.launch_route(D, 4) == "stepwise"
+        assert cs_ops.pick_route(D, 4, DPUConfig().wram_words,
+                                 card_limits(4)) == "stepwise"
     res = cases.hold_against_plain(cases.launch("cross_dpu", n), 64,
                                    device=card)
     assert res["route"] == "stepwise"
@@ -180,6 +208,7 @@ def test_cycle_step_wrapper_rejects_what_the_kernel_cannot_take(card):
     from repro_torch.core.carry import state_to_torch
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
+    from repro_torch.kernels.cycle_step.cycle_step import card_limits
     cfg, binary, wram, mram, T = cases.launch("frfcfs")
     st0 = engine.make_state_np(cfg, binary, wram, mram, T)
     P = compile_cache.program_bucket(binary.n_instrs, binary.opcode.shape[0])
@@ -211,9 +240,115 @@ def test_cycle_step_wrapper_rejects_what_the_kernel_cannot_take(card):
         cs_ops.cycle_step(cfg.replace(n_tasklets=33), bad(
             **state_to_torch(engine.make_state_np(
                 cfg, binary, wram, mram, 33), card)), ir, 4)
+    with pytest.raises(ValueError, match="no route"):
+        cs_ops.CycleStep(cfg, state_to_torch(st0, card), ir, route="fast")
+    # resident_smem asked for past what the card holds at once: the
+    # cooperative launch is refused, and that raises
+    held = cs_ops.smem_dpus(T, cfg.wram_words, card_limits(T),
+                            cfg.atomic_bits)
+    n = held + 1
+    big = engine.make_state_np(cfg.replace(n_dpus=n), binary,
+                               np.repeat(wram[:1], n, 0),
+                               np.repeat(mram[:1], n, 0), T)
+    kern = cs_ops.CycleStep(cfg.replace(n_dpus=n), state_to_torch(big, card),
+                            ir, route="resident_smem")
+    with pytest.raises(RuntimeError, match="resident_smem"):
+        kern.launch(4)
     assert cs_ops.launches == before
     assert cs_ops.cycle_step(cfg, state_to_torch(st0, card), ir, 4)
     assert cs_ops.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 24, 32])
+def test_route_picker_mirrors_the_card(card, T):
+    """The kernels' own shared-memory counts equal the pickers' mirror
+    (at 64 KiB of WRAM and at the cache study's 8 MiB, whose rows fit in
+    no block), and what the drivers run is the pure picker over the
+    card's limits at every boundary."""
+    from repro_torch.kernels.cycle_step import cycle_step as k_step
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    from repro_torch.kernels.simt_step import ops as simt_ops
+    from repro_torch.kernels.simt_step import simt_step as k_simt
+    from repro_torch.kernels.step_driver import smem_dpus_of
+    lim, slim = k_step.card_limits(T), k_simt.card_limits()
+    assert lim.resident_dpus == k_step.max_dpus(T)
+    for W in (16384, 2 * 1024 * 1024):
+        assert k_step.LIB.smem_bytes(T, W, 256) == cs_ops.smem_bytes(T, W)
+        assert k_simt.LIB.smem_bytes(T, W, 256) \
+            == simt_ops.smem_bytes(T, W)
+        held = cs_ops.smem_dpus(T, W, lim)
+        sheld = smem_dpus_of(simt_ops.smem_bytes(T, W), slim)
+        assert (held > 0) == (sheld > 0) == (W == 16384)
+        for D in (1, held, held + 1, lim.resident_dpus,
+                  lim.resident_dpus + 1):
+            assert cs_ops.launch_route(D, T, W) \
+                == cs_ops.pick_route(D, T, W, lim)
+            assert simt_ops.launch_route(D, T, W) \
+                == simt_ops.pick_route(D, T, W, slim)
+
+
+def _run_with_checks(card, name, k):
+    """``name`` on 8 DPUs through the driver with a predicate check every
+    ``k`` steps: (the final states of its launches, its KernelReport, its
+    Timeline, cycle_step's counted launches, of those the ones queued past
+    a run's end, the driver's steps, the routes the kernel launched on)."""
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    cfg = DPUConfig(n_dpus=8, n_tasklets=16, mram_bytes=1 << 16)
+    states, routes = [], set()
+    run, launch = compile_cache.run, cs_ops.LIB.launch
+
+    def checked_run(*a, **kw):
+        states.append(run(*a, **dict(kw, steps_per_check=k)))
+        return states[-1]
+
+    def recorded_launch(route, *a, **kw):
+        routes.add(route)
+        return launch(route, *a, **kw)
+
+    compile_cache.run, cs_ops.LIB.launch = checked_run, recorded_launch
+    try:
+        l0, i0 = cs_ops.launches, cs_ops.idle_launches
+        s0 = compile_cache.stats()["steps"]
+        system = PIMSystem(cfg, device=card)
+        _, rep = pt_wl.get(name).run(system, 16, scale=0.01, seed=0)
+        return (states, rep, system.timeline, cs_ops.launches - l0,
+                cs_ops.idle_launches - i0,
+                compile_cache.stats()["steps"] - s0, routes)
+    finally:
+        compile_cache.run = run
+        del cs_ops.LIB.launch           # the class's method again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", STEP_ROUTES)
+@pytest.mark.parametrize("name", ["VA", "HST-L"])
+def test_pipelined_loop_changes_no_count(card, name, route, monkeypatch):
+    """The next K-block queued before the flag is read, on each route (the
+    drivers' picker made to answer it): the launch queued past the end
+    changes nothing and is counted apart as idle.  Two runs at K = 64 and
+    one with a check every step give the same states, KernelReport and
+    Timeline as a run with a check every step; each counts one launch per
+    K steps and one idle launch per driver launch."""
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    monkeypatch.setattr(cs_ops, "launch_route", lambda *a: route)
+    want = _run_with_checks(card, name, 1)
+    for k in (64, 64, 1):
+        states, rep, tl, launches, idle, steps, routes = \
+            _run_with_checks(card, name, k)
+        assert routes == {route}
+        assert idle == len(states) > 0
+        assert (launches - idle) * k == steps > 0
+        for f in dataclasses.fields(rep):
+            assert np.array_equal(getattr(rep, f.name),
+                                  getattr(want[1], f.name)), f.name
+        assert (tl.total, tl.kernel, tl.elapsed) == (
+            want[2].total, want[2].kernel, want[2].elapsed)
+        assert len(states) == len(want[0])
+        for got, ref in zip(states, want[0]):
+            for leaf in ref:
+                assert got[leaf].tobytes() == ref[leaf].tobytes(), leaf
 
 
 # ---------------------------------------------------------------------------
@@ -428,11 +563,15 @@ def test_remap_scenario_matches_golden_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["resident_smem", "global"])
 @pytest.mark.parametrize("name", sorted(simt_cases.CASES))
-def test_simt_step_matches_plain_version(card, name):
+def test_simt_step_matches_plain_version(card, name, route):
     res = step_cases.hold_against_plain(simt_cases.launch(name), 64,
-                                        device="cuda")
+                                        device="cuda",
+                                        routes=None if route == "resident_smem"
+                                        else (route,))
     assert res["kernel"] == "SimtStep" and res["alu_launches"] == 0
+    assert res["route"] == route
     assert res["launches"] >= 2
 
 
