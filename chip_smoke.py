@@ -29,15 +29,18 @@ Phases (any failure exits non-zero and prints no result line):
              steps, 64 steps a launch, on every knob case of
              repro_torch/kernels/cycle_step/cases.py (the case studies'
              branches, 24 and 32 tasklets, 4 and 8 issue slots, 40 DPUs
-             across blocks, the cache-mode VA) on each of its three
-             routes (resident_smem, resident, stepwise), cross_dpu at
-             the resident_smem route's limit unpadded (every block of
-             the card resident: 396 DPUs on an H100) on that route, and
-             cross_dpu above the resident limit (one DPU past it, and a
-             full 2,560-DPU system) and a whole VA launch (scale 0.02, 16
-             tasklets) at 2,560 DPUs on the stepwise route; each route's
-             µs a step on cross_dpu at 2,048 and 2,560 DPUs, and on VA's
-             launch at 2,560;
+             across blocks, the cache-mode VA) on each of its four
+             routes (resident_smem, resident, resident_carry, stepwise),
+             cross_dpu at the resident_smem route's limit unpadded (every
+             block of the card resident: 396 DPUs on an H100) on that
+             route; above the resident limit L (one DPU past it, and a
+             full 2,560-DPU system, both padded to 4,096) cross_dpu and
+             a whole VA launch (scale 0.02, 16 tasklets) at 2,560 DPUs on
+             resident_carry (two DPUs a warp) and on stepwise, and
+             cross_dpu unpadded at 2L and 2L + 1 (three DPUs a warp) on
+             resident_carry; µs a step on cross_dpu at 2,048 (resident)
+             and at 2,560, and on VA's launch at 2,560, the two routes
+             above the limit in turns;
 4. golden  — VA on 4 DPUs (2 ranks, 2 channels), 8 tasklets, scale 0.02,
              seed 0 must give the JAX package's pre-refactor golden
              (tests/test_backend.py) exactly, through cycle_step;
@@ -65,8 +68,10 @@ Phases (any failure exits non-zero and prints no result line):
              the driver's cycle_step loops;
 7. simt    — the SIMT engine and the HBM-PIM targets (case study #1,
              Fig. 11): (a) simt_step (on both of its routes) and crf_step
-             against their plain versions (the eager card steps), every
-             leaf bitwise after 1, 7 and all steps, on every case of
+             (on both of its: resident_smem, the image and rows staged in
+             shared memory, and global) against their plain versions
+             (the eager card steps), every leaf bitwise after 1, 7 and
+             all steps, on every case of
              repro_torch/kernels/simt_step/cases.py (64 steps a launch)
              and crf_step/cases.py (8 commands a launch); (b) every entry
              of goldens.json's s4, s4ac, h4, c4 and fig11/*
@@ -76,13 +81,13 @@ Phases (any failure exits non-zero and prints no result line):
              under its numpy oracle with its wall, KIPS, steps per second,
              kernel launches and set-up share: Fig. 11's five designs on
              GEMV at scale 1.0 (the launches of simt_step counted over
-             them), GEMVS on hbmpim_cmd at scale 1.0 (crf_step's), BFS
-             on hbmpim, SSORT on hbmpim (32 DPUs, scale 0.375); (d) at
-             each kernel's path's launch (Fig. 11 SIMT+AC's; GEMVS's
-             first command stream): one 64-step launch bitwise against 64
-             eager card steps from the same state, every leaf (simt_step
-             on both of its routes), then its ms per launch (simt_step's
-             two routes in turns, the path's the faster) beside the eager
+             them), GEMVS on hbmpim_cmd at scale 1.0 (crf_step's, all on
+             resident_smem), BFS on hbmpim, SSORT on hbmpim (32 DPUs,
+             scale 0.375); (d) at each kernel's path's launch (Fig. 11
+             SIMT+AC's; GEMVS's first command stream): one 64-step launch
+             of each route bitwise against 64 eager card steps from the
+             same state, every leaf, then its ms per launch (the two
+             routes in turns, the path's the faster) beside the eager
              card step's and its bytes bound (the leaves the kernel
              touches and the words it moves);
 8. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
@@ -95,8 +100,17 @@ Phases (any failure exits non-zero and prints no result line):
              every flash / SSD call counted as a launch (all 32 llama3-8b
              prefill launches on the tensor-core flash kernel, all 24
              mamba2-130m prefill scans on the tensor-core SSD route);
-9. report  — the kernels line (launches, times, bounds), the card's name
-             and power limit, and the result line.
+9. system  — the reference's full-system cell (src/repro/launch/
+             dryrun.py run_pim_cell: 2,560 DPUs, 16 tasklets, 1 MiB MRAM,
+             VA at scale 1.0, seed 0) through PIMSystem on the card, on
+             resident_carry, under VA's oracle, with its wall, cycles,
+             issued, KIPS, steps per second and set-up share, its cycles
+             beside the same configuration's on 64 DPUs; then BFS (6
+             launches and collectives) at 2,560 DPUs on resident_carry
+             and on stepwise: state, KernelReport and Timeline equal;
+10. report — the kernels line (launches, times, bounds; each step
+             kernel's routes), the card's name and power limit, and the
+             result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
 """
@@ -373,17 +387,21 @@ VA_STEP_SCALE = 0.02
 
 
 #: cycle_step's routes, in the order the picker prefers them
-STEP_ROUTES = ("resident_smem", "resident", "stepwise")
+STEP_ROUTES = ("resident_smem", "resident", "resident_carry", "stepwise")
+#: the routes above the resident limit: the picker's, then the yardstick
+ABOVE = ("resident_carry", "stepwise")
 
 
 def phase_step() -> dict:
     """cycle_step against the eager card step, 64 steps a launch
     (cases.hold_against_plain: bitwise after 1, 7 and all steps): every
-    knob case on each of the three routes (one plain run, a kernel driver
+    knob case on each of the four routes (one plain run, a kernel driver
     a route), cross_dpu at the resident_smem route's limit, unpadded, on
-    that route, and cross_dpu one DPU above the resident limit and at a
-    full 2,560-DPU system on the stepwise route (the only one that holds
-    them); returns the cases' total steps and launches."""
+    that route, cross_dpu one DPU above the resident limit L and at a
+    full 2,560-DPU system and VA's launch at 2,560 on resident_carry and
+    stepwise, and cross_dpu unpadded at 2L and 2L + 1 on resident_carry
+    (the picker's route for each); returns the cases' total steps and
+    launches and the routes' times."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as step_ops
     from repro_torch.kernels.cycle_step.cycle_step import (card_limits,
@@ -395,9 +413,12 @@ def phase_step() -> dict:
     runs = [(name, None, STEP_ROUTES, None)
             for name in sorted(cases.CASES) + ["cache_va"]]
     runs += [("cross_dpu", smem_limit, ("resident_smem",), smem_limit),
-             ("cross_dpu", limit + 1, ("stepwise",), None),
-             ("cross_dpu", FULL_SYSTEM_DPUS, ("stepwise",), None),
-             ("va", FULL_SYSTEM_DPUS, ("stepwise",), None)]
+             ("cross_dpu", limit + 1, ABOVE, None),
+             ("cross_dpu", FULL_SYSTEM_DPUS, ABOVE, None),
+             ("cross_dpu", 2 * limit, ("resident_carry",), 2 * limit),
+             ("cross_dpu", 2 * limit + 1, ("resident_carry",),
+              2 * limit + 1),
+             ("va", FULL_SYSTEM_DPUS, ABOVE, None)]
     total = {"cases": 0, "steps": 0, "launches": 0, "max_abs_err": None}
     t0 = time.perf_counter()
     for name, n_dpus, routes, dpus in runs:
@@ -431,48 +452,107 @@ def phase_step() -> dict:
     log(f"[step] {total['cases']} cases bitwise equal "
         f"({time.perf_counter() - t0:.1f} s)")
     total["max_dpus"] = {T: max_dpus(T) for T in (4, 16, 24)}
+    total["carry"] = {D: step_ops.carry_factor(D, 4, card_limits(4))
+                      for D in (limit + 1, 4096, 2 * limit, 2 * limit + 1)}
     log(f"[step] the resident route takes at most {total['max_dpus']} DPUs "
-        f"(by tasklets) on this card: every block resident; above it the "
-        f"stepwise route")
+        f"(by tasklets) on this card: every block resident; above it "
+        f"resident_carry, DPUs a warp (at 4 tasklets, by DPUs): "
+        f"{total['carry']}")
     total["us_per_step"] = {
-        n: _route_step_us(cases.launch("cross_dpu", n), f"cross_dpu at {n} "
-                          "DPUs") for n in (2048, FULL_SYSTEM_DPUS)}
+        2048: _route_step_us(cases.launch("cross_dpu", 2048),
+                             "cross_dpu at 2048 DPUs", ("resident",)),
+        FULL_SYSTEM_DPUS: _route_step_us(
+            cases.launch("cross_dpu", FULL_SYSTEM_DPUS),
+            f"cross_dpu at {FULL_SYSTEM_DPUS} DPUs", ABOVE)}
     total["va_us_per_step"] = _route_step_us(
         cases.va(FULL_SYSTEM_DPUS, VA_STEP_SCALE),
-        f"VA (scale {VA_STEP_SCALE}) at {FULL_SYSTEM_DPUS} DPUs")
+        f"VA (scale {VA_STEP_SCALE}) at {FULL_SYSTEM_DPUS} DPUs", ABOVE)
     return total
 
 
-def _route_step_us(case, label: str, blocks: int = 4) -> dict:
-    """µs a step of cycle_step's route for the launch ``case`` (set up
-    as the driver sets it up): ``blocks`` raw 64-step launches between
-    CUDA events while some DPU still runs, beside the eager card step
-    (its plain version) on a copy of the same state."""
+def _launch_bytes(cfg, st, before, cls0, cycles0, n) -> float:
+    """The bytes a cycle_step launch must move (PERF.md row 1a's count),
+    a mean over the ``n`` launches since ``before`` (the counters' sums),
+    ``cls0`` (c_cls's) and ``cycles0`` (each DPU's cycle): every
+    per-tasklet and per-DPU leaf (registers, scalars, counters) read once
+    and written once, and of the rest only what the launches touch: the
+    DMA'd words (read from one memory, written to the other), LW/SW
+    words, one atomic word read and written per sync instruction, one
+    ts_buf word per time-series window closed.  The TLB and D$ must be
+    off."""
+    import torch
+    from repro_torch.core.isa import CLS_LDST, CLS_SYNC
+    check(not cfg.mmu and not cfg.cache_mode,
+          "the bound counts no TLB or D$ traffic")
+    delta = {k: (st[k].double().sum().item() - v) / n
+             for k, v in before.items()}
+    cls = (st["c_cls"].double().sum(0) - cls0) / n
+    win = cfg.timeseries_window
+    windows = ((torch.div(st["cycle"], win, rounding_mode="floor")
+                - torch.div(cycles0, win, rounding_mode="floor"))
+               .double().sum().item() / n)
+    untouched = ("wram", "mram", "atomic", "ts_buf", "tlb_tags", "tlb_lru",
+                 "dc_tags", "dc_lru", "dc_dirty")
+    small = sum(v.numel() * v.element_size() for k, v in st.items()
+                if k not in untouched)
+    dma = delta["c_dma_rd_bytes"] + delta["c_dma_wr_bytes"]
+    ldst, sync = cls[CLS_LDST].item(), cls[CLS_SYNC].item()
+    return {"bytes": 2 * small + 2 * dma + 4 * ldst + 8 * sync + 4 * windows,
+            "state_bytes": small, "dma_bytes": dma, "ldst": ldst,
+            "sync": sync, "windows": windows,
+            "issued": delta["c_issued"]}
+
+
+def _counters_of(st):
+    return ({k: st[k].double().sum().item()
+             for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")},
+            st["c_cls"].double().sum(0), st["cycle"].clone())
+
+
+def _route_step_us(case, label: str, routes, blocks: int = 2) -> dict:
+    """µs a step of each of cycle_step's ``routes`` for the launch
+    ``case`` (set up as the step driver sets it up, a state for each route):
+    windows of ``blocks`` raw 64-step launches between CUDA events in
+    turns (a, b, b, a) while some DPU still runs (cross_dpu runs ~300
+    steps);
+    the first route's the result, with its bytes bound over its timed
+    launches and the eager card step (its plain version) on a copy of its
+    state."""
     import torch
     from repro_torch.core import compile_cache
     cfg, binary, wram, mram, T = case
-    prep = compile_cache.prepare(cfg, binary, wram, mram, T,
-                                 device=torch.device("cuda"))
-    kern, K = prep.kernel, compile_cache.STEPS_PER_CHECK
-    plain = {k: v.clone() for k, v in prep.st.items()}
+    K = compile_cache.STEPS_PER_CHECK
+    preps = {}
+    for r in routes:
+        preps[r] = compile_cache.prepare(cfg, binary, wram, mram, T,
+                                         device=torch.device("cuda"))
+        preps[r].kernel = preps[r].kernel.like(preps[r].st, r)
+    torch.cuda.synchronize()
+    first = preps[routes[0]]
+    before, cls0, cycles0 = _counters_of(first.st)
+    turns = _in_turns({r: p.kernel for r, p in preps.items()}, K, blocks)
+    work = _launch_bytes(first.kernel.cfg, first.st, before, cls0, cycles0,
+                         2 * blocks)
+    plain = {k: v.clone() for k, v in first.st.items()}
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0.record()
-    for _ in range(blocks):
-        kern.run(K)                        # uncounted
-    t1.record()
-    torch.cuda.synchronize()
-    check(kern.predicate(), f"{label} stopped inside the timed window")
-    us = t0.elapsed_time(t1) * 1e3 / (blocks * K)
     t0.record()
     for _ in range(K):
-        plain.update(prep.step_fn(prep.ir, plain))
+        plain.update(first.step_fn(first.ir, plain))
     t1.record()
     torch.cuda.synchronize()
-    res = {"route": kern.route, "dpus": int(prep.st["status"].shape[0]),
-           "us_per_step": us, "plain_us_per_step":
-           t0.elapsed_time(t1) * 1e3 / K}
+    ms = turns[routes[0]]["ms"]
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
+    t_ops = work["issued"] / SCALAR32_OPS_PER_S
+    res = {"route": routes[0], "dpus": int(first.st["status"].shape[0]),
+           "ms": ms, "us_per_step": ms * 1e3 / K,
+           "plain_ms": t0.elapsed_time(t1),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_per_launch": work["bytes"],
+           "issued_per_launch": work["issued"],
+           "routes": {r: dict(t, us_per_step=t["ms"] * 1e3 / K)
+                      for r, t in turns.items()}}
     log(f"[step] cycle_step {label}: " + json.dumps(res))
     return res
 
@@ -750,6 +830,8 @@ def phase_workloads() -> dict:
 
 #: commands a launch in [simt]'s crf_step cases (the cases are short)
 CRF_CASE_K = 8
+#: crf_step's routes, in the order its picker prefers them
+CRF_ROUTES = ("resident_smem", "global")
 
 
 def _record_launches(fn):
@@ -902,7 +984,8 @@ def phase_simt() -> dict:
     runs = [(n, cases.launch(n), 64, None, ("resident_smem", "global"))
             for n in sorted(cases.CASES)]
     runs += [(f"crf:{n}", crf_cases.launch(n), CRF_CASE_K,
-              crf_cases.edit_of(n), None) for n in sorted(crf_cases.CASES)]
+              crf_cases.edit_of(n), CRF_ROUTES)
+             for n in sorted(crf_cases.CASES)]
     for name, case, k, edit, routes in runs:
         t1 = time.perf_counter()
         try:
@@ -970,9 +1053,15 @@ def phase_simt() -> dict:
     simt_args = calls[2]            # SIMT+AC's one launch (GEMV: one each)
     check(simt_args[0][0].coalescing and simt_args[0][0].simt_width == 16,
           "the recorded launch is not SIMT+AC's")
+    from repro_torch.kernels.crf_step import ops as crf_ops
     reset_launches()
-    (r, calls_cmd) = _record_launches(lambda: _timed_run(
-        full.replace(backend="hbmpim_cmd"), "GEMVS", 1.0, "crf_step"))
+    from repro_torch.kernels.crf_step import crf_step as k_crf
+    ((r, calls_cmd), crf_routes) = _routes_launched(
+        k_crf.LIB, lambda: _record_launches(lambda: _timed_run(
+            full.replace(backend="hbmpim_cmd"), "GEMVS", 1.0, "crf_step")))
+    check(crf_routes == {"resident_smem"}, f"GEMVS on hbmpim_cmd launched "
+          f"crf_step on {crf_routes}")
+    r["routes"] = sorted(crf_routes)
     out["gemvs_cmd"] = r
     out["crf_step_launches"] = read_launches()["crf_step"]
     out["crf_step_idle_launches"] = read_idle()["crf_step"]
@@ -1009,7 +1098,26 @@ def phase_simt() -> dict:
     per_launch = out["gemvs_cmd"]["crf_step_launches"] // len(calls_cmd)
     out["crf_times"] = _kernel_times(
         calls_cmd[0], "crf_step at GEMVS's first full-width command "
-        "stream", max(1, min(10, (per_launch - 4) // 2)), 1, skip=("mram",))
+        "stream", max(1, min(10, (per_launch - 4) // 2)), 1, skip=("mram",),
+        routes=CRF_ROUTES[::-1])
+    lib = k_crf.library()
+    prep = compile_cache.prepare(*calls_cmd[0][0], **calls_cmd[0][1])
+    table = prep.kernel.table
+    W = full.hbm_lanes
+    for r, kernel, dyn in (
+            ("global", "crf_run_kernel", 0),
+            ("resident_smem", "crf_smem_kernel",
+             k_crf.smem_bytes(int(prep.ir.shape[1]), len(table.rows), W))):
+        out["crf_times"]["routes"][r].update(_kernel_build(lib, kernel),
+                                             dynamic_smem_bytes=dyn)
+    t = out["crf_times"]
+    t["staged_rows"] = len(table.rows)
+    t["us_per_command"] = {r: v["ms"] * 1e3 / compile_cache.STEPS_PER_CHECK
+                           for r, v in t["routes"].items()}
+    log("[kernels] crf_step at GEMVS's first full-width command stream "
+        "(old: global, new: resident_smem, in turns; the path's route "
+        f"{t['route']}; {len(table.rows)} rows staged): bound "
+        f"{t['bound_ms']} ms ({t['bound_by']}); " + json.dumps(t["routes"]))
     out["seconds"] = time.perf_counter() - t0
     log(f"[simt] phase {out['seconds']:.1f} s")
     return out
@@ -1064,7 +1172,6 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
     shared memory and spills."""
     import torch
     from repro_torch.core import compile_cache
-    from repro_torch.core.isa import CLS_LDST, CLS_SYNC
     from repro_torch.kernels.cycle_step import cycle_step
     from repro_torch.kernels.cycle_step.ops import launch_route, smem_bytes
     a, kw = launch_args
@@ -1082,23 +1189,14 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
                         cfg.wram_words, cfg.atomic_bits)
     prep, st = preps[main], preps[main].st
     plain = {k: v.clone() for k, v in st.items()}
-    before = {k: st[k].double().sum().item()
-              for k in ("c_issued", "c_dma_rd_bytes", "c_dma_wr_bytes")}
-    cls0 = st["c_cls"].double().sum(0)
-    cycles0 = st["cycle"].clone()
+    before, cls0, cycles0 = _counters_of(st)
     turns = _in_turns(kerns, K, n)
     ms = turns[main]["ms"]
     other = "resident" if main == "resident_smem" else "resident_smem"
     check(ms <= 1.05 * turns[other]["ms"], f"the main path takes {main} "
           f"({ms:.5f} ms a launch), slower than {other} "
           f"({turns[other]['ms']:.5f})")
-    delta = {k: (st[k].double().sum().item() - v) / (2 * n)
-             for k, v in before.items()}
-    cls = (st["c_cls"].double().sum(0) - cls0) / (2 * n)
-    win = cfg.timeseries_window
-    windows = ((torch.div(st["cycle"], win, rounding_mode="floor")
-                - torch.div(cycles0, win, rounding_mode="floor"))
-               .double().sum().item() / (2 * n))
+    work = _launch_bytes(cfg, st, before, cls0, cycles0, 2 * n)
     # eager card step x 64 on the same state
     for _ in range(3):
         plain.update(prep.step_fn(prep.ir, plain))
@@ -1112,22 +1210,7 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1) / m * K
-    # the bytes a launch must move: every per-tasklet and per-DPU leaf
-    # (registers, scalars, counters) read once and written once, and of
-    # the rest only what this run's launches touch: the DMA'd words (read
-    # from one memory, written to the other), LW/SW words, one atomic word
-    # read and written per sync instruction, one ts_buf word per time-
-    # series window closed.  The TLB and D$ are off on the main path.
-    check(not cfg.mmu and not cfg.cache_mode,
-          "the main path's bound counts no TLB or D$ traffic")
-    untouched = ("wram", "mram", "atomic", "ts_buf", "tlb_tags", "tlb_lru",
-                 "dc_tags", "dc_lru", "dc_dirty")
-    small = sum(v.numel() * v.element_size() for k, v in st.items()
-                if k not in untouched)
-    dma = delta["c_dma_rd_bytes"] + delta["c_dma_wr_bytes"]
-    ldst, sync = cls[CLS_LDST].item(), cls[CLS_SYNC].item()
-    nbytes = 2 * small + 2 * dma + 4 * ldst + 8 * sync + 4 * windows
-    ops = delta["c_issued"]
+    nbytes, ops = work["bytes"], work["issued"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR32_OPS_PER_S
     lib = cycle_step.library()
     T, W = int(st["status"].shape[1]), int(st["wram"].shape[1])
@@ -1135,10 +1218,11 @@ def phase_step_times(launch_args, n: int = 100) -> dict:
            "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None, "state_bytes": small,
-           "bytes_per_launch": nbytes, "dma_bytes_per_launch": dma,
-           "ldst_per_launch": ldst, "sync_per_launch": sync,
-           "windows_per_launch": windows, "issued_per_launch": ops,
+           "library_ms": None, "state_bytes": work["state_bytes"],
+           "bytes_per_launch": nbytes,
+           "dma_bytes_per_launch": work["dma_bytes"],
+           "ldst_per_launch": work["ldst"], "sync_per_launch": work["sync"],
+           "windows_per_launch": work["windows"], "issued_per_launch": ops,
            "cycles_per_launch": float((st["cycle"] - cycles0).double()
                                       .mean()) / (2 * n),
            "dpus": int(st["status"].shape[0]), "timed_launches": 2 * n,
@@ -1177,6 +1261,123 @@ def phase_kernel_times(n: int) -> dict:
     res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[kernels] alu_exec at N={n}: " + json.dumps(res))
     return res
+
+
+#: the reference's full-system cell (src/repro/launch/dryrun.py
+#: run_pim_cell): 2,560 DPUs, 16 tasklets, 1 MiB of MRAM each, VA at
+#: scale 1.0, seed 0
+SYSTEM_MRAM = 1 << 20
+#: BFS at FULL_SYSTEM_DPUS: its graph has at most 2,048 vertices (the
+#: WRAM arrays), so with 2,560 DPUs V // D = 0 and the last DPU owns every
+#: vertex at any scale; every DPU still stages and writes back the dist,
+#: frontier and next arrays each level.  128 KiB of MRAM holds its image
+SYSTEM_BFS_SCALE = 0.25
+SYSTEM_BFS_MRAM = 1 << 17
+
+
+def _routes_launched(lib, fn):
+    """``fn()`` with the step kernel library ``lib``'s launcher
+    (``StepLibrary.launch``) recording the routes it launches on; returns
+    (fn's result, the set of routes)."""
+    routes = set()
+    launch = lib.launch
+
+    def recorded(route, *a, **kw):
+        routes.add(route)
+        return launch(route, *a, **kw)
+
+    lib.launch = recorded
+    try:
+        return fn(), routes
+    finally:
+        del lib.launch                  # the class's method again
+
+
+def phase_system() -> dict:
+    """[system] (a) the reference's full-system cell through PIMSystem on
+    the card: VA on 2,560 DPUs (padded to 4,096) under its oracle, every
+    cycle_step launch on resident_carry, counted over this run alone
+    (set to 0 just before it, read just after), with its wall, cycles,
+    issued, KIPS, steps/s and set-up share; then the same configuration
+    on 64 DPUs, whose cycles it should equal (VA's control flow does not
+    depend on the data).  (b) BFS at 2,560 DPUs, 6 launches with
+    collectives between them, on resident_carry (the picker's) and on
+    stepwise (asked for): the returned state, KernelReport and Timeline
+    equal."""
+    import numpy as np
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    t0 = time.perf_counter()
+    cfg = DPUConfig(n_dpus=FULL_SYSTEM_DPUS, n_tasklets=16,
+                    mram_bytes=SYSTEM_MRAM)
+    reset_launches()
+    va, routes = _routes_launched(step_ops.LIB, lambda: _timed_run(
+        cfg, "VA", 1.0, "cycle_step"))
+    launches = read_launches()
+    check(routes == {"resident_carry"}, f"the full-system VA launched on "
+          f"{routes}, not resident_carry")
+    check(launches["cycle_step"] == va["cycle_step_launches"] > 0
+          and launches["alu_exec"] == 0, f"the full-system VA launched "
+          f"{launches}")
+    va["routes"] = sorted(routes)
+    va["launches"] = launches["cycle_step"]
+    va["idle_launches"] = read_idle()["cycle_step"]
+    log(f"[system] VA on {FULL_SYSTEM_DPUS} DPUs x 16 tasklets, 1 MiB MRAM, "
+        "scale 1.0 (the reference's full-system cell), oracle ok: "
+        + json.dumps(va))
+    small = _timed_run(cfg.replace(n_dpus=64), "VA", 1.0, "cycle_step")
+    va["cycles_64_dpus"] = small["cycles"]
+    va["cycles_equal_64"] = small["cycles"] == va["cycles"]
+    log(f"[system] the same configuration on 64 DPUs: cycles "
+        f"{small['cycles']} ({'equal to' if va['cycles_equal_64'] else 'NOT'}"
+        f" the full system's {va['cycles']}), issued {small['issued']}, "
+        f"wall {small['wall_s']:.3f} s")
+
+    # (b) BFS above the resident limit on both routes
+    bcfg = DPUConfig(n_dpus=FULL_SYSTEM_DPUS, n_tasklets=16,
+                     mram_bytes=SYSTEM_BFS_MRAM)
+    runs = {}
+    for route in ABOVE:
+        pick = step_ops.launch_route
+        if route != "resident_carry":
+            step_ops.launch_route = lambda *a: route
+        try:
+            system = _system(bcfg, "cuda")
+            s0 = compile_cache.stats()
+            t1 = time.perf_counter()
+            (st, rep), got = _routes_launched(step_ops.LIB, lambda: wl.get(
+                "BFS").run(system, 16, scale=SYSTEM_BFS_SCALE, seed=0))
+            secs = time.perf_counter() - t1
+            s1 = compile_cache.stats()
+        finally:
+            step_ops.launch_route = pick
+        check(got == {route}, f"BFS at {FULL_SYSTEM_DPUS} DPUs launched on "
+              f"{got}, not {route}")
+        runs[route] = (st, rep, system.timeline, secs,
+                       s1["launches"] - s0["launches"],
+                       s1["steps"] - s0["steps"])
+    (sa, ra, ta, *ma), (sb, rb, tb, *mb) = runs.values()
+    bad = [k for k in sa if not np.array_equal(np.asarray(sa[k]),
+                                               np.asarray(sb[k]))]
+    bad += _same_report(ra, rb) + _same_timeline(ta, tb)
+    check(set(sa) == set(sb) and not bad, f"BFS at {FULL_SYSTEM_DPUS} DPUs: "
+          f"resident_carry and stepwise differ in {bad}")
+    check(ma[1:] == mb[1:], f"BFS at {FULL_SYSTEM_DPUS} DPUs: step-driver "
+          f"launches and steps {ma[1:]} on resident_carry, {mb[1:]} on "
+          "stepwise")
+    bfs = {"dpus": FULL_SYSTEM_DPUS, "scale": SYSTEM_BFS_SCALE,
+           "sim_launches": ma[1], "steps": ma[2],
+           "cycles": ra.cycles, "issued": ra.issued,
+           "wall_s": {r: v[3] for r, v in runs.items()}}
+    log(f"[system] BFS at {FULL_SYSTEM_DPUS} DPUs (scale "
+        f"{SYSTEM_BFS_SCALE}), oracle ok on both routes: state, "
+        "KernelReport and Timeline equal on resident_carry and stepwise; "
+        + json.dumps(bfs))
+    out = {"va": va, "bfs": bfs, "seconds": time.perf_counter() - t0}
+    log(f"[system] phase {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1646,12 +1847,14 @@ def main(argv=None) -> int:
         times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
         work = phase_workloads()
         simt_run = phase_simt()
+        system_run = phase_system()
         phase_lm_parity()
         lm_run = phase_lm_main()
         lm_times = phase_lm_kernel_times()
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    carry = step_run["va_us_per_step"]
     kernels = [{
         "name": "alu_exec", "route": "cuda",
         "source": "src/repro_torch/kernels/alu_exec/csrc/alu_exec.cu",
@@ -1669,6 +1872,21 @@ def main(argv=None) -> int:
         "bound_ms": step_times["bound_ms"],
         "bound_by": step_times["bound_by"], "library_ms": None,
         "idle_launches": main_run["idle_launches"],
+        "kernel_route": step_times["route"],
+        "routes": {r: v["ms"] for r, v in step_times["routes"].items()},
+    }, {
+        # above the resident limit: the full-system path ([system]'s VA),
+        # timed at VA's launch at 2,560 DPUs ([step]) beside stepwise
+        "name": "cycle_step (resident_carry)", "route": "cuda",
+        "source": "src/repro_torch/kernels/cycle_step/csrc/cycle_step.cu",
+        "replaces": "src/repro/kernels/alu_exec/alu_exec.py:57",
+        "launches": system_run["va"]["launches"], "max_abs_err": step_err,
+        "ms": carry["ms"], "plain_ms": carry["plain_ms"],
+        "bound_ms": carry["bound_ms"], "bound_by": carry["bound_by"],
+        "library_ms": None,
+        "idle_launches": system_run["va"]["idle_launches"],
+        "kernel_route": "resident_carry",
+        "routes": {r: v["ms"] for r, v in carry["routes"].items()},
     }]
     for name, times, src, csrc in (
             ("simt_step", simt_run["simt_times"], "src/repro/core/simt.py:83",
@@ -1683,7 +1901,9 @@ def main(argv=None) -> int:
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": None,
-            "idle_launches": simt_run[f"{name}_idle_launches"]})
+            "idle_launches": simt_run[f"{name}_idle_launches"],
+            "kernel_route": times["route"],
+            "routes": {r: v["ms"] for r, v in times["routes"].items()}})
     replaces = {
         "flash_attention":
             ("src/repro/kernels/flash_attention/flash_attention.py:67",
@@ -1714,10 +1934,23 @@ def main(argv=None) -> int:
         f"{full['warm_s']:.3f} s; main path {main_run['kips']:.3f} KIPS, "
         f"{main_run['cycles_per_s']:.1f} simulated cycles/s, "
         f"{main_run['steps_per_s']:.1f} steps/s, cycle_step "
-        f"{step_times['us_per_step']:.3f} µs a step (stepwise route at "
-        f"{FULL_SYSTEM_DPUS} DPUs: "
-        f"{step_run['us_per_step'][FULL_SYSTEM_DPUS]['us_per_step']:.2f}); "
-        f"smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+        f"{step_times['us_per_step']:.3f} µs a step; at "
+        f"{FULL_SYSTEM_DPUS} DPUs (cross_dpu, VA) resident_carry "
+        + ", ".join(f"{r['routes']['resident_carry']['us_per_step']:.2f}"
+                    for r in (step_run["us_per_step"][FULL_SYSTEM_DPUS],
+                              carry))
+        + " µs a step, stepwise "
+        + ", ".join(f"{r['routes']['stepwise']['us_per_step']:.2f}"
+                    for r in (step_run["us_per_step"][FULL_SYSTEM_DPUS],
+                              carry))
+        + f"; smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+    sva = system_run["va"]
+    log(f"[report] system: VA on {FULL_SYSTEM_DPUS} DPUs (1 MiB, scale 1.0) "
+        f"{sva['wall_s']:.3f} s, {sva['kips']:.1f} KIPS, "
+        f"{sva['steps_per_s']:.1f} steps/s, set-up share "
+        f"{sva['outside_share']:.3f}, cycles {sva['cycles']} (64 DPUs: "
+        f"{sva['cycles_64_dpus']}); BFS at {FULL_SYSTEM_DPUS} DPUs equal on "
+        "resident_carry and stepwise")
     log(f"[report] simt: {simt_run['cases']} kernel cases bitwise, "
         f"{simt_run['golden_runs']} golden runs equal; Fig. 11 full width "
         + ", ".join(f"{r['design']} {r['wall_s']:.3f} s ({r['cycles']} "

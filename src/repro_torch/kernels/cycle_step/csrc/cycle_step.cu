@@ -39,7 +39,7 @@
 //   flag[parity], pinned host memory; the host reads launch n's flag
 //   while launch n + 1 (the other parity) runs.
 //
-// Three routes run step_dpu, the same result bit for bit (ops.py picks):
+// Four routes run step_dpu, the same result bit for bit (ops.py picks):
 // * resident_smem (cycle_step_smem_kernel), the main path's: one DPU a
 //   block, the DPU's WRAM row and atomics in shared memory for the
 //   launch (one bulk copy in, one out), so LW, SW, the atomics and the
@@ -55,15 +55,25 @@
 // * resident (cycle_step_kernel): four DPUs a block, WRAM in device
 //   memory, each step's plan published with an atomicOr and a fence; for
 //   rows that do not fit in shared memory (the cache study's 8 MiB WRAM)
-//   and up to cycle_step_max_dpus() DPUs (2,112 on an H100);
-// * stepwise, above that, where a cooperative launch is refused: every
-//   step as two ordinary launches, the kernel boundary ordering the
-//   DPUs: a plan launch in which each running DPU ORs its step's wide
-//   bits and `go` (kGo) into wide[t], then a run launch that reads them
-//   instead of waiting.  Each launch loads its DPU's state from device
-//   memory and the run launch stores it back; after the K steps one more
-//   plan launch ORs the predicate into wide[K], which a one-warp launch
-//   moves to flag[parity].  Speed is not its aim.
+//   and up to cycle_step_max_dpus() DPUs (2,112 on an H100: residency,
+//   not the work, is its limit);
+// * resident_carry (cycle_carry_kernel), above that: the resident route
+//   with each resident warp carrying n = ceil(D / resident warps) DPUs,
+//   still one cooperative launch of K steps.  A DPU the warp is not
+//   stepping keeps its lane state parked in shared memory beside its
+//   register file; each step is planned and published for every DPU of
+//   the warp before any of them takes it, which keeps the DMA-width waits
+//   free of deadlock (the argument is at the kernel).  Up to as many DPUs
+//   as n times the resident warps while n DPUs' shared memory fits a
+//   block (2 at the H100's 2,560-DPU system, padded to 4,096);
+// * stepwise, the yardstick above the resident limit and the route for
+//   what no other route holds: every step as two ordinary launches, the
+//   kernel boundary ordering the DPUs: a plan launch in which each running
+//   DPU ORs its step's wide bits and `go` (kGo) into wide[t], then a run
+//   launch that reads them instead of waiting.  Each launch loads its
+//   DPU's state from device memory and the run launch stores it back;
+//   after the K steps one more plan launch ORs the predicate into wide[K],
+//   which a one-warp launch moves to flag[parity].  Speed is not its aim.
 //
 // What bounds it: not bytes (the state of a 64-DPU rank is ~0.7 MB, read
 // and written once a launch) but the serial chain of each step, a few
@@ -141,10 +151,11 @@ constexpr int NREGS = 24;
 constexpr int MAX_DMA_BYTES = 2048;
 constexpr int MAX_DMA_WORDS = MAX_DMA_BYTES / 4;
 constexpr int MAX_SLOTS = 8;
-// DPUs (warps) per block.  Every block of a resident launch must be
-// resident at once (the cross-DPU waits and the grid barrier), so that
-// route takes at most cycle_step_max_dpus() DPUs; the stepwise route
-// takes any number.
+// Warps per block of the global-WRAM routes.  Every block of a resident
+// launch must be resident at once (the cross-DPU waits and the grid
+// barrier), so the resident route takes at most cycle_step_max_dpus()
+// DPUs, resident_carry n times that many; the stepwise route takes any
+// number.
 constexpr int DPB = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -172,16 +183,18 @@ struct Args {
   long long base;        // absolute index of this launch's first step
   int32_t parity;        // which flag this launch writes
   int32_t ring_k;        // entries of a DPU's ring (>= K)
-  int32_t c[N_CFG];
+  int32_t c[N_CFG];      // (8-byte aligned: paired loads stay paired)
   float inv_bw;          // float32(1) / float32(effective_mram_bw)
   float inv_win;         // float32(1) / float32(timeseries_window)
+  int32_t carry;         // resident_carry route: DPUs a warp carries
 };
 constexpr long long kStopped = 0x7fffffffffffffffLL;
 constexpr uint32_t kGo = 1u << 31;
 
 // How a launch orders the DPUs (the kernel that runs step_dpu): one
-// cooperative launch with WRAM in device memory, a plan and a run launch
-// a step, or one cooperative launch with WRAM in shared memory.
+// cooperative launch with WRAM in device memory (one DPU a warp, or
+// several: cycle_carry_kernel), a plan and a run launch a step, or one
+// cooperative launch with WRAM in shared memory.
 enum Route { R_RESIDENT, R_STEPWISE, R_SMEM };
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -830,32 +843,36 @@ __device__ __forceinline__ int vote_max(int v, uint32_t* partial) {
   return b;
 }
 
-// This warp's DPU: set up `w` and load `u` (the register file into
-// shared memory).  Returns false for a warp past the last DPU, which gets
-// a stopped DPU and must store nothing.
-__device__ __forceinline__ bool load_dpu(const Args& args, int32_t* smem,
-                                         Warp& w, Dpu& u) {
+// The fields of `w` that do not depend on which DPU the warp steps.
+__device__ __forceinline__ void warp_consts(const Args& args, Warp& w) {
   const int* c = args.c;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int dpb = blockDim.x >> 5;
-  const int d = blockIdx.x * dpb + warp;
-  const int T = c[C_T], W = c[C_W], M = c[C_M];
-  const bool live = d < c[C_D];
-  w.lane = lane;
-  w.d = d;
-  w.T = T;
-  w.W = W;
-  w.M = M;
+  w.lane = threadIdx.x & 31;
+  w.T = c[C_T];
+  w.W = c[C_W];
+  w.M = c[C_M];
   w.D = c[C_D];
   w.P = c[C_P];
   w.small = c[C_SMALL];
   w.SS = c[C_SS];
-  w.act = lane < T;
-  w.wram = leaf<int32_t>(args, L_WRAM) + static_cast<size_t>(d) * W;
-  w.mram = leaf<int32_t>(args, L_MRAM) + static_cast<size_t>(d) * M;
-  w.sregs = smem + warp * T * NREGS;
-  w.splan = smem + dpb * T * NREGS + warp * MAX_SLOTS * 3;
+  w.act = w.lane < w.T;
+}
 
+// Point `w` at DPU d: its WRAM and MRAM rows, and its register file and
+// issue plan in shared memory.
+__device__ __forceinline__ void warp_dpu(const Args& args, Warp& w, int d,
+                                         int32_t* sregs, int32_t* splan) {
+  w.d = d;
+  w.wram = leaf<int32_t>(args, L_WRAM) + static_cast<size_t>(d) * w.W;
+  w.mram = leaf<int32_t>(args, L_MRAM) + static_cast<size_t>(d) * w.M;
+  w.sregs = sregs;
+  w.splan = splan;
+}
+
+// Read the state of w's DPU into `u` and its register file into shared
+// memory (a live DPU), or make `u` a stopped DPU (a warp past the last).
+__device__ __forceinline__ void read_dpu(const Args& args, const Warp& w,
+                                         Dpu& u, bool live) {
+  const int lane = w.lane, d = w.d, T = w.T;
   u = Dpu{};
   u.status = DONE;
   u.last_dest = -1;
@@ -894,6 +911,20 @@ __device__ __forceinline__ bool load_dpu(const Args& args, int32_t* smem,
     const int32_t* r = leaf<int32_t>(args, L_REGS) + d * T * NREGS;
     for (int k = lane; k < T * NREGS; k += 32) w.sregs[k] = r[k];
   }
+}
+
+// This warp's DPU: set up `w` and load `u` (the register file into
+// shared memory).  Returns false for a warp past the last DPU, which gets
+// a stopped DPU and must store nothing.
+__device__ __forceinline__ bool load_dpu(const Args& args, int32_t* smem,
+                                         Warp& w, Dpu& u) {
+  const int warp = threadIdx.x >> 5, dpb = blockDim.x >> 5;
+  const int d = blockIdx.x * dpb + warp;
+  warp_consts(args, w);
+  warp_dpu(args, w, d, smem + warp * w.T * NREGS,
+           smem + dpb * w.T * NREGS + warp * MAX_SLOTS * 3);
+  const bool live = d < w.D;
+  read_dpu(args, w, u, live);
   __syncwarp();
   return live;
 }
@@ -1259,6 +1290,266 @@ cycle_step_smem_kernel(const Args args) {
   sec.end_launch(args.sections, live && lane == 0);
 }
 
+// ---- resident_carry: several DPUs a warp ----
+
+// A carried DPU's lane state while its warp steps another, in shared
+// memory: one row of 32 words for each per-lane field (the tasklets'
+// scalars, the counters), then the DPU's scalars, which every lane holds
+// alike, one word each.
+enum ParkLane {
+  P_PC, P_STATUS, P_NEXT_ISSUE, P_LAST_DEST, P_LAST_READY, P_REQ_WRAM,
+  P_REQ_MRAM, P_REQ_BYTES, P_REQ_ENQ, P_REQ_FLAGS, P_CNT, P_HIST, P_FCNT,
+  N_PARK_LANE
+};
+enum ParkDpu {
+  Q_CYCLE, Q_PORT_BUSY, Q_RR, Q_ENG_ACTIVE, Q_ENG_THREAD, Q_ENG_FINISH,
+  Q_OPEN_ROW, Q_HIST32, Q_STOP, N_PARK_DPU
+};
+constexpr int PARK_WORDS = N_PARK_LANE * 32 + N_PARK_DPU;
+// carried DPUs a warp at most (one bit each of a mask)
+constexpr int MAX_CARRY = 32;
+
+// Words of shared memory one carried DPU takes: its register file, its
+// issue plan and its parked lane state.
+__host__ __device__ int carry_dpu_words(int T) {
+  return T * NREGS + MAX_SLOTS * 3 + PARK_WORDS;
+}
+__host__ __device__ size_t carry_route_bytes(int n, int T) {
+  return 4 * static_cast<size_t>(DPB) * n * carry_dpu_words(T);
+}
+
+__device__ __forceinline__ void park(int32_t* p, const Dpu& u, int lane) {
+  p[P_PC * 32 + lane] = u.pc;
+  p[P_STATUS * 32 + lane] = u.status;
+  p[P_NEXT_ISSUE * 32 + lane] = u.next_issue;
+  p[P_LAST_DEST * 32 + lane] = u.last_dest;
+  p[P_LAST_READY * 32 + lane] = u.last_ready;
+  p[P_REQ_WRAM * 32 + lane] = u.req_wram;
+  p[P_REQ_MRAM * 32 + lane] = u.req_mram;
+  p[P_REQ_BYTES * 32 + lane] = u.req_bytes;
+  p[P_REQ_ENQ * 32 + lane] = u.req_enq;
+  p[P_REQ_FLAGS * 32 + lane] = u.req_valid | (u.req_write << 1);
+  p[P_CNT * 32 + lane] = u.cnt;
+  p[P_HIST * 32 + lane] = u.hist;
+  p[P_FCNT * 32 + lane] = __float_as_int(u.fcnt);
+  if (lane == 0) {
+    int32_t* q = p + N_PARK_LANE * 32;
+    q[Q_CYCLE] = u.cycle;
+    q[Q_PORT_BUSY] = u.port_busy;
+    q[Q_RR] = u.rr;
+    q[Q_ENG_ACTIVE] = u.eng_active;
+    q[Q_ENG_THREAD] = u.eng_thread;
+    q[Q_ENG_FINISH] = u.eng_finish;
+    q[Q_OPEN_ROW] = u.open_row;
+    q[Q_HIST32] = u.hist32;
+  }
+}
+
+__device__ __forceinline__ void unpark(const int32_t* p, Dpu& u, int lane) {
+  u.pc = p[P_PC * 32 + lane];
+  u.status = p[P_STATUS * 32 + lane];
+  u.next_issue = p[P_NEXT_ISSUE * 32 + lane];
+  u.last_dest = p[P_LAST_DEST * 32 + lane];
+  u.last_ready = p[P_LAST_READY * 32 + lane];
+  u.req_wram = p[P_REQ_WRAM * 32 + lane];
+  u.req_mram = p[P_REQ_MRAM * 32 + lane];
+  u.req_bytes = p[P_REQ_BYTES * 32 + lane];
+  u.req_enq = p[P_REQ_ENQ * 32 + lane];
+  const int fl = p[P_REQ_FLAGS * 32 + lane];
+  u.req_valid = fl & 1;
+  u.req_write = (fl >> 1) & 1;
+  u.cnt = p[P_CNT * 32 + lane];
+  u.hist = p[P_HIST * 32 + lane];
+  u.fcnt = __int_as_float(p[P_FCNT * 32 + lane]);
+  const int32_t* q = p + N_PARK_LANE * 32;
+  u.cycle = q[Q_CYCLE];
+  u.port_busy = q[Q_PORT_BUSY];
+  u.rr = q[Q_RR];
+  u.eng_active = q[Q_ENG_ACTIVE] != 0;
+  u.eng_thread = q[Q_ENG_THREAD];
+  u.eng_finish = q[Q_ENG_FINISH];
+  u.open_row = q[Q_OPEN_ROW];
+  u.hist32 = q[Q_HIST32];
+}
+
+// The DPUs a warp carries: R = ceil(D / n) warps carry DPUs, warp g (of
+// the whole launch) DPUs j * R + g for j < n below D, slot j (so the DPUs
+// past a multiple of R, in the last slot, go to the first warps, spread
+// over the card's SMs).  ops.carry_map mirrors it.
+struct Carry {
+  int n, R, g, per;  // factor, warps that carry, this warp, words a DPU
+  int32_t* mine;     // this warp's shared memory: n DPUs of `per` words
+  unsigned live;     // bit j: slot j holds a DPU
+  int cur;           // the slot whose DPU is in registers (-1: none)
+  __device__ __forceinline__ int32_t* sregs(int j) const {
+    return mine + j * per;
+  }
+  __device__ __forceinline__ int32_t* parked(int j) const {
+    return mine + j * per + (per - PARK_WORDS);
+  }
+};
+
+// Make slot j's DPU the one in registers (`u`, `w`): park the current
+// one, take slot j's out.
+__device__ __forceinline__ void carry_to(Carry& k, int j, const Args& args,
+                                         Warp& w, Dpu& u, Sections& sec) {
+  if (k.cur == j) return;
+  if (k.cur >= 0) park(k.parked(k.cur), u, w.lane);
+  __syncwarp();
+  warp_dpu(args, w, j * k.R + k.g, k.sregs(j),
+           k.sregs(j) + w.T * NREGS);
+  unpark(k.parked(j), u, w.lane);
+  k.cur = j;
+  sec.mark(step_common::S_PARK);
+}
+
+// The resident_carry route: K steps of every DPU as cycle_step_kernel takes
+// them (WRAM in device memory, each step's plan published with an atomicOr
+// and a fence, the DMA-width waits on prog), above the DPUs that route
+// holds, with each resident warp carrying n = args.carry DPUs (Carry).  A
+// DPU the warp is not stepping keeps its lane state parked in shared
+// memory beside its register file and issue plan.
+//
+// Order within a step t: the warp first plans step t of each of its
+// running DPUs and publishes the plans (one atomicOr of their wide bits,
+// one fence, each DPU's prog word), then steps them, the last planned
+// first (so a step costs 2(n - 1) swaps).  Every plan of step t a warp
+// holds is therefore published before any of its DPUs takes step t, and a
+// wide DMA's wait (wide_anywhere) waits only for plans of its own step.
+// Take the DPU furthest behind, at step t: every other warp is at step t
+// or later, so has published its plans of step t (a warp still planning
+// step t never waits), and the DPU waits on nothing unpublished.  So the
+// waits cannot deadlock while every warp is resident (a cooperative
+// launch, refused otherwise).  Phase 1 and 2 are cycle_step_kernel's, a
+// DPU at a time: one vote over the launch gives G, and each carried DPU
+// that stopped early takes its idle steps up to G.
+__global__ void __launch_bounds__(DPB * 32, 4)
+cycle_carry_kernel(const Args args) {
+  const int* c = args.c;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int K = c[C_K];
+  extern __shared__ int32_t smem[];
+  Warp w;
+  warp_consts(args, w);
+  Carry k;
+  k.n = args.carry;
+  k.R = (w.D + k.n - 1) / k.n;
+  k.g = blockIdx.x * DPB + warp;
+  k.per = carry_dpu_words(w.T);
+  k.mine = smem + warp * k.n * k.per;
+  k.live = 0;
+  for (int j = 0; j < k.n; ++j)
+    if (k.g < k.R && j * k.R + k.g < w.D) k.live |= 1u << j;
+  k.cur = -1;
+  Sections sec;
+  sec.begin_launch();
+  Window none;
+  none.ok = none.valid = false;
+  Dpu u;
+
+  // ---- load each carried DPU's state and park it ----
+  for (int j = 0; j < k.n; ++j) {
+    if (!(k.live >> j & 1)) continue;
+    warp_dpu(args, w, j * k.R + k.g, k.sregs(j), k.sregs(j) + w.T * NREGS);
+    read_dpu(args, w, u, true);
+    park(k.parked(j), u, lane);
+  }
+  sec.mark(step_common::S_LOAD);
+
+  // ---- phase 1: each step planned and published for every running
+  // DPU of the warp, then taken by each ----
+  unsigned run = k.live;  // the DPUs still running in phase 1
+  int best = 0;           // max over the warp's DPUs of 2 * stop + running
+  int t = 0;
+  for (; t < K && run; ++t) {
+    unsigned planned = 0;
+    uint32_t bits = 0;
+    for (int j = 0; j < k.n; ++j) {
+      if (!(run >> j & 1)) continue;
+      carry_to(k, j, args, w, u, sec);
+      if (!dpu_running(u, w, c)) {  // it will not run again
+        run &= ~(1u << j);
+        if (lane == 0) {
+          k.parked(j)[N_PARK_LANE * 32 + Q_STOP] = t;
+          __threadfence();
+          *reinterpret_cast<volatile long long*>(args.prog + w.d) = kStopped;
+        }
+        best = max(best, 2 * t);
+        continue;
+      }
+      bits |= plan<R_RESIDENT>(u, w, args);
+      planned |= 1u << j;
+      sec.mark(step_common::S_PLAN);
+    }
+    if (lane == 0 && planned) {
+      if (bits) atomicOr(args.wide + t, bits);
+      __threadfence();
+      for (int j = 0; j < k.n; ++j)
+        if (planned >> j & 1)
+          *reinterpret_cast<volatile long long*>(args.prog + j * k.R + k.g) =
+              args.base + t + 1;
+    }
+    __syncwarp();
+    sec.mark(step_common::S_PLAN);
+    for (int j = k.n - 1; j >= 0; --j) {
+      if (!(planned >> j & 1)) continue;
+      carry_to(k, j, args, w, u, sec);
+      step_dpu<R_RESIDENT>(u, w, args, true, t, none, sec);
+    }
+  }
+  // the DPUs that ran all K steps: still running, or stopped at K
+  for (int j = 0; j < k.n; ++j) {
+    if (!(run >> j & 1)) continue;
+    carry_to(k, j, args, w, u, sec);
+    const bool run_end = dpu_running(u, w, c);
+    if (lane == 0) {
+      k.parked(j)[N_PARK_LANE * 32 + Q_STOP] = K;
+      if (!run_end) {
+        __threadfence();
+        *reinterpret_cast<volatile long long*>(args.prog + w.d) = kStopped;
+      }
+    }
+    best = max(best, 2 * K + run_end);
+  }
+  __syncwarp();
+
+  // ---- G and the predicate: one vote over the launch ----
+  sec.start();
+  const int vote = vote_max(best, args.partial);
+  const int G = vote >> 1;
+  sec.mark(step_common::S_VOTE);
+
+  // ---- phase 2: the DPUs that stopped before G take steps up to it ----
+  for (int j = 0; j < k.n; ++j) {
+    if (!(k.live >> j & 1)) continue;
+    const int stop = k.parked(j)[N_PARK_LANE * 32 + Q_STOP];
+    if (stop >= G) continue;
+    carry_to(k, j, args, w, u, sec);
+    for (int s = stop; s < G; ++s) {
+      sec.start();
+      step_dpu<R_RESIDENT>(u, w, args, false, s, none, sec);
+    }
+  }
+
+  // ---- store each carried DPU back ----
+  sec.start();
+  for (int j = 0; j < k.n; ++j) {
+    if (!(k.live >> j & 1)) continue;
+    carry_to(k, j, args, w, u, sec);
+    store_dpu(args, w, u);
+  }
+  if (blockIdx.x == 0) {
+    // every DPU has passed phase 1: the next launch starts from no votes
+    for (int s = threadIdx.x; s < K; s += blockDim.x) args.wide[s] = 0;
+    if (threadIdx.x == 0) {
+      args.flag[args.parity] = vote & 1;
+      __threadfence_system();
+    }
+  }
+  sec.mark(step_common::S_STORE);
+  sec.end_launch(args.sections, k.live != 0 && lane == 0);
+}
+
 // Stepwise route, the plan launch of step t < K: each running DPU ORs
 // its issue plan's wide bits and kGo into wide[t].  At t == K (after the
 // launch's last step) each running DPU ORs kGo into wide[K] instead.
@@ -1326,6 +1617,8 @@ extern "C" {
 // Limits the Python side checks before it builds a launch.
 int cycle_step_max_slots() { return MAX_SLOTS; }
 int cycle_step_dpus_per_block() { return DPB; }
+int cycle_step_park_words() { return PARK_WORDS; }
+int cycle_step_max_carry() { return MAX_CARRY; }
 int cycle_step_n_leaves() { return N_LEAVES; }
 int cycle_step_n_config() { return N_CFG; }
 int cycle_step_n_fields() { return N_FIELDS; }
@@ -1406,6 +1699,87 @@ int cycle_step_launch_stepwise(const void* argp, void* stream) {
     e = cudaGetLastError();
   }
   return static_cast<int>(e);
+}
+
+// The resident_carry route's dynamic shared memory a block (bytes) for n
+// DPUs a warp of T tasklets.
+int cycle_step_carry_bytes(int n, int T) {
+  const size_t b = carry_route_bytes(n, T);
+  return b > static_cast<size_t>(INT_MAX) ? INT_MAX : static_cast<int>(b);
+}
+
+// What the current device allows cycle_carry_kernel, into out[2]: its
+// blocks an SM with no dynamic shared memory (registers, the block
+// limit) and what a block takes besides its dynamic shared memory (the
+// runtime's reservation and the kernel's static shared memory).  Returns
+// minus the cudaError_t on failure, else 0.
+int cycle_step_carry_limits(int* out) {
+  int dev = 0, reserved = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, cycle_carry_kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, cycle_carry_kernel, DPB * 32, 0);
+  out[1] = reserved + static_cast<int>(attr.sharedSizeBytes);
+  return e == cudaSuccess ? 0 : -static_cast<int>(e);
+}
+
+// Let cycle_carry_kernel take `bytes` of dynamic shared memory (once for
+// each larger size).
+static cudaError_t allow_carry_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      cycle_carry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+// cycle_carry_kernel's blocks an SM with `bytes` of dynamic shared memory
+// (the occupancy the Python side's picker models).  Returns minus the
+// cudaError_t on failure.
+int cycle_step_carry_blocks(int bytes) {
+  int per_sm = 0;
+  cudaError_t e = allow_carry_smem(static_cast<size_t>(bytes));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cycle_carry_kernel, DPB * 32, static_cast<size_t>(bytes));
+  if (e != cudaSuccess) return -static_cast<int>(refused(e));
+  return per_sm;
+}
+
+// Launch K steps over args->c[C_D] DPUs on the resident_carry route:
+// args->carry DPUs a warp, ceil(D / carry) warps in blocks of DPB (the
+// last block's spare warps carry none); an ordinary launch for one block,
+// else a cooperative one (refused unless every block is resident).
+// Returns the cudaError_t as int.
+int cycle_step_launch_carry(const void* argp, void* stream) {
+  const Args* args = static_cast<const Args*>(argp);
+  if (!args_ok(args) || args->carry < 1 || args->carry > MAX_CARRY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int D = args->c[C_D], n = args->carry;
+  const int R = (D + n - 1) / n;
+  const unsigned grid = (R + DPB - 1) / DPB;
+  const size_t smem = carry_route_bytes(n, args->c[C_T]);
+  cudaError_t e = allow_carry_smem(smem);
+  if (e != cudaSuccess) return refused(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grid == 1) {
+    cycle_carry_kernel<<<1, DPB * 32, smem, s>>>(*args);
+  } else {
+    Args copy = *args;
+    void* params[] = {&copy};
+    e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(cycle_carry_kernel), dim3(grid),
+        dim3(DPB * 32), params, smem, s);
+    if (e != cudaSuccess) return refused(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The resident_smem route's shared memory a block (bytes) for T tasklets,

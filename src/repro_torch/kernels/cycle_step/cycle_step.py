@@ -20,6 +20,7 @@ The kernel reads three things besides the state:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -34,12 +35,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "cycle_step.cu",)
 HEADERS = (CSRC.parents[1] / "alu_exec" / "csrc" / "alu_exec.cuh",
            CSRC.parents[1] / "step_common.cuh")
-#: the sections of ``step_common.cuh``'s ``enum Section``: a step's parts
-#: in the order it runs them, a launch's parts outside its steps, then the
-#: steps taken and the launch's cycles
-SECTIONS = ("plan", "dram", "issue", "dma", "classify", "load", "vote",
-            "store", "steps", "launch")
-
 #: state leaves in the kernel's order (``enum Leaf``), which is
 #: ``engine.make_state_np``'s
 LEAVES = (
@@ -65,6 +60,12 @@ CONFIG = (
 #: per block (``DPB``)
 MAX_SLOTS = 8
 DPUS_PER_BLOCK = 4
+#: the resident_carry route: the words a carried DPU's lane state takes
+#: parked in shared memory (``PARK_WORDS``: 13 rows of 32 per-lane words
+#: and 9 words of the DPU's own), and the most DPUs a warp carries
+#: (``MAX_CARRY``)
+PARK_WORDS = 13 * 32 + 9
+MAX_CARRY = 32
 
 #: int32 words per instruction slot of the packed image (``enum Field``):
 #: the 10 rows of ``decode_image``'s ints, the flags, one pad word
@@ -154,17 +155,20 @@ class Args(ctypes.Structure):
                 ("ring_k", ctypes.c_int32),
                 ("c", ctypes.c_int32 * len(CONFIG)),
                 ("inv_bw", ctypes.c_float),
-                ("inv_win", ctypes.c_float)]
+                ("inv_win", ctypes.c_float),
+                ("carry", ctypes.c_int32)]
 
 
 #: how a launch orders the DPUs -> its C launcher: ``"resident_smem"``,
 #: one cooperative launch of K steps, one DPU a block with its WRAM row in
 #: shared memory (as many DPUs as the card holds such blocks at once);
 #: ``"resident"``, the same with WRAM in device memory, four DPUs a block
-#: (at most :func:`max_dpus`); or ``"stepwise"``, a plan and a run launch
-#: a step (any number of DPUs)
+#: (at most :func:`max_dpus`); ``"resident_carry"``, the same with each
+#: resident warp carrying ``Args.carry`` DPUs (``ops.carry_factor``); or
+#: ``"stepwise"``, a plan and a run launch a step (any number of DPUs)
 LAUNCHERS = {"resident_smem": "cycle_step_launch_smem",
              "resident": "cycle_step_launch",
+             "resident_carry": "cycle_step_launch_carry",
              "stepwise": "cycle_step_launch_stepwise"}
 
 #: the kernel's library (``step_driver.StepLibrary``: the plain and the
@@ -172,6 +176,7 @@ LAUNCHERS = {"resident_smem": "cycle_step_launch_smem",
 LIB = StepLibrary(
     "cycle_step", SOURCES, HEADERS,
     layout=dict(max_slots=MAX_SLOTS, dpus_per_block=DPUS_PER_BLOCK,
+                park_words=PARK_WORDS, max_carry=MAX_CARRY,
                 n_leaves=len(LEAVES), n_config=len(CONFIG),
                 n_fields=N_FIELDS, args_bytes=ctypes.sizeof(Args)),
     launchers=LAUNCHERS)
@@ -196,7 +201,41 @@ def max_dpus(n_threads: int) -> int:
     return n
 
 
+def _int_fn(name: str, n_args: int):
+    fn = getattr(library(), name)
+    fn.argtypes, fn.restype = [ctypes.c_int] * n_args, ctypes.c_int
+    return fn
+
+
 def card_limits(n_threads: int) -> RouteLimits:
     """The current device's limits for launches of ``n_threads``
-    tasklets: the resident_smem kernel's and :func:`max_dpus`."""
-    return LIB.card_limits(max_dpus(n_threads))
+    tasklets: the resident_smem kernel's, :func:`max_dpus`, and the
+    resident_carry kernel's blocks an SM and a block's fixed shared
+    memory."""
+    out = (ctypes.c_int * 2)()
+    fn = library().cycle_step_carry_limits
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"cycle_step device query failed: cudaError "
+                           f"{-err}")
+    return dataclasses.replace(LIB.card_limits(max_dpus(n_threads)),
+                               carry_blocks=out[0], carry_extra=out[1])
+
+
+def carry_bytes(n: int, n_threads: int) -> int:
+    """The library's own count of the resident_carry route's dynamic
+    shared memory a block (``ops.carry_bytes`` mirrors it)."""
+    return _int_fn("cycle_step_carry_bytes", 2)(n, n_threads)
+
+
+def carry_blocks(nbytes: int) -> int:
+    """The resident_carry kernel's blocks an SM of the current device with
+    ``nbytes`` of dynamic shared memory, as the card's occupancy query
+    gives them (what ``ops.carry_held`` models).  Raises on a CUDA
+    error."""
+    n = _int_fn("cycle_step_carry_blocks", 1)(nbytes)
+    if n < 0:
+        raise RuntimeError(f"cycle_step occupancy query failed: cudaError "
+                           f"{-n}")
+    return n

@@ -29,21 +29,27 @@ while a DPU's rows fit in a block's shared memory and every block fits
 on the card at once (396 DPUs of 64 KiB WRAM on an H100), else
 ``"resident"`` (the same with WRAM in device memory, four DPUs a block)
 up to :func:`~repro_torch.kernels.cycle_step.cycle_step.max_dpus` DPUs
-(2,112 on an H100), else ``"stepwise"`` (a plan and a run launch a
-step).  All three give the same state bit for bit.
+(2,112 on an H100), else ``"resident_carry"`` (the same with each
+resident warp carrying :func:`carry_factor` DPUs, their lane state
+parked in shared memory: 2 at a full 2,560-DPU system, padded to 4,096)
+while that many DPUs' shared memory fits a block, else ``"stepwise"`` (a
+plan and a run launch a step).  All four give the same state bit for
+bit.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import DPUConfig
 from repro_torch.kernels.cycle_step import cycle_step as k_step
 from repro_torch.kernels.cycle_step.cycle_step import (
-    CONFIG, LAUNCHERS, LEAVES, LIB, MAX_SLOTS, Args, config_fields,
-    leaf_table, pack_image)
+    CONFIG, DPUS_PER_BLOCK, LAUNCHERS, LEAVES, LIB, MAX_CARRY, MAX_SLOTS,
+    PARK_WORDS, Args, config_fields, leaf_table, pack_image)
 from repro_torch.kernels.cycle_step.ref import cycle_step_ref
+from repro_torch.core import isa
 from repro_torch.kernels.step_driver import (RouteLimits, StepDriver,
                                              smem_dpus_of, smem_route_bytes)
 
@@ -97,14 +103,58 @@ def smem_dpus(n_threads: int, wram_words: int, lim: RouteLimits,
                         lim)
 
 
-def route_of(n_dpus: int, smem_held: int, resident_held: int) -> str:
+def carry_bytes(n: int, n_threads: int) -> int:
+    """The resident_carry route's dynamic shared memory a block: four
+    warps, each with ``n`` DPUs' register files, issue plans and parked
+    lane state (``carry_route_bytes`` in the kernel)."""
+    per_dpu = n_threads * isa.N_REGS + MAX_SLOTS * 3 + PARK_WORDS
+    return 4 * DPUS_PER_BLOCK * n * per_dpu
+
+
+def carry_held(n: int, n_threads: int, lim: RouteLimits) -> int:
+    """The most DPUs the resident_carry route holds at once with ``n``
+    DPUs a warp on a card of limits ``lim``: ``n`` times the warps of the
+    blocks every SM holds at once (by registers, and by shared memory);
+    0 when ``n`` DPUs' shared memory does not fit a block."""
+    need = carry_bytes(n, n_threads)
+    if need > lim.smem_block:
+        return 0
+    blocks = min(lim.carry_blocks, lim.smem_sm // (need + lim.carry_extra))
+    return lim.sms * blocks * DPUS_PER_BLOCK * n
+
+
+def carry_factor(n_dpus: int, n_threads: int, lim: RouteLimits) -> int:
+    """The DPUs a warp carries on the resident_carry route: the least
+    ``n`` >= 2 (up to :data:`MAX_CARRY`) whose :func:`carry_held` takes
+    ``n_dpus``, or 0 when none does."""
+    for n in range(2, MAX_CARRY + 1):
+        if carry_bytes(n, n_threads) > lim.smem_block:
+            return 0
+        if n_dpus <= carry_held(n, n_threads, lim):
+            return n
+    return 0
+
+
+def carry_map(n_dpus: int, n: int):
+    """Where the resident_carry kernel keeps each DPU with ``n`` DPUs a
+    warp: ``(R, grid, warp, slot)``: ``R = ceil(n_dpus / n)`` warps carry
+    DPUs, in ``grid`` blocks of four warps; DPU d is slot ``d // R`` of
+    warp ``d % R`` (``warp`` and ``slot``: int64 arrays over the DPUs)."""
+    R = -(-n_dpus // n)
+    d = np.arange(n_dpus, dtype=np.int64)
+    return R, -(-R // DPUS_PER_BLOCK), d % R, d // R
+
+
+def route_of(n_dpus: int, smem_held: int, resident_held: int,
+             carry: int = 0) -> str:
     """``"resident_smem"`` up to ``smem_held`` DPUs, else ``"resident"``
-    up to ``resident_held``, else ``"stepwise"``."""
+    up to ``resident_held``, else ``"resident_carry"`` when some factor
+    ``carry`` > 0 holds them, else ``"stepwise"``."""
     if n_dpus <= smem_held:
         return "resident_smem"
     if n_dpus <= resident_held:
         return "resident"
-    return "stepwise"
+    return "resident_carry" if carry else "stepwise"
 
 
 def pick_route(n_dpus: int, n_threads: int, wram_words: int,
@@ -112,11 +162,12 @@ def pick_route(n_dpus: int, n_threads: int, wram_words: int,
                atomic_words: int = DPUConfig.atomic_bits) -> str:
     """How a launch of ``n_dpus`` DPUs of ``n_threads`` tasklets and
     ``wram_words`` of WRAM runs on a card of limits ``lim``: a pure
-    function, :func:`route_of` with :func:`smem_dpus` and
-    ``lim.resident_dpus``."""
+    function, :func:`route_of` with :func:`smem_dpus`,
+    ``lim.resident_dpus`` and :func:`carry_factor`."""
     return route_of(n_dpus,
                     smem_dpus(n_threads, wram_words, lim, atomic_words),
-                    lim.resident_dpus)
+                    lim.resident_dpus,
+                    carry_factor(n_dpus, n_threads, lim))
 
 
 def launch_route(n_dpus: int, n_threads: int,
@@ -195,6 +246,11 @@ class CycleStep(StepDriver):
 
     def call(self, stream):
         k = self.args.c[self._k]
+        if self.route == "resident_carry" and not self.args.carry:
+            # the picker's factor; asked for below the resident limit, 2;
+            # past what the card holds, 2 and a refused launch
+            D, T = self._dims[:2]
+            self.args.carry = carry_factor(D, T, k_step.card_limits(T)) or 2
         if k + 1 > self.wide.numel():
             self.wide = torch.zeros(k + 1, dtype=torch.int32,
                                     device=self.device)

@@ -1,8 +1,9 @@
 // What the step kernels' shared-memory routes share (cycle_step.cu,
-// simt_step.cu): the bulk copies that bring a DPU's WRAM and atomics row
-// into shared memory at a launch's start and take them back at its end,
-// the power-of-two forms of torch's floor division and remainder, and the
-// per-section clock counters of a profiling build.
+// simt_step.cu, crf_step.cu): the bulk copies that bring a DPU's rows
+// (WRAM and atomics, or a bank's staged MRAM rows) into shared memory at a
+// launch's start and take them back at its end, the power-of-two forms of
+// torch's floor division and remainder, and the per-section clock
+// counters of a profiling build.
 #pragma once
 
 #include <cstdint>
@@ -43,6 +44,29 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// One thread: arm `bar` (count 1) for `total` bytes of bulk copies.
+__device__ __forceinline__ void bulk_arm(uint32_t bar, uint32_t total) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(total)
+               : "memory");
+}
+
+// One thread, after bulk_arm: start the copy of `bytes` (a multiple of 16,
+// both addresses 16-byte aligned) from global `src` to shared `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_copy_in(uint32_t bar, uint32_t dst,
+                                             const void* src,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // One thread: arm `bar` (count 1) for `bytes`, then start the copies of
 // `n` rows (global src[i] -> shared dst[i], bytes[i] each, multiples of
 // 16 at 16-byte-aligned addresses).  The warp then waits in bulk_wait.
@@ -52,20 +76,9 @@ __device__ __forceinline__ void bulk_load(uint32_t bar, int n,
                                           const uint32_t* bytes) {
   uint32_t total = 0;
   for (int i = 0; i < n; ++i) total += bytes[i];
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(total)
-               : "memory");
-  for (int i = 0; i < n; ++i) {
-    if (bytes[i] == 0) continue;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];" ::"r"(dst[i]),
-        "l"(reinterpret_cast<uint64_t>(src[i])), "r"(bytes[i]), "r"(bar)
-        : "memory");
-  }
+  bulk_arm(bar, total);
+  for (int i = 0; i < n; ++i)
+    if (bytes[i] != 0) bulk_copy_in(bar, dst[i], src[i], bytes[i]);
 }
 
 // Returns once the copies armed on `bar` (its first phase) have landed.
@@ -88,6 +101,21 @@ __device__ __forceinline__ void bulk_store_fence() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// One thread: start the copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from shared `src` to global `dst` in the current bulk
+// group.
+__device__ __forceinline__ void bulk_copy_out(void* dst, uint32_t src,
+                                              uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// One thread: close the bulk group of the copies started so far.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
 // One thread: start the copies of `n` shared rows back to device memory
 // (one bulk group); the same thread waits in bulk_store_wait before the
 // block ends.  The launch's end makes the writes visible to the next
@@ -95,14 +123,9 @@ __device__ __forceinline__ void bulk_store_fence() {
 __device__ __forceinline__ void bulk_store(int n, void* const* dst,
                                            const uint32_t* src,
                                            const uint32_t* bytes) {
-  for (int i = 0; i < n; ++i) {
-    if (bytes[i] == 0) continue;
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                 ::"l"(reinterpret_cast<uint64_t>(dst[i])), "r"(src[i]),
-                 "r"(bytes[i])
-                 : "memory");
-  }
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  for (int i = 0; i < n; ++i)
+    if (bytes[i] != 0) bulk_copy_out(dst[i], src[i], bytes[i]);
+  bulk_commit();
 }
 
 // Returns once bulk_store's copies have read their shared rows (the block
@@ -113,13 +136,15 @@ __device__ __forceinline__ void bulk_store_wait() {
 
 // ---- per-section clock counters (a build with STEP_SECTIONS only) ----
 
-// sections of a simulated step, in the order a step runs them; then the
-// parts of a launch outside its steps (loading the DPU's state, waiting
-// at the launch's vote, storing it back), the steps taken and the cycles
-// of the whole launch
+// sections of a simulated step, in the order a step runs them, and the
+// swaps of a warp that carries several DPUs (parking one DPU's lane state
+// in shared memory, taking the next one's out); then the parts of a
+// launch outside its steps (loading the DPU's state, waiting at the
+// launch's vote, storing it back), the steps taken and the cycles of the
+// whole launch
 enum Section {
-  S_PLAN, S_DRAM, S_ISSUE, S_DMA, S_CLASSIFY, S_LOAD, S_VOTE, S_STORE,
-  S_STEPS, S_LAUNCH, N_SECTIONS
+  S_PLAN, S_DRAM, S_ISSUE, S_DMA, S_CLASSIFY, S_PARK, S_LOAD, S_VOTE,
+  S_STORE, S_STEPS, S_LAUNCH, N_SECTIONS
 };
 
 // Each lane keeps its own sums (every lane runs the same chain); lane 0

@@ -1,10 +1,10 @@
 """What the step kernels' drivers share: a launch's state on the card,
 checked once (every leaf's device, dtype, shape and contiguity), advanced
 K steps a launch, the predicate read from a flag the kernel writes; and,
-for the kernels with routes (``cycle_step``, ``simt_step``), their
-library (:class:`StepLibrary`), a resident_smem block's shared memory
-(:func:`smem_route_bytes`) and the card's limits on it
-(:class:`RouteLimits`, :func:`smem_dpus_of`).
+for the kernels with routes (``cycle_step``, ``simt_step``,
+``crf_step``), their library (:class:`StepLibrary`), a resident_smem
+block's shared memory (:func:`smem_route_bytes`) and the card's limits on
+it (:class:`RouteLimits`, :func:`smem_dpus_of`).
 
 A subclass names its kernel (``name``), its routes (``ROUTES``, in the
 order its picker prefers them), its leaves and their table (``LEAVES``,
@@ -44,6 +44,12 @@ FLAGS = ("-Xptxas", "-v")
 #: per section of a step (``step_common.cuh``'s ``enum Section``) into
 #: ``Args.sections``
 SECTIONS_FLAG = "-DSTEP_SECTIONS"
+#: the sections of ``step_common.cuh``'s ``enum Section``: a step's parts
+#: in the order it runs them and the swaps of a warp that carries several
+#: DPUs, a launch's parts outside its steps, then the steps taken and the
+#: launch's cycles
+SECTIONS = ("plan", "dram", "issue", "dma", "classify", "park", "load",
+            "vote", "store", "steps", "launch")
 
 
 @dataclass(frozen=True)
@@ -55,7 +61,9 @@ class RouteLimits:
     reservation and the kernel's static shared memory), the blocks of that
     kernel an SM holds at most for its registers and the block limit, and
     (``cycle_step`` only) the DPUs its global-WRAM resident route holds at
-    once."""
+    once, and its resident_carry kernel's blocks an SM for its registers
+    and the block limit and what a block of it takes besides its dynamic
+    shared memory."""
 
     sms: int
     smem_block: int
@@ -63,6 +71,8 @@ class RouteLimits:
     smem_extra: int
     smem_blocks: int
     resident_dpus: int = 0
+    carry_blocks: int = 0
+    carry_extra: int = 0
 
 
 #: an H100 SXM's limits, as its CUDA device attributes and occupancy
@@ -71,11 +81,14 @@ class RouteLimits:
 #: SMs, 227 KiB of opt-in shared memory a block, 228 KiB an SM, 1 KiB
 #: reserved a block plus the cycle step's 32 bytes of static shared memory
 #: (the SIMT kernel's 16), 16 blocks an SM of either resident_smem kernel
-#: for their registers, and the cycle step's resident route's 2,112 DPUs
-#: (132 SMs x 4 blocks x 4 DPUs).  What the CPU tests hold the route
-#: pickers to.
+#: for their registers, the cycle step's resident route's 2,112 DPUs
+#: (132 SMs x 4 blocks x 4 DPUs), and its resident_carry kernel's 4
+#: blocks an SM (128 registers a thread) and 1 KiB reserved a block plus
+#: its 16 bytes of static shared memory (the launch's vote).  What the
+#: CPU tests hold the route pickers to.
 H100 = RouteLimits(sms=132, smem_block=232448, smem_sm=233472,
-                   smem_extra=1024 + 32, smem_blocks=16, resident_dpus=2112)
+                   smem_extra=1024 + 32, smem_blocks=16, resident_dpus=2112,
+                   carry_blocks=4, carry_extra=1024 + 16)
 
 
 def smem_route_bytes(n_threads: int, wram_words: int, atomic_words: int,
@@ -107,7 +120,8 @@ class StepLibrary:
     the Python side: ``layout`` maps each ``<name>_<key>()`` the library
     exports to the value it must return, ``launchers`` maps each route to
     its C launcher, ``int f(const Args*, cudaStream_t)``.  Every library
-    also exports ``<name>_smem_bytes(T, W, A)`` and
+    also exports ``<name>_smem_bytes`` of three ints (T, W, A for the
+    DPU kernels; P, rows, W for ``crf_step``) and
     ``<name>_card_limits(int out[5])``."""
 
     def __init__(self, name: str, sources: Sequence, headers: Sequence,
@@ -154,12 +168,11 @@ class StepLibrary:
             raise RuntimeError(f"{self.name} kernel launch ({route}) "
                                f"failed: cudaError {err}")
 
-    def smem_bytes(self, n_threads: int, wram_words: int,
-                   atomic_words: int) -> int:
+    def smem_bytes(self, *sizes: int) -> int:
         """The library's own count of a resident_smem block's dynamic
-        shared memory (bytes), which :func:`smem_route_bytes` mirrors."""
-        return getattr(self.load(), f"{self.name}_smem_bytes")(
-            n_threads, wram_words, atomic_words)
+        shared memory (bytes) for its three sizes, which the Python side
+        mirrors (:func:`smem_route_bytes`, ``crf_step.smem_bytes``)."""
+        return getattr(self.load(), f"{self.name}_smem_bytes")(*sizes)
 
     def card_limits(self, resident_dpus: int = 0) -> RouteLimits:
         """The current CUDA device's :class:`RouteLimits` for the

@@ -128,7 +128,7 @@ def _step_case_names():
     return sorted(cases.CASES) + ["cache_va"]
 
 
-STEP_ROUTES = ["resident_smem", "resident", "stepwise"]
+STEP_ROUTES = ["resident_smem", "resident", "resident_carry", "stepwise"]
 
 
 @pytest.mark.cuda
@@ -138,7 +138,9 @@ STEP_ROUTES = ["resident_smem", "resident", "stepwise"]
 def test_cycle_step_matches_eager_card_step(card, name, k, route):
     """Every leaf bitwise after 1, 7 and all steps, ``k`` steps a launch,
     on each route: one launch per K-block (or checkpoint), no ALU launch
-    inside them.  The cases' launches take resident_smem by themselves."""
+    inside them.  The cases' launches take resident_smem by themselves;
+    resident_carry, asked for by name at their few DPUs, carries two DPUs
+    a warp."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
     before = cs_ops.launches
@@ -179,10 +181,10 @@ def test_cycle_step_dpu_counts_agree(card, n_dpus):
 @pytest.mark.parametrize("n_dpus", ["limit+1", 2560])
 def test_cycle_step_runs_more_dpus_than_resident(card, n_dpus):
     """Above the resident limit (max_dpus: every block of the cooperative
-    launch at once) a launch takes the stepwise route by itself, a plan
-    and a run launch a step, and is bitwise the eager card step: cross_dpu
-    at one DPU past the limit and at a full 2,560-DPU UPMEM system (both
-    padded to 4,096)."""
+    launch at once) a launch takes the resident_carry route by itself,
+    two DPUs a warp, and is bitwise the eager card step, as is the
+    stepwise route asked for by name: cross_dpu at one DPU past the limit
+    and at a full 2,560-DPU UPMEM system (both padded to 4,096)."""
     from repro_torch.kernels.cycle_step import cases
     from repro_torch.kernels.cycle_step import ops as cs_ops
     from repro_torch.kernels.cycle_step.cycle_step import card_limits
@@ -193,13 +195,42 @@ def test_cycle_step_runs_more_dpus_than_resident(card, n_dpus):
     n = limit + 1 if n_dpus == "limit+1" else n_dpus
     assert n > limit
     for D in (n, compile_cache.dpu_bucket(n)):
-        assert cs_ops.launch_route(D, 4) == "stepwise"
+        assert cs_ops.launch_route(D, 4) == "resident_carry"
         assert cs_ops.pick_route(D, 4, DPUConfig().wram_words,
-                                 card_limits(4)) == "stepwise"
+                                 card_limits(4)) == "resident_carry"
+    assert cs_ops.carry_factor(compile_cache.dpu_bucket(n), 4,
+                               card_limits(4)) == 2
     res = cases.hold_against_plain(cases.launch("cross_dpu", n), 64,
-                                   device=card)
-    assert res["route"] == "stepwise"
+                                   device=card,
+                                   routes=("resident_carry", "stepwise"))
+    assert res["routes"] == ["resident_carry", "stepwise"]
     assert res["alu_launches"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [2, 3])
+def test_cycle_step_carries_n_dpus_a_warp(card, factor):
+    """cross_dpu unpadded at twice the resident limit L (n = 2: every
+    resident warp carries two DPUs) and at 2L + 1 (n = 3), on the route
+    the picker takes by itself, bitwise the eager card step; the
+    picker's model of the carried kernel's blocks an SM is the card's
+    occupancy query at each factor's shared memory."""
+    from repro_torch.kernels.cycle_step import cases
+    from repro_torch.kernels.cycle_step import cycle_step as k_step
+    from repro_torch.kernels.cycle_step import ops as cs_ops
+    lim = k_step.card_limits(4)
+    L = k_step.max_dpus(4)
+    for n in (2, 3, 4):
+        need = cs_ops.carry_bytes(n, 4)
+        assert k_step.carry_bytes(n, 4) == need
+        assert cs_ops.carry_held(n, 4, lim) == (
+            lim.sms * k_step.carry_blocks(need) * k_step.DPUS_PER_BLOCK * n)
+    D = 2 * L + (factor == 3)
+    assert cs_ops.launch_route(D, 4) == "resident_carry"
+    assert cs_ops.carry_factor(D, 4, lim) == factor
+    res = cases.hold_against_plain(cases.launch("cross_dpu", D), 64,
+                                   device=card, dpus=D)
+    assert res["route"] == "resident_carry"
 
 
 @pytest.mark.cuda
@@ -281,7 +312,8 @@ def test_route_picker_mirrors_the_card(card, T):
         sheld = smem_dpus_of(simt_ops.smem_bytes(T, W), slim)
         assert (held > 0) == (sheld > 0) == (W == 16384)
         for D in (1, held, held + 1, lim.resident_dpus,
-                  lim.resident_dpus + 1):
+                  lim.resident_dpus + 1, 2 * lim.resident_dpus,
+                  2 * lim.resident_dpus + 1):
             assert cs_ops.launch_route(D, T, W) \
                 == cs_ops.pick_route(D, T, W, lim)
             assert simt_ops.launch_route(D, T, W) \
@@ -576,12 +608,40 @@ def test_simt_step_matches_plain_version(card, name, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["resident_smem", "global"])
 @pytest.mark.parametrize("name", sorted(crf_cases.CASES))
-def test_crf_step_matches_plain_version(card, name):
+def test_crf_step_matches_plain_version(card, name, route):
+    """Every leaf bitwise after 1, 7 and all commands on each route (the
+    cases take resident_smem by themselves); resident_smem is one counted
+    launch a K-block."""
+    from repro_torch.kernels.crf_step import ops as crf_ops
+    before = crf_ops.launches
     res = step_cases.hold_against_plain(crf_cases.launch(name), 4,
                                         device="cuda",
-                                        edit=crf_cases.edit_of(name))
+                                        edit=crf_cases.edit_of(name),
+                                        routes=None if route == "resident_smem"
+                                        else (route,))
     assert res["kernel"] == "CrfStep" and res["launches"] >= 2
+    assert res["route"] == route
+    assert crf_ops.launches - before == res["launches"]
+
+
+@pytest.mark.cuda
+def test_crf_route_picker_mirrors_the_card(card):
+    """The CRF kernel's own shared-memory count equals the picker's
+    mirror, and the route a launch takes is the pure picker over the
+    card's limits."""
+    from repro_torch.kernels.crf_step import crf_step as k_crf
+    from repro_torch.kernels.crf_step import ops as crf_ops
+    lim = k_crf.card_limits()
+    for P, rows, W in ((64, 3, 16), (1024, 1134, 16), (2048, 5000, 32)):
+        assert k_crf.LIB.smem_bytes(P, rows, W) == k_crf.smem_bytes(P, rows,
+                                                                    W)
+        held = crf_ops.smem_banks(P, rows, W, lim)
+        for D in (1, 64, held, held + 1):
+            assert crf_ops.launch_route(D, P, rows, W) \
+                == crf_ops.pick_route(D, P, rows, W, lim)
+    assert crf_ops.smem_banks(1024, 1134, 16, lim) >= 64
 
 
 @pytest.mark.cuda

@@ -26,12 +26,19 @@ driven on each, in turns (old, new, new, old):
 per section of a step) and prints the SM cycles a DPU-step of each
 section, and a launch's cycles outside the steps (loading the state,
 waiting at the launch's vote, storing it back, the rest): ``cycle_step`` on both
-resident routes at VA's launch, and ``simt_step`` on both of its routes
-at Fig. 11 SIMT+AC's launch (GEMV).  The build the driver and
-chip_smoke.py use never has the define.  Prints one JSON line.
+resident routes at VA's launch and on ``resident_carry`` at VA's launch
+on a full 2,560-DPU system (``--carry-scale``; padded to 4,096, two DPUs
+a warp: its swaps are the ``park`` section), ``simt_step`` on both of its
+routes at Fig. 11 SIMT+AC's launch (GEMV), and ``crf_step`` on both of
+its routes at GEMVS's first full-width command stream (its sections:
+fetch and decode, operand reads, compute and writeback, control flow and
+counters; the global route's tail launch is not counted).  The build the
+step driver and chip_smoke.py use never has the define.  Prints one JSON
+line.
 
     python3 tools/torch_step_profile.py [--blocks 100] [--scale 1.0]
     python3 tools/torch_step_profile.py --sections [--blocks 100]
+                                        [--carry-scale 0.05]
 
 History: before the fused kernel the card replayed each step as
 CUDA-graph segments around one ALU launch per issue slot: 0.51-0.575 ms
@@ -54,6 +61,14 @@ ROOT = Path(__file__).resolve().parents[1]
 STEP_ROUTES = ("resident", "resident_smem")
 #: simt_step's routes, old then new
 SIMT_ROUTES = ("global", "resident_smem")
+#: crf_step's routes, old then new
+CRF_ROUTES = ("global", "resident_smem")
+#: crf_step's names for the step sections it marks (step_common.cuh's
+#: enum Section, which names a cycle step's)
+CRF_SECTIONS = {"plan": "fetch", "dram": "read", "issue": "write",
+                "classify": "control"}
+#: DPUs of a full UPMEM system (the resident_carry route's profile)
+FULL_SYSTEM_DPUS = 2560
 
 
 def busy_us(events, lo: float, hi: float) -> float:
@@ -74,9 +89,11 @@ def busy_us(events, lo: float, hi: float) -> float:
     return total
 
 
-def record_launch(cfg, workload: str, tasklets: int, scale: float):
+def record_launch(cfg, workload: str, tasklets: int, scale: float,
+                  first: bool = False):
     """The arguments ``workload``'s one launch on a card system of
-    ``cfg`` hands to ``compile_cache.run``."""
+    ``cfg`` hands to ``compile_cache.run`` (``first``: of its first
+    launch, where it makes several)."""
     import repro_torch.workloads as wl
     from repro_torch.core import compile_cache
     from repro_torch.core.host import PIMSystem
@@ -93,7 +110,7 @@ def record_launch(cfg, workload: str, tasklets: int, scale: float):
                              scale=scale, seed=0)
     finally:
         compile_cache.run = run
-    if len(calls) != 1:
+    if len(calls) != 1 and not (first and calls):
         raise SystemExit(f"torch_step_profile: {workload} made {len(calls)} "
                          "launches, expected 1")
     return calls[0]
@@ -145,13 +162,16 @@ def profile_route(prep, K: int, blocks: int) -> dict:
     return res
 
 
-def sections_of(make_kernel, routes, K: int, blocks: int) -> dict:
+def sections_of(make_kernel, routes, K: int, blocks: int,
+                names=None) -> dict:
     """SM cycles a DPU-step of each section, and a DPU-launch's cycles
     outside its steps, for each route: ``make_kernel(route, buf)`` sets a
     launch up on the profiling build, adding into ``buf``; warm blocks
-    first, then ``blocks`` K-step launches counted."""
+    first, then ``blocks`` K-step launches counted.  ``names``: the
+    kernel's own names of some step sections."""
     import torch
-    from repro_torch.kernels.cycle_step.cycle_step import SECTIONS
+    from repro_torch.kernels.step_driver import SECTIONS
+    names = names or {}
     out = {}
     for r in routes:
         buf = torch.zeros(len(SECTIONS), dtype=torch.int64, device="cuda")
@@ -166,19 +186,26 @@ def sections_of(make_kernel, routes, K: int, blocks: int) -> dict:
         if not kern.predicate():
             raise SystemExit(f"torch_step_profile: the launch ended inside "
                              f"{r}'s window: run a larger --scale")
-        acc = dict(zip(SECTIONS, buf.tolist()))
+        acc = {names.get(k, k): v for k, v in zip(SECTIONS, buf.tolist())}
         D = int(kern.st["status"].shape[0])
+        # a launch's parts are counted once a warp: a DPU, or on
+        # resident_carry the warps that carry DPUs
+        leads = D
+        if kern.route == "resident_carry":
+            from repro_torch.kernels.cycle_step.ops import carry_map
+            leads = carry_map(D, kern.args.carry)[0]
         steps, launch = acc.pop("steps"), acc.pop("launch")
         parts = {s: acc.pop(s) for s in ("load", "vote", "store")}
         per_step = {s: v / steps for s, v in acc.items()}
-        per_launch = {s: v / (D * blocks) for s, v in parts.items()}
+        per_launch = {s: v / (leads * blocks) for s, v in parts.items()}
         per_launch["other"] = (launch - sum(acc.values())
-                               - sum(parts.values())) / (D * blocks)
+                               - sum(parts.values())) / (leads * blocks)
         out[r] = {"cycles_per_dpu_step": per_step,
                   "step_cycles": sum(per_step.values()),
-                  "cycles_per_dpu_launch_outside_steps": per_launch,
-                  "launch_cycles": launch / (D * blocks),
-                  "dpu_steps_per_launch": steps / blocks, "dpus": D}
+                  "cycles_per_warp_launch_outside_steps": per_launch,
+                  "launch_cycles": launch / (leads * blocks),
+                  "dpu_steps_per_launch": steps / blocks, "dpus": D,
+                  "warps": leads}
     return out
 
 
@@ -193,6 +220,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tasklets", type=int, default=16)
     ap.add_argument("--sections", action="store_true",
                     help="the per-section cycle split (profiling build)")
+    ap.add_argument("--carry-scale", type=float, default=0.05,
+                    help="VA's scale on the 2,560-DPU system (--sections)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -229,6 +258,31 @@ def main(argv=None) -> int:
                               f"{args.tasklets} tasklets scale {args.scale}")
         res["simt_step"] = sections_of(simt_kernel, SIMT_ROUTES, K,
                                        args.blocks)
+        # resident_carry: VA's launch on a full system (two DPUs a warp)
+        from repro_torch.kernels.cycle_step import cases
+        va = cases.va(FULL_SYSTEM_DPUS, args.carry_scale)
+
+        def carry_kernel(route, buf):
+            prep = compile_cache.prepare(*va, device=torch.device("cuda"))
+            return prep.kernel.like(prep.st, route, sections=buf)
+
+        res["carry_config"] = (f"VA {FULL_SYSTEM_DPUS} DPUs x 16 tasklets "
+                               f"scale {args.carry_scale}")
+        res["cycle_step_carry"] = sections_of(
+            carry_kernel, ("resident_carry",), K, args.blocks)
+        # GEMVS's first command stream on hbmpim_cmd (16 K-blocks)
+        ccfg = cfg.replace(backend="hbmpim_cmd")
+        ca, ckw = record_launch(ccfg, "GEMVS", args.tasklets, 1.0,
+                                first=True)
+
+        def crf_kernel(route, buf):
+            prep = compile_cache.prepare(*ca, **ckw)
+            return prep.kernel.like(prep.st, route, sections=buf)
+
+        res["crf_config"] = (f"GEMVS hbmpim_cmd {cfg.n_dpus} banks, first "
+                             "command stream")
+        res["crf_step"] = sections_of(crf_kernel, CRF_ROUTES, K,
+                                      min(args.blocks, 10), CRF_SECTIONS)
     else:
         preps = {r: compile_cache.prepare(*a, **kw) for r in STEP_ROUTES}
         for r, prep in preps.items():       # the route asked for
