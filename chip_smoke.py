@@ -108,7 +108,26 @@ Phases (any failure exits non-zero and prints no result line):
              beside the same configuration's on 64 DPUs; then BFS (6
              launches and collectives) at 2,560 DPUs on resident_carry
              and on stepwise: state, KernelReport and Timeline equal;
-10. report — the kernels line (launches, times, bounds; each step
+10. cluster — the cluster, admission and trace stack: (a)
+             benchmarks/cluster_load.py's system (8 ranks x 4 DPUs) with
+             measured profiles (BFS, HST-S, SSORT on a 4-DPU, 8-tasklet
+             rank at scale 0.05, through cycle_step under their oracles),
+             both policies at 0 and 2% faults: profiles and reports equal
+             to goldens.json's cluster goldens exactly; (b) 8 ranks x 32
+             DPUs, profiles of a 32-DPU rank at scale 0.375 (each kind's
+             wall, cycle_step launches and set-up share), the report equal
+             between inorder and async, across two runs and after a
+             journaled run killed and resumed, both policies' scorecards,
+             benchmarks/torch_cluster_load.py's gate; (c) BFS at full
+             width recorded, saved as JSONL, loaded and replayed: the
+             Timeline equal bitwise, a what-if replay; every workload's
+             g4 recording of [workloads] (a) replayed equal to its golden
+             Timeline; (d) in [lm], on the loaded llama3-8b: a ServeEngine
+             whose PIM pool is a 2-rank lease of examples/serve_lm.py's
+             cluster gives the pool-free tokens, one decode launch a tick;
+             the lease's DPUs disabled mid-stream: decoded on the host,
+             no request lost;
+11. report — the kernels line (launches, times, bounds; each step
              kernel's routes), the card's name and power limit, and the
              result line.
 
@@ -701,13 +720,30 @@ def phase_main_path(scale: float) -> dict:
 #: SSORT, whose sample sort on 32 DPUs gives some DPU more than its
 #: merge buffer (sort.MERGE_MAX_WORDS) above 0.375 (cuts: PERF.md §4)
 FULL_SCALE = {"SSORT": 0.375}
+#: the golden configuration whose runs [workloads] (a) records and
+#: [cluster] (c) replays
+TRACE_KEY = "g4"
 
 
-def _golden_runs(gold) -> int:
+def _recording(system_cls, recordings: dict, name: str):
+    """A ``system_cls`` factory that attaches a trace recorder to the
+    system it makes, keeping (system, recorder) as ``recordings[name]``."""
+    from repro_torch import trace
+
+    def make(cfg, **kw):
+        system = system_cls(cfg, **kw)
+        recordings[name] = (system, trace.record(system))
+        return system
+    return make
+
+
+def _golden_runs(gold, recordings: dict) -> int:
     """(a) every workload at the scalar DPU's golden configurations
     (``goldens.SCALAR_KEYS``; the SIMT and HBM-PIM ones are [simt]'s), and
     the remap scenario, on the card: each must equal its JAX-made golden exactly
-    and launch cycle_step.  Returns the runs."""
+    and launch cycle_step.  The runs at TRACE_KEY are recorded into
+    ``recordings`` (name -> (system, recorder)) for [cluster] (c).
+    Returns the runs."""
     import repro_torch.workloads as wl
     from repro_torch.core.config import DPUConfig
     from repro_torch.core.host import PIMSystem
@@ -719,7 +755,9 @@ def _golden_runs(gold) -> int:
         t0 = time.perf_counter()
         for name in sorted(wl.ALL):
             l0 = step_ops.launches
-            rep, system, st = goldens.run_config(wl, DPUConfig, PIMSystem,
+            system_cls = (_recording(PIMSystem, recordings, name)
+                          if key == TRACE_KEY else PIMSystem)
+            rep, system, st = goldens.run_config(wl, DPUConfig, system_cls,
                                                  key, name, device="cuda")
             bad = goldens.differences(gold["entries"][key][name],
                                       goldens.entry(rep, system, st))
@@ -745,16 +783,10 @@ def _golden_runs(gold) -> int:
     return runs + 1
 
 
-def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
-    """Workload ``name`` on a card system of ``cfg``, its numpy oracle
-    inside ``run()``: the wall, the simulation rate, the launches of the
-    ``kernel`` counter, the driver's launches, and the share of the wall
-    spent outside the driver's K-step loops (set-up: the state and MRAM
-    image to the card and back, the host's work)."""
-    import torch
-    import repro_torch.workloads as wl
+def _driver_timer():
+    """(inside seconds list, restore): ``compile_cache._drive`` timed into
+    the list until ``restore()``; the rest of a run's wall is set-up."""
     from repro_torch.core import compile_cache
-    mod, attr = _counters()[kernel]
     inside = [0.0]
     drive = compile_cache._drive
 
@@ -765,10 +797,27 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
         finally:
             inside[0] += time.perf_counter() - t
 
+    compile_cache._drive = timed_drive
+
+    def restore():
+        compile_cache._drive = drive
+    return inside, restore
+
+
+def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
+    """Workload ``name`` on a card system of ``cfg``, its numpy oracle
+    inside ``run()``: the wall, the simulation rate, the launches of the
+    ``kernel`` counter, the driver's launches, and the share of the wall
+    spent outside the driver's K-step loops (set-up: the state and MRAM
+    image to the card and back, the host's work)."""
+    import torch
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    mod, attr = _counters()[kernel]
     system = _system(cfg, "cuda")
     s0 = compile_cache.stats()
     l0, i0 = getattr(mod, attr), mod.idle_launches
-    compile_cache._drive = timed_drive
+    inside, restore = _driver_timer()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -776,7 +825,7 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        compile_cache._drive = drive
+        restore()
     s1 = compile_cache.stats()
     steps = s1["steps"] - s0["steps"]
     res = {"workload": name, "dpus": cfg.n_dpus, "scale": scale,
@@ -816,7 +865,8 @@ def phase_workloads() -> dict:
     import repro_torch.workloads as wl
     from repro_torch.workloads import goldens
     t0 = time.perf_counter()
-    runs = _golden_runs(goldens.load())
+    recordings = {}
+    runs = _golden_runs(goldens.load(), recordings)
     full = []
     for name in sorted(wl.ALL):
         res = _full_width_run(name, FULL_SCALE.get(name, 1.0))
@@ -825,7 +875,8 @@ def phase_workloads() -> dict:
     secs = time.perf_counter() - t0
     log(f"[workloads] {runs} golden runs and {len(full)} full-width runs "
         f"({secs:.1f} s)")
-    return {"golden_runs": runs, "full": full, "seconds": secs}
+    return {"golden_runs": runs, "full": full, "seconds": secs,
+            "recordings": recordings}
 
 
 #: commands a launch in [simt]'s crf_step cases (the cases are short)
@@ -1381,6 +1432,318 @@ def phase_system() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the cluster, admission and trace stack
+# ---------------------------------------------------------------------------
+
+#: [cluster] (b): the cluster at full width, 8 ranks of 32 DPUs, each
+#: profile one 32-DPU, 8-tasklet, 2 MiB rank at scale 0.375: the widest
+#: rank and largest scale at which all three kinds run (SSORT takes at
+#: most 32 DPUs and, at 32, scale 0.375: PERF.md §4)
+CLUSTER_FULL_SYSTEM = dict(n_dpus=256, n_ranks=8, n_channels=4,
+                           mram_bytes=1 << 20)
+CLUSTER_FULL_SCALE = 0.375
+#: journaled step outcomes before [cluster] (b)'s simulated crash
+CLUSTER_CRASH_AFTER = 12
+#: [cluster] (d): examples/serve_lm.py's cluster and lease
+LEASE_SYSTEM = dict(n_dpus=32, n_ranks=8, n_channels=4, mram_bytes=1 << 20)
+LEASE_RANKS = 2
+
+
+def _run_cluster(policy: str, rate: float, config=None, **kw):
+    """goldens.run_cluster on the card with the port's classes."""
+    import repro_torch.cluster as cluster
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.faults import FaultPlan
+    from repro_torch.workloads import goldens
+    return goldens.run_cluster(cluster, DPUConfig, PIMSystem, FaultPlan,
+                               policy, rate, config=config or goldens.CLUSTER,
+                               device="cuda", **kw)
+
+
+def _scorecard(rep: dict) -> dict:
+    m = rep["metrics"]
+    return {"jobs": m["jobs"], "completed": m["completed"],
+            "p50_ms": m["p50_latency"] * 1e3,
+            "p99_ms": m["p99_latency"] * 1e3, "goodput": rep["goodput"],
+            "utilization": rep["utilization"]}
+
+
+def _cluster_goldens() -> dict:
+    """(a) goldens.CLUSTER on the card: measured profiles (BFS, HST-S,
+    SSORT through cycle_step, each under its oracle) and each (policy,
+    fault rate)'s report must equal the JAX package's goldens exactly."""
+    from repro_torch.workloads import goldens
+    gold = goldens.load()["cluster"]
+    reset_launches()                       # counts of this path only
+    t0 = time.perf_counter()
+    got = goldens.cluster_entries(_run_cluster)
+    secs = time.perf_counter() - t0
+    launches, idle = read_launches(), read_idle()
+    got = json.loads(json.dumps(got))
+    bad = [k for k in gold["runs"] if got["runs"].get(k) != gold["runs"][k]]
+    bad += [f"profile {k}" for k in gold["profiles"]
+            if got["profiles"].get(k) != gold["profiles"][k]]
+    check(not bad, f"[cluster] goldens differ in {bad}")
+    check(launches["cycle_step"] > idle["cycle_step"]
+          and launches["alu_exec"] == 0,
+          f"[cluster] the measured profiles launched {launches}")
+    out = {"runs": len(got["runs"]), "seconds": secs,
+           "cycle_step_launches": launches["cycle_step"],
+           "idle_launches": idle["cycle_step"],
+           "scorecards": {k: _scorecard(v) for k, v in got["runs"].items()}}
+    log("[cluster] (a) goldens.CLUSTER on the card (8 ranks x 4 DPUs, "
+        "measured profiles of 4 DPUs x 8 tasklets at scale "
+        f"{goldens.CLUSTER['profile_scale']}): the profiles of "
+        f"{', '.join(goldens.CLUSTER_KINDS)} and all {out['runs']} "
+        "(policy, fault rate) reports equal to goldens.json: "
+        + json.dumps(out))
+    return out
+
+
+def _measured_full_width(kind: str) -> dict:
+    """One kind's profile measured at [cluster] (b)'s rank on the card,
+    under its oracle: its wall, cycle_step launches (counted over this
+    measurement alone) and the share of the wall outside the driver's
+    K-block loops."""
+    import torch
+    from repro_torch.cluster import measure_profile
+    from repro_torch.core import compile_cache
+    per_rank = (CLUSTER_FULL_SYSTEM["n_dpus"]
+                // CLUSTER_FULL_SYSTEM["n_ranks"])
+    inside, restore = _driver_timer()
+    s0 = compile_cache.stats()
+    reset_launches()                       # counts of this path only
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = measure_profile(kind, n_dpus=per_rank,
+                               scale=CLUSTER_FULL_SCALE, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches, idle = read_launches(), read_idle()
+    s1 = compile_cache.stats()
+    steps = s1["steps"] - s0["steps"]
+    res = {"kind": kind, "dpus": per_rank, "tasklets": 8,
+           "scale": CLUSTER_FULL_SCALE, "wall_s": wall,
+           "profile_steps": len(prof.steps),
+           "sim_launches": s1["launches"] - s0["launches"], "steps": steps,
+           "cycle_step_launches": launches["cycle_step"],
+           "idle_launches": idle["cycle_step"],
+           "outside_share": 1.0 - inside[0] / wall}
+    ran = launches["cycle_step"] - idle["cycle_step"]
+    check(ran > 0 and ran * compile_cache.STEPS_PER_CHECK == steps
+          and launches["alu_exec"] == 0,
+          f"[cluster] {kind}'s measured profile launched {launches} for "
+          f"{steps} steps")
+    return res
+
+
+def _cluster_full_width() -> dict:
+    """(b) the cluster at full width: measured profiles of 32-DPU ranks,
+    the report equal between inorder and async and across two runs, a
+    journaled run killed and resumed on a fresh cluster and system equal
+    to the uninterrupted one, both policies' scorecards at 0 and 2%
+    faults, and benchmarks/torch_cluster_load.py's gate (synthetic
+    profiles) on the card."""
+    import importlib.util
+    import tempfile
+    from repro_torch.admission import SimulatedCrash
+    from repro_torch.workloads import goldens
+    t0 = time.perf_counter()
+    kinds = [_measured_full_width(k) for k in goldens.CLUSTER_KINDS]
+    for r in kinds:
+        log("[cluster] (b) measured profile, oracle ok: " + json.dumps(r))
+    config = dict(goldens.CLUSTER, system=CLUSTER_FULL_SYSTEM,
+                  profile_scale=CLUSTER_FULL_SCALE)
+
+    def report(policy, rate, mode="async", **kw):
+        cfg = dict(config, mode=mode)
+        return goldens.cluster_report(
+            _run_cluster(policy, rate, config=cfg, **kw)[1])
+
+    reset_launches()
+    ref = report("fault_aware", 0.02)
+    same = {"repeat": report("fault_aware", 0.02),
+            "inorder": report("fault_aware", 0.02, mode="inorder")}
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "cluster.journal")
+        try:
+            report("fault_aware", 0.02, cluster_kw=dict(
+                journal=path, crash_after=CLUSTER_CRASH_AFTER))
+            check(False, "[cluster] the journaled run did not crash")
+        except SimulatedCrash:
+            pass
+        same["resumed"] = report("fault_aware", 0.02,
+                                 cluster_kw=dict(journal=path))
+    bad = [k for k, v in same.items() if v != ref]
+    check(not bad, f"[cluster] full-width reports differ from the first "
+          f"async run: {bad}")
+    cards = {goldens.cluster_key("fault_aware", 0.02): _scorecard(ref)}
+    for rate in goldens.CLUSTER["rates"]:
+        for policy in goldens.CLUSTER["policies"]:
+            key = goldens.cluster_key(policy, rate)
+            if key not in cards:
+                cards[key] = _scorecard(report(policy, rate))
+    launches = read_launches()
+    check(launches["cycle_step"] == 0, "[cluster] the cluster runs "
+          f"re-measured their profiles: {launches}")
+    log(f"[cluster] (b) {CLUSTER_FULL_SYSTEM['n_ranks']} ranks x "
+        f"{CLUSTER_FULL_SYSTEM['n_dpus'] // CLUSTER_FULL_SYSTEM['n_ranks']} "
+        "DPUs: the fault_aware report at 2% faults equal across two async "
+        "runs, inorder, and a run killed after "
+        f"{CLUSTER_CRASH_AFTER} journaled steps and resumed; scorecards "
+        + json.dumps(cards))
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_load", ROOT / "benchmarks/torch_cluster_load.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    try:
+        rows = bench.check(device="cuda")
+    except SystemExit as e:
+        raise SmokeError(f"[cluster] torch_cluster_load.py --check: {e}")
+    gate = {r["policy"]: r["goodput"] for r in rows}
+    log(f"[cluster] (b) torch_cluster_load.py --check (synthetic profiles) "
+        f"on the card: goodput at 2% faults {json.dumps(gate)}")
+    return {"kinds": kinds, "scorecards": cards, "gate": gate,
+            "seconds": time.perf_counter() - t0}
+
+
+def _cluster_trace(recordings: dict) -> dict:
+    """(c) BFS at [workloads]'s full-width cell recorded on the card,
+    saved as JSONL, loaded and replayed: the replay's Timeline equals the
+    live one bitwise; a what-if replay (another fabric, more channels);
+    every TRACE_KEY recording of [workloads] (a) replayed equals its
+    golden Timeline."""
+    import tempfile
+    import torch
+    import repro_torch.workloads as wl
+    from repro_torch import trace
+    from repro_torch.workloads import goldens
+    system = _system(_full_cfg(), "cuda")
+    rec = trace.record(system)
+    reset_launches()                       # counts of this path only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wl.get("BFS").run(system, 16, scale=1.0, seed=0)
+    system.sync()
+    live_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["cycle_step"] > 0, "[cluster] BFS launched no cycle_step")
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "bfs.trace.jsonl")
+        n = rec.save(path)
+        t0 = time.perf_counter()
+        res = trace.replay(trace.load(path))
+        replay_s = time.perf_counter() - t0
+        bad = _same_timeline(res.timeline, system.timeline)
+        check(not bad, f"[cluster] BFS full-width replay differs in {bad}")
+        what = {}
+        for name, cfg in (("fabric=direct", res.cfg.replace(fabric="direct")),
+                          ("n_channels=8", res.cfg.replace(n_channels=8))):
+            r = trace.replay(path, cfg=cfg)
+            what[name] = {"end_to_end": r.end_to_end,
+                          "inter_dpu": r.timeline.inter_dpu,
+                          "h2d": r.timeline.h2d}
+    out = {"records": n, "commands": res.n_commands,
+           "cycle_step_launches": launches["cycle_step"],
+           "live_s": live_s, "replay_s": replay_s,
+           "speedup": live_s / replay_s,
+           "end_to_end": system.timeline.end_to_end, "what_if": what}
+    log("[cluster] (c) BFS 64 DPUs x 16 tasklets scale 1.0 recorded on the "
+        "card, saved, loaded and replayed: Timeline equal bitwise; "
+        + json.dumps(out))
+    gold = goldens.load()["entries"][TRACE_KEY]
+    check(set(recordings) == set(gold), f"[cluster] {TRACE_KEY} recordings "
+          f"{sorted(recordings)}")
+    bad = [name for name, (_, r) in sorted(recordings.items())
+           if json.loads(json.dumps(goldens.timeline(
+               trace.replay(r.records).timeline)))
+           != gold[name]["timeline"]]
+    check(not bad, f"[cluster] {TRACE_KEY} replays differ from their golden "
+          f"Timelines: {bad}")
+    out["golden_replays"] = len(recordings)
+    log(f"[cluster] (c) the card's recordings of all {len(recordings)} "
+        f"workloads at {TRACE_KEY} replayed: each equal to its golden "
+        "Timeline")
+    return out
+
+
+def phase_cluster(recordings: dict) -> dict:
+    """[cluster] (a)-(c); (d), the lease, runs with [lm]'s model
+    (:func:`lease_serve`)."""
+    t0 = time.perf_counter()
+    out = {"goldens": _cluster_goldens(), "full": _cluster_full_width(),
+           "trace": _cluster_trace(recordings)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[cluster] phase (a)-(c) {out['seconds']:.1f} s")
+    return out
+
+
+def lease_serve(cfg, model, want: dict) -> dict:
+    """[cluster] (d) on [lm]'s loaded llama3-8b: a ServeEngine whose PIM
+    pool is a lease of examples/serve_lm.py's cluster answers [lm]'s 4
+    requests with the tokens ``want`` of the pool-free engine, one
+    ``decode`` launch on the system a tick; then the lease's DPUs are
+    disabled after one tick, the pool trips its floor, the engine decodes
+    on the host and loses no request.  The launch counts are this path's
+    alone (set to 0 before it; [lm]'s are put back after it)."""
+    import repro_torch.cluster as cluster
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr) in _counters().items()}
+    saved_idle = read_idle()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        runs = {}
+        for case in ("lease", "lease_lost"):
+            system = PIMSystem(DPUConfig(**LEASE_SYSTEM), mode="async",
+                               device="cuda")
+            pim = cluster.PimCluster(system, policy="fault_aware",
+                                     spare_ranks=2)
+            lease = pim.lease("serve_lm", n_ranks=LEASE_RANKS)
+            eng, t_serve = _serve_engine(cfg, model, lease.pool,
+                                         lose=(system, lease)
+                                         if case == "lease_lost" else None)
+            out = {rid: r.out for rid, r in eng.requests.items()}
+            decode = sum(1 for e in system.timeline.events
+                         if e[0] == "kernel" and e[1] == "decode")
+            runs[case] = {"ranks": list(lease.ranks),
+                          "pool_ticks": lease.pool.ticks,
+                          "engine_ticks": eng.ticks, "stats": eng.stats,
+                          "decode_launches": decode, "wall_s": t_serve,
+                          "tokens_equal": out == want}
+            pim.release(lease)
+        launches = read_launches()
+    finally:
+        for name, (mod, attr) in _counters().items():
+            setattr(mod, attr, saved[name])
+        for name in PIPELINED:
+            _counters()[name][0].idle_launches = saved_idle[name]
+    ok, lost = runs["lease"], runs["lease_lost"]
+    check(ok["tokens_equal"] and lost["tokens_equal"],
+          f"[cluster] lease-served tokens differ from the pool-free run: "
+          f"{runs}")
+    check(ok["pool_ticks"] == ok["engine_ticks"] == ok["decode_launches"]
+          == ok["stats"]["pim_ticks"] > 0 and ok["stats"]["host_ticks"] == 0,
+          f"[cluster] lease ticks {ok}")
+    check(lost["stats"]["pim_ticks"] >= 1 and lost["stats"]["host_ticks"] >= 1
+          and lost["pool_ticks"] == lost["decode_launches"],
+          f"[cluster] the lost lease {lost}")
+    res = {"runs": runs, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log("[cluster] (d) llama3-8b (bf16, full width and depth) served with a "
+        f"{LEASE_RANKS}-rank lease: tokens equal to the pool-free engine's; "
+        "the lease lost mid-stream: decoded on the host, no request lost; "
+        + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # LM serving path: flash attention and the SSD scan
 # ---------------------------------------------------------------------------
 
@@ -1590,32 +1953,40 @@ def phase_lm_parity():
         del cpu
 
 
-def _serve(cfg, model) -> dict:
+def _serve_engine(cfg, model, pim_pool=None, lose=None):
     """A ServeEngine answering 4 requests (32-token prompts, 16 new
-    tokens each) on a 4-slot pool."""
+    tokens each) on a 4-slot pool, with ``pim_pool`` attached; ``lose``
+    (system, lease): the lease's DPUs are disabled after the first tick.
+    Returns (the engine, its wall seconds)."""
     import numpy as np
     import torch
     from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(cfg, model, batch=4, capacity=64)
+    eng = ServeEngine(cfg, model, batch=4, capacity=64, pim_pool=pim_pool)
     rng = np.random.default_rng(5)
     for _ in range(4):
         eng.submit(rng.integers(0, cfg.vocab_size, 32), max_new=16)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    if lose is not None:
+        eng.step()
+        system, lease = lose
+        topo = system.topology
+        system.disable_dpus([d for r in lease.ranks for d in range(
+            *topo.dpu_slice(r).indices(topo.n_dpus))])
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(sorted(len(o) for o in out.values()) == [16] * 4,
           f"ServeEngine outputs {out}")
-    return {"serve_wall_s": wall, "serve_requests": len(out),
-            "serve_tokens": sum(len(o) for o in out.values()),
-            "serve_ticks": eng.ticks}
+    return eng, wall
 
 
 def lm_path(arch: str, prompt_len: int, batch: int = 4,
-            decode_steps: int = 32) -> dict:
+            decode_steps: int = 32, after=None) -> dict:
     """The LM serving path at full width and depth in bf16: prefill,
-    greedy decode steps past it, then a ServeEngine."""
+    greedy decode steps past it, then a ServeEngine; ``after(cfg, model,
+    tokens)``, given, runs last on the loaded model with the engine's
+    tokens (its result kept as ``"after"``)."""
     import torch
     import torch.nn.functional as F
     cfg, model = _lm_model(arch, seed=3)
@@ -1651,21 +2022,32 @@ def lm_path(arch: str, prompt_len: int, batch: int = 4,
            "decode_steps": decode_steps,
            "decode_ms_per_step": t_decode / decode_steps * 1e3}
     del cache
-    res.update(_serve(cfg, model))
+    eng, wall = _serve_engine(cfg, model)
+    res.update({"serve_wall_s": wall, "serve_requests": len(eng.requests),
+                "serve_tokens": sum(len(r.out)
+                                    for r in eng.requests.values()),
+                "serve_ticks": eng.ticks})
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if after is not None:
+        res["after"] = after(cfg, model, {rid: r.out for rid, r
+                                          in eng.requests.items()})
     return res
 
 
 def phase_lm_main() -> dict:
     """The LM serving path of both families, with the kernel launch counts
     taken from this run alone: flash once per llama3-8b layer per prefill,
-    the SSD scan once per mamba2-130m layer per prefill."""
+    the SSD scan once per mamba2-130m layer per prefill.  [cluster] (d)
+    (:func:`lease_serve`) runs on the loaded llama3-8b, counted apart."""
     import torch
     runs = []
+    lease = None
     reset_launches()                       # counts of this path only
     for arch, prompt in (("llama3-8b", 1024), ("mamba2-130m", 2048)):
         torch.cuda.reset_peak_memory_stats()
-        runs.append(lm_path(arch, prompt))
+        runs.append(lm_path(arch, prompt, after=lease_serve
+                            if arch == "llama3-8b" else None))
+        lease = runs[-1].pop("after", lease)
         log(f"[lm] main path: {json.dumps(runs[-1])}")
         torch.cuda.empty_cache()
     launches = read_launches()
@@ -1681,7 +2063,7 @@ def phase_lm_main() -> dict:
     check(launches["ssd_scan_tc"] == launches["ssd_scan"],
           f"of {launches['ssd_scan']} ssd_scan launches, "
           f"{launches['ssd_scan_tc']} on the tensor-core route")
-    return {"runs": runs, "launches": launches}
+    return {"runs": runs, "launches": launches, "lease": lease}
 
 
 def _flash_work(b, s, h, kv, dk, dv, causal, window, esize):
@@ -1848,6 +2230,7 @@ def main(argv=None) -> int:
         work = phase_workloads()
         simt_run = phase_simt()
         system_run = phase_system()
+        cluster_run = phase_cluster(work.pop("recordings"))
         phase_lm_parity()
         lm_run = phase_lm_main()
         lm_times = phase_lm_kernel_times()
@@ -1874,6 +2257,12 @@ def main(argv=None) -> int:
         "idle_launches": main_run["idle_launches"],
         "kernel_route": step_times["route"],
         "routes": {r: v["ms"] for r, v in step_times["routes"].items()},
+        # [cluster]: the measured profiles of (a) and (b), BFS recorded (c)
+        "cluster_launches": {
+            "goldens": cluster_run["goldens"]["cycle_step_launches"],
+            **{k["kind"]: k["cycle_step_launches"]
+               for k in cluster_run["full"]["kinds"]},
+            "trace": cluster_run["trace"]["cycle_step_launches"]},
     }, {
         # above the resident limit: the full-system path ([system]'s VA),
         # timed at VA's launch at 2,560 DPUs ([step]) beside stepwise
@@ -1916,6 +2305,7 @@ def main(argv=None) -> int:
     # route but the tensor-core one
     launched = dict(lm_run["launches"])
     launched["ssd_scan"] -= launched["ssd_scan_tc"]
+    lease = lm_run["lease"]
     for name, (src, csrc) in replaces.items():
         r = lm_times[name]
         kernels.append({
@@ -1925,6 +2315,10 @@ def main(argv=None) -> int:
             "max_abs_err": lm_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # [cluster] (d): the ServeEngine on a lease decodes through
+    # decode_step, which reaches no flash kernel (prefill does)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["lease_launches"] = lease["launches"]["flash_attention"]
     lm = {r["arch"]: r for r in lm_run["runs"]}
     log("[report] LM serving (bf16, 4 prompts): " + "; ".join(
         f"{a} prefill {r['prefill_tokens_per_s']:.1f} tokens/s, decode "
@@ -1958,6 +2352,18 @@ def main(argv=None) -> int:
         + f"; simt_step {simt_run['simt_times']['us_per_step']:.3f} µs a "
         f"step, crf_step {simt_run['crf_times']['us_per_step']:.3f} µs a "
         "command")
+    cg, cf, ct = (cluster_run[k] for k in ("goldens", "full", "trace"))
+    log(f"[report] cluster: {cg['runs']} golden reports equal (measured "
+        f"profiles, {cg['cycle_step_launches']} cycle_step launches); full "
+        "width measured profiles " + ", ".join(
+            f"{k['kind']} {k['wall_s']:.3f} s ({k['cycle_step_launches']} "
+            f"launches, set-up {k['outside_share']:.3f})" for k in cf["kinds"])
+        + f"; BFS full-width trace live {ct['live_s']:.3f} s, replay "
+        f"{ct['replay_s']:.4f} s ({ct['speedup']:.0f}x), bit-exact; "
+        f"{ct['golden_replays']} {TRACE_KEY} replays equal; lease "
+        f"{lease['runs']['lease']['pool_ticks']} ticks, tokens equal, lost "
+        f"lease decoded on the host; phase {cluster_run['seconds']:.1f} s "
+        f"+ lease {lease['seconds']:.1f} s")
     log(f"[report] workloads: {work['golden_runs']} golden runs equal; full "
         f"width KIPS " + ", ".join(f"{r['workload']} {r['kips']:.1f}"
                                    for r in work["full"]))

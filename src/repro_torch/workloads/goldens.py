@@ -237,9 +237,109 @@ def run_remap(workloads, config_cls, system_cls, fault_plan_cls, kill_dpu,
     return report, system, state
 
 
+#: the cluster configuration (``chip_smoke.py`` [cluster] (a)):
+#: benchmarks/cluster_load.py's system (8 ranks x 4 DPUs, 4 channels, 1
+#: MiB MRAM, async, 2 spare ranks), its four-tenant mix at scale 1.0 and
+#: its seeds, with measured profiles (BFS, HST-S, SSORT each run once on
+#: a 4-DPU, 8-tasklet, 2 MiB rank at ``profile_scale``), under each
+#: policy at each permanent-fault rate
+CLUSTER = {
+    "system": dict(n_dpus=32, n_ranks=8, n_channels=4, mram_bytes=1 << 20),
+    "mode": "async", "spare_ranks": 2, "seed": 7, "fault_seed": 1,
+    "horizon": 0.08, "profile_scale": 0.05,
+    "policies": ("first_fit", "fault_aware"), "rates": (0.0, 0.02),
+    #: benchmarks/cluster_load.py tenant_mix(1.0)
+    "tenants": (
+        dict(name="graph", rate_hz=400.0, kinds=("BFS",), n_ranks=2,
+             priority=1, slo_seconds=0.05),
+        dict(name="sort", rate_hz=300.0, kinds=("SSORT", "HST-S")),
+        dict(name="lm", rate_hz=200.0, kinds=("lm_decode",), size=8,
+             n_ranks=2, priority=2, slo_seconds=0.02),
+        dict(name="hist", rate_hz=250.0, kinds=("HST-S",)),
+    ),
+}
+#: the kinds a measured cluster profiles
+CLUSTER_KINDS = ("BFS", "HST-S", "SSORT")
+
+
+def cluster_key(policy: str, rate: float) -> str:
+    return f"{policy}@{rate}"
+
+
+def profile_steps(profile) -> list:
+    """A ``JobProfile``'s steps as JSON would hold them: (phase, label,
+    seconds, bytes_per_dpu, nbytes) each."""
+    return [[str(s.phase), str(s.label), float(s.seconds),
+             float(s.bytes_per_dpu), float(s.nbytes)] for s in profile.steps]
+
+
+def cluster_report(rep) -> dict:
+    """A ``ClusterReport`` as JSON would hold it: the fleet's
+    ``metrics()``, ``goodput()`` and ``utilization()``, each tenant's
+    ``metrics``, the admissions (jid, time, ranks), every outcome's
+    fields, each rank's busy seconds and the makespan."""
+    return {
+        "metrics": rep.metrics(),
+        "goodput": rep.goodput(), "utilization": rep.utilization(),
+        "tenants": {t: rep.metrics(t) for t in rep.tenants()},
+        "admissions": [[jid if isinstance(jid, str) else int(jid),
+                        float(t), [int(r) for r in ranks]]
+                       for jid, t, ranks in rep.admissions],
+        "outcomes": [[getattr(o, f.name) if f.name != "ranks"
+                      else [int(r) for r in o.ranks]
+                      for f in dataclasses.fields(o)]
+                     for o in rep.outcomes],
+        "rank_busy": [[int(r), float(b)]
+                      for r, b in sorted(rep.rank_busy.items())],
+        "makespan": float(rep.makespan)}
+
+
+def run_cluster(cluster, config_cls, system_cls, fault_plan_cls,
+                policy: str, rate: float, *, config: dict = CLUSTER,
+                cluster_kw: dict = None, **system_kw):
+    """One run of ``config`` (:data:`CLUSTER` unless another such dict is
+    given) with one package's ``cluster`` module, ``DPUConfig``,
+    ``PIMSystem`` and ``FaultPlan`` (``cluster_kw`` goes to the
+    ``PimCluster``, e.g. ``journal=``; ``system_kw`` to the system, e.g.
+    ``device=``); returns ``(profiles, report)``, the profiles as
+    ``cluster.measure_profile`` holds them after the run."""
+    c = config
+    tenants = [cluster.TenantSpec(**kw) for kw in c["tenants"]]
+    jobs = cluster.poisson_stream(tenants, horizon=c["horizon"],
+                                  seed=c["seed"])
+    faults = (fault_plan_cls(seed=c["fault_seed"], p_dpu_permanent=rate)
+              if rate > 0 else None)
+    system = system_cls(config_cls(**c["system"]), mode=c["mode"],
+                        faults=faults, **system_kw)
+    report = cluster.PimCluster(system, policy=policy,
+                                spare_ranks=c["spare_ranks"],
+                                profiles="measured",
+                                profile_scale=c["profile_scale"],
+                                **(cluster_kw or {})).run(jobs)
+    kw = {"device": system.device} if hasattr(system, "device") else {}
+    profiles = {k: cluster.measure_profile(
+        k, n_dpus=system.topology.dpus_per_rank, scale=c["profile_scale"],
+        **kw) for k in CLUSTER_KINDS}
+    return profiles, report
+
+
+def cluster_entries(run) -> dict:
+    """The cluster goldens: ``run(policy, rate)`` is
+    :func:`run_cluster` with one package's classes bound.  Holds the
+    measured profiles' steps and each (policy, rate)'s
+    :func:`cluster_report`."""
+    out = {"runs": {}}
+    for rate in CLUSTER["rates"]:
+        for policy in CLUSTER["policies"]:
+            profiles, report = run(policy, rate)
+            out["runs"][cluster_key(policy, rate)] = cluster_report(report)
+    out["profiles"] = {k: profile_steps(p) for k, p in profiles.items()}
+    return out
+
+
 def load() -> dict:
     """``goldens.json``: ``{"configs": ..., "entries": {key: {workload:
-    entry}}, "remap": entry}``."""
+    entry}}, "remap": entry, "cluster": cluster entries}``."""
     with open(PATH) as f:
         return json.load(f)
 

@@ -34,8 +34,46 @@ COPIES = [
     "configs/mamba2_130m.py", "configs/nemotron_4_15b.py",
     "configs/qwen3_moe_30b_a3b.py", "configs/recurrentgemma_9b.py",
     "configs/seamless_m4t_large_v2.py", "configs/yi_34b.py",
-    "admission/control.py",
+    "admission/control.py", "admission/breaker.py", "admission/hedge.py",
+    "admission/journal.py", "admission/__init__.py", "obs/report.py",
+    "trace/__init__.py", "trace/record.py", "trace/replay.py",
+    "serve/pim_pool.py", "cluster/__init__.py", "cluster/arrivals.py",
+    "cluster/metrics.py",
 ]
+
+#: cluster/scheduler.py is a copy but for its device: (the twin's lines,
+#: normalised, -> the port's).  ``measure_profile`` takes ``device``
+#: (None: the card, raising without one), keys its cache on it and
+#: builds its reference rank there; a cluster measures on its own
+#: system's device.
+SCHEDULER_DEVICE_LINES = [
+    ("                    mram_bytes: int = 1 << 21) -> JobProfile:\n",
+     "                    mram_bytes: int = 1 << 21, device=None) -> "
+     "JobProfile:\n"),
+    ('    runs once per kind, every job replays the recording."""\n'
+     "    key = (kind, n_dpus, n_threads, scale, seed, mram_bytes)\n",
+     "    runs once per kind, every job replays the recording.  ``device`` is\n"
+     "    the torch device the reference rank runs on: None means the CUDA "
+     "card\n"
+     "    and raises without one (as ``PIMSystem`` does); the cache keys on "
+     "it,\n"
+     '    so a profile measured on one device is never served for another."""\n'
+     "    from repro_torch.core.compile_cache import resolve_device\n"
+     "    device = resolve_device(device)\n"
+     "    key = (kind, n_dpus, n_threads, scale, seed, mram_bytes, "
+     "str(device))\n"),
+    ("                                 mram_bytes=mram_bytes))\n",
+     "                                 mram_bytes=mram_bytes), device=device)\n"),
+    ("                    scale=self.profile_scale)\n",
+     "                    scale=self.profile_scale, device=self.system.device)"
+     "\n"),
+]
+
+
+#: the port's entry points beside their twins (each a copy with --device)
+SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
+           "benchmarks/torch_trace_replay.py", "examples/torch_pim_cluster.py",
+           "examples/torch_serve_lm.py"]
 
 
 def _port_files():
@@ -44,7 +82,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "benchmarks/torch_pim_figs.py",
                                          ROOT / "tools/torch_step_profile.py",
-                                         ROOT / "tools/torch_lm_profile.py"]
+                                         ROOT / "tools/torch_lm_profile.py"] \
+        + [ROOT / s for s in SCRIPTS]
 
 
 def _forbidden(name: str) -> bool:
@@ -67,6 +106,11 @@ def test_no_jax_or_repro_imports(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+#: the scripts the blocked-import test runs as modules (their main()
+#: stays behind the __main__ check)
+EXECUTED = ["chip_smoke.py", "benchmarks/torch_pim_figs.py"] + SCRIPTS
+
+
 def test_port_imports_with_jax_and_repro_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
@@ -77,8 +121,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         " 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        f"for f in ({str(ROOT / 'chip_smoke.py')!r}, "
-        f"{str(ROOT / 'benchmarks/torch_pim_figs.py')!r}):\n"
+        f"for f in {[str(ROOT / f) for f in EXECUTED]!r}:\n"
         "    spec = importlib.util.spec_from_file_location('m', f)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert len(names) > 20, names\n"
@@ -101,10 +144,19 @@ def test_copied_module_matches_twin(rel):
     assert (PORT / rel).read_text() == _normalise(ref)
 
 
+def test_scheduler_matches_twin_but_for_its_device_lines():
+    ref = _normalise((SRC / "repro/cluster/scheduler.py").read_text())
+    for twin, port in SCHEDULER_DEVICE_LINES:
+        assert ref.count(twin) == 1, twin
+        ref = ref.replace(twin, port)
+    assert (PORT / "cluster/scheduler.py").read_text() == ref
+
+
 def test_default_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     import repro_torch.workloads as wl
+    from repro_torch.cluster import PimCluster, measure_profile
     from repro_torch.core import compile_cache, engine
     from repro_torch.core.config import DPUConfig
     from repro_torch.core.host import PIMSystem
@@ -121,6 +173,9 @@ def test_default_device_raises_without_a_card():
                   lambda: engine.run(cfg, binary, wram, mram),
                   lambda: compile_cache.prepare(cfg, binary, wram, mram),
                   lambda: compile_cache.prewarm(cfg, binary),
+                  # measured cluster profiles run on the card too
+                  lambda: measure_profile("HST-S"),
+                  lambda: PimCluster(PIMSystem(cfg), profiles="measured"),
                   # the LM serving path (ServeEngine runs where its model is)
                   lambda: transformer.Transformer(lm),
                   lambda: transformer.init_cache(lm, 1, 8)):
