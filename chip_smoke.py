@@ -115,7 +115,9 @@ Phases (any failure exits non-zero and prints no result line):
              both policies at 0 and 2% faults: profiles and reports equal
              to goldens.json's cluster goldens exactly; (b) 8 ranks x 32
              DPUs, profiles of a 32-DPU rank at scale 0.375 (each kind's
-             wall, cycle_step launches and set-up share), the report equal
+             wall, cycle_step launches and set-up share; the profiles
+             equal to tests/data/cluster_profiles_wide.json, which the CPU
+             tests feed both packages), the report equal
              between inorder and async, across two runs and after a
              journaled run killed and resumed, both policies' scorecards,
              benchmarks/torch_cluster_load.py's gate; (c) BFS at full
@@ -127,7 +129,24 @@ Phases (any failure exits non-zero and prints no result line):
              cluster gives the pool-free tokens, one decode launch a tick;
              the lease's DPUs disabled mid-stream: decoded on the host,
              no request lost;
-11. report — the kernels line (launches, times, bounds; each step
+11. scripts — the paper's study scripts through their twins on the
+             card: benchmarks/torch_engine_perf.py --scale 1.0 --check in a
+             process of its own (its launch probe, subset launches and BS
+             rows equal to goldens.json, VA's cycles and issued per DPU
+             equal at 1, 4, 16 and 64 DPUs and to [workloads]'s full-width
+             VA; cold, warm, KIPS, steps per second, set-up share); then
+             in this process, each in an empty working directory of its
+             own, every run of tools/script_runs.py's SCRIPT_RUNS (the
+             five examples, torch_fault_tolerance.py with --smoke and
+             --check, torch_overlap_scaling.py, torch_rank_overlap.py,
+             and torch_run.py's suites but lm under --trace, with --check
+             but for the overload suite, whose check fails in the
+             reference too, ROADMAP §3): exit 0, no error row, the
+             printed lines (wall-clock numbers masked) equal to
+             goldens.json's, the figs suite's characterization simulated
+             in the run (its cycle_step launches counted), each with its
+             wall and launches;
+12. report — the kernels line (launches, times, bounds; each step
              kernel's routes), the card's name and power limit, and the
              result line.
 
@@ -783,27 +802,6 @@ def _golden_runs(gold, recordings: dict) -> int:
     return runs + 1
 
 
-def _driver_timer():
-    """(inside seconds list, restore): ``compile_cache._drive`` timed into
-    the list until ``restore()``; the rest of a run's wall is set-up."""
-    from repro_torch.core import compile_cache
-    inside = [0.0]
-    drive = compile_cache._drive
-
-    def timed_drive(prep, k):
-        t = time.perf_counter()
-        try:
-            return drive(prep, k)
-        finally:
-            inside[0] += time.perf_counter() - t
-
-    compile_cache._drive = timed_drive
-
-    def restore():
-        compile_cache._drive = drive
-    return inside, restore
-
-
 def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
     """Workload ``name`` on a card system of ``cfg``, its numpy oracle
     inside ``run()``: the wall, the simulation rate, the launches of the
@@ -817,15 +815,11 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
     system = _system(cfg, "cuda")
     s0 = compile_cache.stats()
     l0, i0 = getattr(mod, attr), mod.idle_launches
-    inside, restore = _driver_timer()
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, rep = wl.get(name).run(system, 16, scale=scale, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        restore()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rep = wl.get(name).run(system, 16, scale=scale, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     s1 = compile_cache.stats()
     steps = s1["steps"] - s0["steps"]
     res = {"workload": name, "dpus": cfg.n_dpus, "scale": scale,
@@ -836,7 +830,7 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
            f"{kernel}_launches": getattr(mod, attr) - l0,
            f"{kernel}_idle_launches": mod.idle_launches - i0,
            "sim_launches": s1["launches"] - s0["launches"],
-           "outside_share": 1.0 - inside[0] / wall}
+           "outside_share": 1.0 - (s1["loop_s"] - s0["loop_s"]) / wall}
     ran = res[f"{kernel}_launches"] - res[f"{kernel}_idle_launches"]
     check(ran > 0, f"{name} launched no {kernel}")
     check(res[f"{kernel}_idle_launches"] <= res["sim_launches"],
@@ -1511,18 +1505,14 @@ def _measured_full_width(kind: str) -> dict:
     from repro_torch.core import compile_cache
     per_rank = (CLUSTER_FULL_SYSTEM["n_dpus"]
                 // CLUSTER_FULL_SYSTEM["n_ranks"])
-    inside, restore = _driver_timer()
     s0 = compile_cache.stats()
     reset_launches()                       # counts of this path only
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prof = measure_profile(kind, n_dpus=per_rank,
-                               scale=CLUSTER_FULL_SCALE, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        restore()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof = measure_profile(kind, n_dpus=per_rank, scale=CLUSTER_FULL_SCALE,
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches, idle = read_launches(), read_idle()
     s1 = compile_cache.stats()
     steps = s1["steps"] - s0["steps"]
@@ -1532,7 +1522,7 @@ def _measured_full_width(kind: str) -> dict:
            "sim_launches": s1["launches"] - s0["launches"], "steps": steps,
            "cycle_step_launches": launches["cycle_step"],
            "idle_launches": idle["cycle_step"],
-           "outside_share": 1.0 - inside[0] / wall}
+           "outside_share": 1.0 - (s1["loop_s"] - s0["loop_s"]) / wall}
     ran = launches["cycle_step"] - idle["cycle_step"]
     check(ran > 0 and ran * compile_cache.STEPS_PER_CHECK == steps
           and launches["alu_exec"] == 0,
@@ -1556,6 +1546,22 @@ def _cluster_full_width() -> dict:
     kinds = [_measured_full_width(k) for k in goldens.CLUSTER_KINDS]
     for r in kinds:
         log("[cluster] (b) measured profile, oracle ok: " + json.dumps(r))
+    # the same profiles (measure_profile's cache) against the recording
+    # the CPU tests feed both packages (tests/test_torch_cluster_wide.py)
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_profiles", ROOT / "tools/torch_cluster_profiles.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    check(tool.RANK == dict(n_dpus=CLUSTER_FULL_SYSTEM["n_dpus"]
+                            // CLUSTER_FULL_SYSTEM["n_ranks"], n_threads=8,
+                            scale=CLUSTER_FULL_SCALE, seed=0,
+                            mram_bytes=1 << 21),
+          f"[cluster] tools/torch_cluster_profiles.py's rank {tool.RANK}")
+    wide = json.loads(json.dumps(tool.measure("cuda")["profiles"]))
+    check(wide == json.loads(tool.OUT.read_text())["profiles"],
+          f"[cluster] (b)'s measured profiles differ from {tool.OUT}")
+    log(f"[cluster] (b) the measured profiles equal "
+        f"{tool.OUT.relative_to(ROOT)}")
     config = dict(goldens.CLUSTER, system=CLUSTER_FULL_SYSTEM,
                   profile_scale=CLUSTER_FULL_SCALE)
 
@@ -1741,6 +1747,215 @@ def lease_serve(cfg, model, want: dict) -> dict:
         "the lease lost mid-stream: decoded on the host, no request lost; "
         + json.dumps(res))
     return res
+
+
+# ---------------------------------------------------------------------------
+# the paper's study scripts: the entry-point twins
+# ---------------------------------------------------------------------------
+
+#: where [scripts] writes what a twin writes (gitignored)
+OUT_DIR = ROOT / "chiprun_out"
+#: torch_engine_perf.py's arguments: VA at 1, 4, 16 and 64 DPUs x 16
+#: tasklets, 2 MiB, scale 1.0 (the main path's cell at full width)
+ENGINE_PERF_ARGV = ["--scale", "1.0", "--check"]
+#: the golden runs that simulate nothing: the rank-overlap study prices
+#: modeled launches, the cluster and overload suites replay synthetic
+#: job profiles
+ENGINE_FREE = ("rank_overlap", "run --suite cluster", "run --suite overload")
+#: the golden run whose figures 5-9 come from the per-thread
+#: characterization (torch_pim_figs.characterize, cached under reports/
+#: in the working directory)
+CHAR_RUN = "run --suite figs"
+
+
+def _script_runs():
+    """tools/script_runs.py: the entry points' golden runs, the loader
+    and the wall-clock masks the goldens were written with."""
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import script_runs
+    return script_runs
+
+
+def _engine_perf(main_va: dict) -> dict:
+    """torch_engine_perf.py --scale 1.0 --check in a process of its own
+    (so that its cold launch loads the kernel library, built by [build]):
+    exit 0 (warm < cold, no new driver for the subset launches); its
+    launch probe, subset launches and BS rows equal to goldens.json's
+    engine_perf rows; VA's cycles, and its issued instructions per DPU,
+    equal at 1, 4, 16 and 64 DPUs (VA's control flow ignores the data),
+    and at 64 DPUs equal to [workloads]'s full-width VA (``main_va``)."""
+    from repro_torch.workloads import goldens
+    sr = _script_runs()
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "engine_perf.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks/torch_engine_perf.py"),
+         *ENGINE_PERF_ARGV, "--json", str(path)],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "[scripts] torch_engine_perf.py "
+          f"{' '.join(ENGINE_PERF_ARGV)} exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    rep = json.loads(path.read_text())
+    check(rep["device"]["type"] == "cuda", f"[scripts] engine_perf ran on "
+          f"{rep['device']}")
+    gold = goldens.load()["scripts"]["engine_perf"]
+    va = [r for r in rep["steady_state"] if r["workload"] == "VA"]
+    got = {"launch": rep["launch"], "subset_reuse": rep["subset_reuse"],
+           **{f"BS event_skip={r['event_skip']}": r
+              for r in rep["steady_state"] if r["workload"] == "BS"}}
+    wall_keys = sr.wall_keys("engine_perf")
+    # main() names a BS row's knob in the row; the golden, in its key
+    drop = sr.PORT_KEYS["engine_perf"] + ("event_skip",)
+    got = json.loads(json.dumps({k: sr.modeled(v, wall_keys, drop)
+                                 for k, v in got.items()}))
+    bad = [k for k in gold if got.get(k) != gold[k]]
+    check(not bad, f"[scripts] engine_perf rows differ from goldens.json: "
+          f"{ {k: (got.get(k), gold[k]) for k in bad} }")
+    check([r["dpus"] for r in va] == [1, 4, 16, 64]
+          and len({r["cycles"] for r in va}) == 1
+          and len({r["issued"] // r["dpus"] for r in va}) == 1
+          and all(r["issued"] % r["dpus"] == 0 for r in va),
+          f"[scripts] engine_perf's VA rows differ across DPU counts: "
+          f"{[(r['dpus'], r['cycles'], r['issued']) for r in va]}")
+    check(va[-1]["cycles"] == main_va["cycles"]
+          and va[-1]["issued"] == main_va["issued"],
+          f"[scripts] engine_perf's VA at 64 DPUs ({va[-1]['cycles']} "
+          f"cycles, {va[-1]['issued']} issued) differs from [workloads]'s "
+          f"({main_va['cycles']}, {main_va['issued']})")
+    check(rep["launches"]["cycle_step"] > 0, "[scripts] engine_perf "
+          "launched no cycle_step")
+    lat, sub = rep["launch"], rep["subset_reuse"]
+    out = {"wall_s": wall, "launches": rep["launches"],
+           "cold_s": lat["cold_s"], "warm_s": lat["warm_s"],
+           "speedup": lat["speedup"], "new_compiles": sub["new_compiles"],
+           "steady_state": [{k: r[k] for k in (
+               "workload", "dpus", "event_skip", "cycles", "issued", "run_s",
+               "kips", "steps", "steps_per_s", "loop_s", "outside_share")
+               if k in r} for r in rep["steady_state"]]}
+    log("[scripts] torch_engine_perf.py " + " ".join(ENGINE_PERF_ARGV)
+        + ": check passed, launch probe, subset launches and BS rows equal "
+        "to goldens.json, VA's cycles and issued per DPU equal at 1-64 DPUs "
+        "and to [workloads]'s; " + json.dumps(out))
+    return out
+
+
+def _counting_characterize(seen: dict):
+    """Wrap torch_pim_figs.characterize (as torch_run.py imports it) so
+    that ``seen`` gets the launches each call made by kernel; returns the
+    function that puts the plain one back."""
+    import importlib
+    figs = importlib.import_module("benchmarks.torch_pim_figs")
+    plain = figs.characterize
+
+    def characterize(*args, **kw):
+        before = read_launches()
+        rows = plain(*args, **kw)
+        seen["rows"] = len(rows)
+        seen["launches"] = {k: v - before[k]
+                            for k, v in read_launches().items()}
+        return rows
+
+    figs.characterize = characterize
+    return lambda: setattr(figs, "characterize", plain)
+
+
+def _script_run(key: str, path: str, argv: list, want: dict) -> dict:
+    """One twin's ``main`` on the card, in this process, in a working
+    directory of its own made empty first (so that nothing a run caches
+    there, as the figs suite's characterization, comes from an earlier
+    run): exit 0, its printed lines (wall-clock numbers masked) equal to
+    the golden ``want``, no ``error`` row; a torch_run.py suite traced,
+    and passing its ``--check`` where it has one; the figs suite's
+    characterization simulated here, through cycle_step.  Returns its
+    wall and launches by kernel."""
+    import os
+    import shutil
+    import torch
+    from repro_torch import obs
+    sr = _script_runs()
+    mod = sr.load_script(ROOT, path, twin=True)
+    work = OUT_DIR / "scripts" / key.replace("/", "_").replace(" ", "_")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    char: dict = {}
+    restore = _counting_characterize(char) if key == CHAR_RUN else None
+    cwd = os.getcwd()
+    os.chdir(work)
+    reset_launches()                       # counts of this twin only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rc, text = sr.run_main(mod, sr.script_argv(path, argv, OUT_DIR))
+    finally:
+        os.chdir(cwd)
+        obs.set_default_tracer(None)       # --trace sets it process-wide
+        if restore is not None:
+            restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    name = " ".join([Path(path).stem] + list(argv))
+    lines = sr.masked_lines(text, name)
+    check(rc == 0 and want["rc"] == 0,
+          f"[scripts] {key}: exit code {rc} (the reference's: "
+          f"{want['rc']}):\n{text[-3000:]}")
+    errors = [line for line in lines if '"error": ' in line]
+    check(not errors, f"[scripts] {key}: error rows {errors}")
+    if path.endswith("run.py") and "--check" in argv:
+        check(text.splitlines()[-1].startswith("# check: OK"),
+              f"[scripts] {key}: trace check {text.splitlines()[-1]!r}")
+    bad = [i for i, (a, b) in enumerate(zip(lines, want["lines"]))
+           if a != b]
+    check(len(lines) == len(want["lines"]) and not bad,
+          f"[scripts] {key}: {len(lines)} lines against the golden's "
+          f"{len(want['lines'])}; first difference "
+          + (f"{lines[bad[0]]!r} != {want['lines'][bad[0]]!r}"
+             if bad else "in the count"))
+    check(sum(launches.values()) > 0 or key in ENGINE_FREE,
+          f"[scripts] {key} launched no kernel")
+    out = {"key": key, "rc": rc, "wall_s": wall, "launches": launches,
+           "lines": len(lines)}
+    if key == CHAR_RUN:
+        check(char.get("launches", {}).get("cycle_step", 0) > 0
+              and (work / "reports" / "torch_pim_char.json").exists(),
+              f"[scripts] {key}: the characterization behind figures 5-9 "
+              f"was not simulated in this run: {char}")
+        out["characterize"] = char
+    return out
+
+
+def phase_scripts(main_va: dict) -> dict:
+    """The paper's study scripts on the card through their twins:
+    torch_engine_perf.py at full width (:func:`_engine_perf`), then every
+    run of tools/script_runs.py's SCRIPT_RUNS (the examples, the
+    benchmarks' mains, torch_run.py's suites but lm) equal to
+    goldens.json."""
+    from repro_torch.workloads import goldens
+    sr = _script_runs()
+    t0 = time.perf_counter()
+    out = {"engine_perf": _engine_perf(main_va), "runs": []}
+    gold = goldens.load()["scripts"]["runs"]
+    check(set(gold) == set(sr.SCRIPT_RUNS), "[scripts] goldens.json "
+          f"holds {sorted(gold)}, not script_runs.SCRIPT_RUNS")
+    for key, (path, argv) in sr.SCRIPT_RUNS.items():
+        r = _script_run(key, path, argv, gold[key])
+        log(f"[scripts] {key}: exit {r['rc']}, {r['lines']} lines equal to "
+            f"goldens.json (wall-clock numbers masked); wall "
+            f"{r['wall_s']:.3f} s, launches {json.dumps(r['launches'])}"
+            + (f"; its characterization: {json.dumps(r['characterize'])}"
+               if "characterize" in r else ""))
+        out["runs"].append(r)
+    out["launches"] = {}
+    for r in out["runs"]:
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[scripts] phase {out['seconds']:.1f} s, launches "
+        + json.dumps(out["launches"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2231,6 +2446,8 @@ def main(argv=None) -> int:
         simt_run = phase_simt()
         system_run = phase_system()
         cluster_run = phase_cluster(work.pop("recordings"))
+        scripts_run = phase_scripts(
+            next(r for r in work["full"] if r["workload"] == "VA"))
         phase_lm_parity()
         lm_run = phase_lm_main()
         lm_times = phase_lm_kernel_times()
@@ -2263,6 +2480,9 @@ def main(argv=None) -> int:
             **{k["kind"]: k["cycle_step_launches"]
                for k in cluster_run["full"]["kinds"]},
             "trace": cluster_run["trace"]["cycle_step_launches"]},
+        # [scripts]: the study twins in this process, engine_perf in its own
+        "scripts_launches": scripts_run["launches"].get("cycle_step", 0)
+        + scripts_run["engine_perf"]["launches"]["cycle_step"],
     }, {
         # above the resident limit: the full-system path ([system]'s VA),
         # timed at VA's launch at 2,560 DPUs ([step]) beside stepwise
@@ -2292,7 +2512,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "idle_launches": simt_run[f"{name}_idle_launches"],
             "kernel_route": times["route"],
-            "routes": {r: v["ms"] for r, v in times["routes"].items()}})
+            "routes": {r: v["ms"] for r, v in times["routes"].items()},
+            "scripts_launches": scripts_run["launches"].get(name, 0)})
     replaces = {
         "flash_attention":
             ("src/repro/kernels/flash_attention/flash_attention.py:67",
@@ -2364,6 +2585,16 @@ def main(argv=None) -> int:
         f"{lease['runs']['lease']['pool_ticks']} ticks, tokens equal, lost "
         f"lease decoded on the host; phase {cluster_run['seconds']:.1f} s "
         f"+ lease {lease['seconds']:.1f} s")
+    ep = scripts_run["engine_perf"]
+    log(f"[report] scripts: {len(scripts_run['runs'])} twin runs equal to "
+        f"goldens.json in {scripts_run['seconds']:.1f} s; torch_engine_perf "
+        f"cold {ep['cold_s']} s, warm {ep['warm_s']} s ({ep['speedup']}x), "
+        "steady state " + ", ".join(
+            f"{r['workload']}@{r['dpus']}"
+            + ("" if r.get("event_skip", True) else " (no event skip)")
+            + f" {r['run_s']} s, {r['kips']} KIPS, {r['steps_per_s']:.1f} "
+            f"steps/s, set-up {r['outside_share']:.3f}"
+            for r in ep["steady_state"]))
     log(f"[report] workloads: {work['golden_runs']} golden runs equal; full "
         f"width KIPS " + ", ".join(f"{r['workload']} {r['kips']:.1f}"
                                    for r in work["full"]))

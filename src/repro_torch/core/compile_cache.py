@@ -40,11 +40,14 @@ per launch and the step updates its WRAM/MRAM tensors in place instead.
 :func:`prepare` sets a launch up as :func:`run` drives it (profilers use
 it); :func:`prewarm` builds an entry ahead of time; :func:`stats` exposes
 the hit/miss counters the tests assert on, plus the steps the driver
-took.
+took and the wall it spent in its K-step loops (``loop_s``: a caller that
+reads its delta across a run tells the run's set-up, the state and MRAM
+image to the device and back and the host's work, from its simulation).
 """
 from __future__ import annotations
 
 import threading
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
@@ -95,6 +98,7 @@ class _Entry:
     key: tuple
     launches: int = 0
     steps: int = 0
+    loop_s: float = 0.0
     drivers: Dict[str, tuple] = field(default_factory=dict)
 
     def driver(self, device: torch.device) -> tuple:
@@ -271,10 +275,14 @@ def _traced_step(step: Callable, ir: torch.Tensor,
 
 
 def _drive(prep: Prepared, k: int) -> Dict[str, torch.Tensor]:
-    """Run a prepared launch to termination, ``k`` steps per check."""
+    """Run a prepared launch to termination, ``k`` steps per check (its
+    wall, from the state on the device to the predicate false, added to
+    the entry's ``loop_s``)."""
+    t0 = time.perf_counter()
     prep.finish(k)                 # one flag read per k steps
     prep.entry.steps += prep.steps
     prep.entry.launches += 1
+    prep.entry.loop_s += time.perf_counter() - t0
     return prep.st
 
 
@@ -330,11 +338,14 @@ def prewarm(cfg: DPUConfig, binary, mram_words: int = None,
 # ---------------------------------------------------------------------------
 
 
-def stats() -> Dict[str, int]:
+def stats() -> Dict[str, float]:
     """Cache counters.  ``misses`` counts driver builds — a same-shape
     relaunch must leave it unchanged; ``steps`` counts engine steps taken
     by every driver (K per launch of the fused kernel on the card, the
-    steps past the predicate included)."""
+    steps past the predicate included); ``loop_s`` is the wall seconds
+    every driver spent in its K-step loops (on the card, the kernel
+    launches and flag reads).  Each but ``entries`` is cumulative until
+    :func:`clear`: a caller reads a run's share as the delta across it."""
     with _LOCK:
         return {
             "entries": len(_ENTRIES),
@@ -342,6 +353,7 @@ def stats() -> Dict[str, int]:
             "misses": _MISSES,
             "launches": sum(e.launches for e in _ENTRIES.values()),
             "steps": sum(e.steps for e in _ENTRIES.values()),
+            "loop_s": sum(e.loop_s for e in _ENTRIES.values()),
         }
 
 

@@ -55,40 +55,58 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = (),
-                 flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``.
+def build_library(name: str, sources: Sequence[Path],
+                  headers: Sequence[Path] = (),
+                  flags: Sequence[str] = ()) -> Path:
+    """Build ``lib<name>-<hash>.so`` from ``sources`` unless it is on disk
+    already, and return its path (without loading it).
 
     ``headers`` only enter the hash; ``flags`` are added to
     :data:`NVCC_FLAGS` (and enter the hash).  What nvcc prints (e.g.
     ``-Xptxas -v``'s registers and spills) is kept beside the library in
-    :func:`build_log`.  Raises ``RuntimeError`` when the build or the
-    load fails.  Thread-safe; calls for different names build
-    concurrently."""
+    :func:`build_log`.  Raises ``RuntimeError`` when the build fails.
+    Thread-safe; calls for different names build concurrently."""
+    with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name, sources, headers, flags)
+
+
+def _build(name, sources, headers, flags) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    for p in list(sources) + list(headers):
+        h.update(Path(p).read_bytes())
+    out_dir = build_dir()
+    out = out_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               *[str(s) for s in sources]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = (),
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed, :func:`build_library`) and load
+    ``lib<name>-<hash>.so`` from ``sources``, once a process.  Raises
+    ``RuntimeError`` when the build or the load fails.  Thread-safe;
+    calls for different names build concurrently."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
-        for p in list(sources) + list(headers):
-            h.update(Path(p).read_bytes())
-        out_dir = build_dir()
-        out = out_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
-        if not out.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
-                   *[str(s) for s in sources]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, out)
+        out = _build(name, sources, headers, flags)
         try:
             lib = ctypes.CDLL(str(out))
         except OSError as e:

@@ -30,13 +30,14 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import isa
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import build_library, load_library
 
 #: ptxas reports registers and spills (kept in the build log)
 FLAGS = ("-Xptxas", "-v")
@@ -130,14 +131,22 @@ class StepLibrary:
         self.layout, self.launchers = layout, launchers
         self._libs: Dict[bool, ctypes.CDLL] = {}
 
+    def _lib_args(self, sections: bool) -> tuple:
+        return (self.name + ("_sections" if sections else ""), self.sources,
+                self.headers, FLAGS + ((SECTIONS_FLAG,) if sections else ()))
+
+    def build(self) -> Path:
+        """Build the plain library on disk if it is not there yet, without
+        loading it into the process (so a later first launch times the
+        load and not nvcc); returns its path."""
+        return build_library(*self._lib_args(False))
+
     def load(self, sections: bool = False) -> ctypes.CDLL:
         """Build (once) and load the library (``sections``: the profiling
         build); raises if its layout is not this module's."""
         if sections in self._libs:
             return self._libs[sections]
-        lib = load_library(self.name + ("_sections" if sections else ""),
-                           self.sources, self.headers,
-                           FLAGS + ((SECTIONS_FLAG,) if sections else ()))
+        lib = load_library(*self._lib_args(sections))
         got = {}
         for key in self.layout:
             fn = getattr(lib, f"{self.name}_{key}")

@@ -339,7 +339,9 @@ def cluster_entries(run) -> dict:
 
 def load() -> dict:
     """``goldens.json``: ``{"configs": ..., "entries": {key: {workload:
-    entry}}, "remap": entry, "cluster": cluster entries}``."""
+    entry}}, "remap": entry, "cluster": cluster entries, "scripts":
+    {"runs": {key: script entry}, "engine_perf": {key: row}}}`` (the
+    entry points' goldens: ``tools/script_runs.py``)."""
     with open(PATH) as f:
         return json.load(f)
 

@@ -28,7 +28,7 @@ EDGE = [(9, INT_MIN, -1), (9, 5, 0), (5, 1, 33), (7, -8, 1), (8, 2**30, 2),
         (2, -1, 12345), (3, 0, -7), (4, -1, 5),
         (-1, 5, 1), (12, 6, 2), (16, 7, 3), (28, 8, 4), (30, 9, 5)]
 
-# reference values quoted in ROADMAP.md (queue 1, item 2)
+# values of the semantics ROADMAP.md §2 states in its `alu_exec` row
 KNOWN = [((6, -8, 1), 0x7FFFFFFC), ((5, 1, 33), 2), ((11, -1, 3), 0),
          ((9, INT_MIN, -1), INT_MIN), ((9, 5, 0), -1), ((30, 9, 5), 0)]
 

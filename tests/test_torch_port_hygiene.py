@@ -73,7 +73,24 @@ SCHEDULER_DEVICE_LINES = [
 #: the port's entry points beside their twins (each a copy with --device)
 SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
            "benchmarks/torch_trace_replay.py", "examples/torch_pim_cluster.py",
-           "examples/torch_serve_lm.py"]
+           "examples/torch_serve_lm.py",
+           "benchmarks/torch_engine_perf.py", "benchmarks/torch_comm_scaling.py",
+           "benchmarks/torch_fault_tolerance.py",
+           "benchmarks/torch_overlap_scaling.py",
+           "benchmarks/torch_rank_overlap.py",
+           "benchmarks/torch_pathfind_arch.py", "benchmarks/torch_run.py",
+           "examples/torch_pim_characterize.py",
+           "examples/torch_pim_comm_pathfind.py",
+           "examples/torch_pim_arch_compare.py",
+           "examples/torch_pim_async_pipeline.py",
+           "examples/torch_pim_sample_sort.py"]
+#: how each study script of SCRIPTS starts with no device named: its
+#: main() with its defaults, or (no main) its first bench at a small scale
+STUDY_ENTRIES = {
+    "benchmarks/torch_comm_scaling.py":
+        lambda m: m.comm_strong_scaling(0.01),
+    "benchmarks/torch_pathfind_arch.py": lambda m: m.compare(0.01),
+}
 
 
 def _port_files():
@@ -82,7 +99,9 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "benchmarks/torch_pim_figs.py",
                                          ROOT / "tools/torch_step_profile.py",
-                                         ROOT / "tools/torch_lm_profile.py"] \
+                                         ROOT / "tools/torch_lm_profile.py",
+                                         ROOT / "tools/torch_cluster_profiles.py",
+                                         ROOT / "tools/script_runs.py"] \
         + [ROOT / s for s in SCRIPTS]
 
 
@@ -108,7 +127,8 @@ def test_no_jax_or_repro_imports(path):
 
 #: the scripts the blocked-import test runs as modules (their main()
 #: stays behind the __main__ check)
-EXECUTED = ["chip_smoke.py", "benchmarks/torch_pim_figs.py"] + SCRIPTS
+EXECUTED = ["chip_smoke.py", "benchmarks/torch_pim_figs.py",
+            "tools/script_runs.py"] + SCRIPTS
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -181,6 +201,22 @@ def test_default_device_raises_without_a_card():
                   lambda: transformer.init_cache(lm, 1, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
+
+
+@pytest.mark.parametrize("script", SCRIPTS[5:])
+def test_study_scripts_default_to_the_card(script):
+    """Each study twin runs on the card unless told otherwise: with no
+    ``--device`` it raises without one, before it simulates anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(Path(script).stem,
+                                                  ROOT / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    start = STUDY_ENTRIES.get(script, lambda m: m.main([]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        start(mod)
 
 
 def test_unported_backends_name_their_roadmap_item():

@@ -9,17 +9,22 @@ Fig. 11's five designs), the remap scenario (``goldens.REMAP``: HST-S
 on g4 with one DPU killed at the first launch) and the cluster
 (``goldens.CLUSTER``: benchmarks/cluster_load.py's system and tenant mix
 with measured profiles, each policy at each fault rate) on the JAX
-package, and
+package, and the entry points (``script_runs.SCRIPT_RUNS``: the
+benchmark and example scripts' printed lines at the arguments
+``chip_smoke.py`` [scripts] runs their twins at, wall-clock numbers
+masked; ``script_runs.ENGINE_PERF``: benchmarks/engine_perf.py's modeled
+rows), and
 records each run with ``goldens.run_entry``, the function the port's
 tests and ``chip_smoke.py`` compare with (a run that raises is recorded
 by its exception and the digest of its capped state).  The card's
 machine has no JAX, so this runs on a CPU with JAX installed:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_workload_goldens.py
-        [--only KEY ... | --only cluster]
+        [--only KEY ... | --only cluster | --only scripts]
 
 ``--only`` writes only those configurations (``cluster``: the cluster
-goldens; no remap scenario either way) into
+goldens; ``scripts``: the entry points'; no remap scenario either way)
+into
 the existing file, under a lock, and leaves every other entry as it was:
 several ``--only`` runs may go at once.
 """
@@ -30,14 +35,19 @@ import fcntl
 import json
 import sys
 import time
+from pathlib import Path
 
-import repro.workloads as wl
-from repro import cluster
-from repro.core import compile_cache
-from repro.core.config import DPUConfig
-from repro.core.host import PIMSystem
-from repro.faults.model import FaultPlan, kill_dpu
-from repro_torch.workloads import goldens
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import repro.workloads as wl  # noqa: E402
+from repro import cluster  # noqa: E402
+from repro.core import compile_cache  # noqa: E402
+from repro.core.config import DPUConfig  # noqa: E402
+from repro.core.host import PIMSystem  # noqa: E402
+from repro.faults.model import FaultPlan, kill_dpu  # noqa: E402
+from repro_torch.workloads import goldens  # noqa: E402
+import script_runs  # noqa: E402
 
 
 def _config(key: str) -> dict:
@@ -74,6 +84,71 @@ def _cluster() -> dict:
     return out
 
 
+def script_entry(path: str, argv: list) -> dict:
+    """The golden of one entry point's run on the JAX package: its exit
+    code and its printed lines, wall-clock numbers masked (a run.py suite
+    traced and checked, as ``chip_smoke.py`` runs its twin)."""
+    import tempfile
+    from repro import obs
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            rc, text = script_runs.run_main(
+                script_runs.load_script(ROOT, path),
+                script_runs.script_argv(path, argv, td))
+        finally:
+            obs.set_default_tracer(None)   # --trace sets it process-wide
+    name = " ".join([Path(path).stem] + list(argv))
+    return {"script": path, "argv": list(argv), "rc": rc,
+            "lines": script_runs.masked_lines(text, name)}
+
+
+def engine_perf_entry(key: str) -> dict:
+    """benchmarks/engine_perf.py's row ``key`` of
+    ``script_runs.ENGINE_PERF`` on the JAX package, wall-clock values
+    masked."""
+    fn, args, kw = script_runs.ENGINE_PERF[key]
+    mod = script_runs.load_script(ROOT, "benchmarks/engine_perf.py")
+    return script_runs.modeled(getattr(mod, fn)(*args, **kw),
+                               script_runs.wall_keys("engine_perf"))
+
+
+def _script_task(kind: str, key: str) -> tuple:
+    """One golden of :func:`_scripts` (run in a worker process)."""
+    t0 = time.perf_counter()
+    entry = (script_entry(*script_runs.SCRIPT_RUNS[key]) if kind == "runs"
+             else engine_perf_entry(key))
+    return entry, time.perf_counter() - t0
+
+
+def _scripts() -> dict:
+    """The entry points' goldens, four runs at a time (each in a process
+    of its own: the runs are independent, and the fault studies alone
+    take the JAX package minutes on the CPU)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    tasks = [("runs", k) for k in script_runs.SCRIPT_RUNS] \
+        + [("engine_perf", k) for k in script_runs.ENGINE_PERF]
+    # the fault studies and the figs suite take longest: start them first
+    tasks.sort(key=lambda t: not any(w in t[1] for w in ("fault", "figs")))
+    out = {"runs": {}, "engine_perf": {}}
+    with ProcessPoolExecutor(
+            max_workers=4,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {t: pool.submit(_script_task, *t) for t in tasks}
+        for (kind, key), fut in futures.items():
+            out[kind][key], secs = fut.result()
+            e = out[kind][key]
+            if kind == "engine_perf":
+                print(f"scripts engine_perf {key}: {e} ({secs:.1f} s)",
+                      flush=True)
+                continue
+            print(f"scripts {key}: exit {e['rc']}, {len(e['lines'])} lines "
+                  f"({secs:.1f} s)", flush=True)
+            if e["rc"] != 0 or any('"error": ' in ln for ln in e["lines"]):
+                print("\n".join(e["lines"][-8:]), flush=True)
+    return out
+
+
 def _write(out: dict):
     with open(goldens.PATH, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
@@ -83,18 +158,20 @@ def _write(out: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", metavar="KEY",
-                    choices=sorted(goldens.CONFIGS) + ["cluster"],
+                    choices=sorted(goldens.CONFIGS) + ["cluster",
+                                                       "scripts"],
                     help="write only these configurations")
     args = ap.parse_args(argv)
     if args.only:
-        new = {key: _cluster() if key == "cluster" else _entries(key)
+        made = {"cluster": _cluster, "scripts": _scripts}
+        new = {key: made[key]() if key in made else _entries(key)
                for key in args.only}
         with open(goldens.PATH.with_suffix(".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             out = goldens.load()
             for key, entries in new.items():
-                if key == "cluster":
-                    out["cluster"] = entries
+                if key in made:
+                    out[key] = entries
                     continue
                 out["configs"][key] = _config(key)
                 out["entries"][key] = entries
@@ -108,6 +185,7 @@ def main(argv=None) -> int:
     out["remap"] = goldens.remap_entry(rep, system, st)
     print(f"remap {goldens.REMAP}: {out['remap']['fault_log']}", flush=True)
     out["cluster"] = _cluster()
+    out["scripts"] = _scripts()
     _write(out)
     print(f"wrote {goldens.PATH}")
     return 0
