@@ -19,7 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
              ALU bitwise (tolerance 0); flash attention at the cases of
              tests/test_kernels.py (f32 2e-5 on the scalar kernel, bf16
              1e-2 on the tensor-core one), at shapes that stress the
-             tensor-core kernel's tiling and at llama3-8b's prefill shape;
+             tensor-core kernel's tiling and at every family's prefill
+             shape (llama3-8b's; qwen3-moe's GQA 8:1, deepseek's MLA with
+             Dk 192 / Dv 128, recurrentgemma's MQA with a 2,048-token
+             window at D 256, seamless's bidirectional encoder at D 64,
+             llava's 4,096 patch-prefixed positions);
              the SSD scan's scalar kernel at its test cases and at
              mamba2-130m's prefill shape (f32 2e-4, bf16 1e-2), its
              tensor-core route at the card tests' shapes and at that
@@ -90,16 +94,29 @@ Phases (any failure exits non-zero and prints no result line):
              routes in turns, the path's the faster) beside the eager
              card step's and its bytes bound (the leaves the kernel
              touches and the words it moves);
-8. lm      — (a) card vs CPU: llama3-8b and mamba2-130m at full width and
-             2 layers in float32 (TF32 off), one 384-token prompt (two
-             SSD chunks, the second ragged): prefill logits and caches
-             agree within 1e-3; (b) the LM serving path
-             at full width and depth in bf16: prefill of 4 prompts (1024
-             tokens for llama3-8b, 2048 for mamba2-130m), 32 greedy
-             decode steps, and a ServeEngine answering 4 requests, with
-             every flash / SSD call counted as a launch (all 32 llama3-8b
-             prefill launches on the tensor-core flash kernel, all 24
-             mamba2-130m prefill scans on the tensor-core SSD route);
+8. lm      — (a) card vs CPU, float32 (TF32 off), one prompt of 384
+             positions, at full width but cut depth: llama3-8b,
+             mamba2-130m (two SSD chunks, the second ragged) and
+             qwen3-moe-30b-a3b at 2 layers, recurrentgemma-9b at one
+             (rglru, rglru, local) group, seamless-m4t-large-v2 at one
+             encoder and one decoder layer (384 frames, then its BOS
+             step), llava-next-mistral-7b at 2 layers (256 patches + 128
+             tokens), deepseek-v3-671b at its smoke width: prefill logits
+             and every cache leaf agree within 1e-3, one scalar flash
+             launch an attention layer; (b) the LM serving path of every
+             family at full width in bf16 (LM_PATHS): two prefills (the
+             second timed), 32 greedy decode steps, and a ServeEngine
+             answering 4 requests, one model loaded at a time, each run's
+             launches counted alone, per prefill:
+             llama3-8b (4 x 1,024 tokens; 32 flash launches),
+             mamba2-130m (4 x 2,048; 24 SSD scans on the tensor-core
+             route), qwen3-moe-30b-a3b at 24 of 48 layers (4 x 1,024;
+             24), deepseek-v3-671b at 1 dense + 1 MoE layer (1 x 256; 2),
+             recurrentgemma-9b (4 x 4,096, the window ring wrapped; 12),
+             seamless-m4t-large-v2 (4 x 1,024 frames, then BOS; 24, its
+             encoder), llava-next-mistral-7b (4 x (2,880 patches + 1,216
+             tokens); 32), every flash launch on the tensor-core kernel,
+             finite logits, peak memory under 80 GB;
 9. system  — the reference's full-system cell (src/repro/launch/
              dryrun.py run_pim_cell: 2,560 DPUs, 16 tasklets, 1 MiB MRAM,
              VA at scale 1.0, seed 0) through PIMSystem on the card, on
@@ -1978,6 +1995,28 @@ FLASH_SM90_CASES = [(1000, 4, 2, 128, 128, True, 0),
 #: llama3-8b prefill in the LM main path: 4 prompts of 1024 tokens
 FLASH_MAIN = dict(b=4, s=1024, h=32, kv=8, dk=128, dv=128, causal=True,
                   window=0)
+#: the flash kernel's shapes in the other families' prefills on the main
+#: path (LM_PATHS), each launched once per attention layer: name -> (its
+#: configuration, the shape)
+FLASH_FAMILIES = {
+    # qwen3-moe-30b-a3b: 4 x 1,024 tokens, GQA with H / KV = 8
+    "moe": ("qwen3-moe-30b-a3b", dict(b=4, s=1024, h=32, kv=4, dk=128,
+                                      dv=128, causal=True, window=0)),
+    # deepseek-v3-671b's MLA: Dk = qk_nope + qk_rope, Dv = v_head, 1 x 256
+    "mla": ("deepseek-v3-671b", dict(b=1, s=256, h=128, kv=128, dk=192,
+                                     dv=128, causal=True, window=0)),
+    # recurrentgemma-9b's local attention: MQA, a 2,048-token window
+    "window": ("recurrentgemma-9b", dict(b=4, s=4096, h=16, kv=1, dk=256,
+                                         dv=256, causal=True, window=2048)),
+    # seamless-m4t-large-v2's encoder over 4 x 1,024 frames
+    "encoder": ("seamless-m4t-large-v2", dict(b=4, s=1024, h=16, kv=16,
+                                              dk=64, dv=64, causal=False,
+                                              window=0)),
+    # llava-next-mistral-7b: 2,880 patches + 1,216 text tokens
+    "patch_prefix": ("llava-next-mistral-7b", dict(b=4, s=4096, h=32, kv=8,
+                                                   dk=128, dv=128,
+                                                   causal=True, window=0)),
+}
 #: tests/test_kernels.py's SSD cases as (B, S, H, G, P, N, chunk) — its
 #: (BH, S, .) rows are BH heads, each its own group — and a ragged one
 SSD_CASES = [(1, 64, 3, 3, 8, 8, 16), (1, 128, 3, 3, 16, 8, 32),
@@ -2052,6 +2091,9 @@ def phase_lm_kernels() -> dict:
              for dt in ("float32", "bfloat16")]
     flash += [(dict(zip(keys, c), b=2), "bfloat16") for c in FLASH_SM90_CASES]
     flash += [(FLASH_MAIN, "float32"), (FLASH_MAIN, "bfloat16")]
+    family_of = {id(shape): name for name, (_, shape)
+                 in FLASH_FAMILIES.items()}
+    flash += [(shape, "bfloat16") for _, shape in FLASH_FAMILIES.values()]
     for shape, dt in flash:
         q, k, v = _flash_inputs(gen, dtype=getattr(torch, dt), **shape)
         kernel = fops.route(q.dtype, shape["dk"], shape["dv"])
@@ -2073,6 +2115,9 @@ def phase_lm_kernels() -> dict:
               f"max |err| {err}")
         if shape is FLASH_MAIN and dt == "bfloat16":
             worst["flash_attention"] = err
+        if id(shape) in family_of:
+            worst[f"flash_attention ({family_of[id(shape)]})"] = err
+        del q, k, v, got, want
     keys = ("b", "s", "h", "g", "p", "n", "chunk")
     ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
     ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES]
@@ -2111,61 +2156,109 @@ def phase_lm_kernels() -> dict:
     return worst
 
 
-def _lm_model(arch: str, n_layers=None, dtype=None, seed=0):
+def _lm_model(arch: str, dtype=None, seed=0, smoke=False, **replace):
+    """(cfg, Transformer on the card) of ``arch`` (its smoke width if
+    ``smoke``), with ``replace``'s fields (a cut depth) and random weights
+    from ``seed``."""
     import torch
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import get_config, get_smoke_config
     from repro_torch.models.transformer import Transformer
-    cfg = get_config(arch)
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = (get_smoke_config if smoke else get_config)(arch)
     if dtype is not None:
-        cfg = cfg.replace(dtype=dtype)
+        replace["dtype"] = dtype
+    cfg = cfg.replace(**replace)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return cfg, Transformer(cfg, device="cuda", generator=gen)
 
 
-def phase_lm_parity():
-    """Each family at full width, 2 layers, float32: prefill of one
-    prompt of LM_PARITY_TOKENS on the card (kernels) and on the CPU
-    (plain versions) agree within LM_PARITY_TOL."""
+def _lm_inputs(cfg, batch: int, text: int, frontend: int, seed: int,
+               device) -> dict:
+    """A prefill batch made from ``seed`` on ``device``: ``text`` tokens
+    (none for encdec), and vlm's ``frontend`` patch embeddings or
+    encdec's ``frontend`` frame embeddings (the frontends are stubs in the
+    JAX package too: callers pass embeddings)."""
     import torch
-    from repro_torch.models.transformer import Transformer
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    if cfg.family != "encdec":
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (batch, text),
+                                      generator=gen, device=device)
+    key = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
+    if key is not None:
+        out[key] = torch.randn((batch, frontend, cfg.d_model),
+                               generator=gen, device=device)
+    return out
+
+
+#: [lm] (a): each family at full width but cut depth (deepseek at its smoke
+#: width: its full width is ~56 GB and several TFLOP on the CPU side), one
+#: prompt of LM_PARITY_TOKENS positions, float32: (arch, smoke width?,
+#: config fields replaced, text tokens, patches or frames, flash launches)
+LM_PARITY = [
+    ("llama3-8b", False, dict(n_layers=2), LM_PARITY_TOKENS, 0, 2),
+    ("mamba2-130m", False, dict(n_layers=2), LM_PARITY_TOKENS, 0, 0),
+    ("qwen3-moe-30b-a3b", False, dict(n_layers=2), LM_PARITY_TOKENS, 0, 2),
+    # one (rglru, rglru, local) group
+    ("recurrentgemma-9b", False, dict(n_layers=3), LM_PARITY_TOKENS, 0, 1),
+    # one encoder and one decoder layer: the prefill encodes the frames
+    # (one flash launch) and decodes a BOS
+    ("seamless-m4t-large-v2", False,
+     dict(n_layers=2, n_enc_layers=1, n_dec_layers=1), 0, LM_PARITY_TOKENS,
+     1),
+    # 256 patches + 128 text tokens: the CPU side's blocked attention stays
+    # exact (S <= attn_chunk, ROADMAP §3)
+    ("llava-next-mistral-7b", False, dict(n_layers=2), 128,
+     LM_PARITY_TOKENS - 128, 2),
+    # 1 dense (MLA) + 2 MoE layers
+    ("deepseek-v3-671b", True, {}, LM_PARITY_TOKENS, 0, 3),
+]
+
+
+def phase_lm_parity():
+    """Each family at full width, cut depth (LM_PARITY), float32: prefill
+    of one prompt of LM_PARITY_TOKENS positions on the card (kernels) and
+    on the CPU (plain versions) agree within LM_PARITY_TOL, logits and
+    every cache leaf, with one flash launch (scalar kernel) per attention
+    layer or one SSD scan per mamba2 layer."""
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for arch in ("llama3-8b", "mamba2-130m"):
-        cfg, gpu = _lm_model(arch, n_layers=2, dtype="float32", seed=1)
-        toks = torch.randint(0, cfg.vocab_size, (1, LM_PARITY_TOKENS),
-                             generator=torch.Generator().manual_seed(2))
+    for arch, smoke, replace, text, frontend, n_flash in LM_PARITY:
+        cfg, model = _lm_model(arch, dtype="float32", seed=1, smoke=smoke,
+                               **replace)
+        batch = _lm_inputs(cfg, 1, text, frontend, 2, "cpu")
         reset_launches()
         t0 = time.perf_counter()
-        lg, cg = gpu.prefill({"tokens": toks.cuda()})
+        lg, cg = model.prefill({k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         launches = read_launches()
-        cpu = Transformer(cfg, device="cpu")
-        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-        del gpu
+        model = model.cpu()              # the same weights, on the CPU
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        lc, cc = cpu.prefill({"tokens": toks})
+        lc, cc = model.prefill(batch)
         t_cpu = time.perf_counter() - t0
+        check(sorted(cg) == sorted(cc) and cg["pos"] == cc["pos"],
+              f"{arch}: card cache {sorted(cg)} != CPU cache {sorted(cc)}")
         errs = {"logits": _max_err(lg.cpu(), lc)}
         errs.update({k: _max_err(cg[k].cpu(), cc[k]) for k in cc
                      if k != "pos"})
-        kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
-        log(f"[lm] {arch} full width, 2 layers, float32, "
-            f"{LM_PARITY_TOKENS} tokens: card "
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        want = cfg.n_layers if cfg.family == "ssm" else n_flash
+        log(f"[lm] {cfg.name} {'smoke' if smoke else 'full'} width, "
+            f"{replace or 'all layers'}, float32, "
+            f"{text} tokens + {frontend} patches/frames: card "
             f"vs CPU max |err| {errs} (tolerance {LM_PARITY_TOL}); "
             f"{kernel} launches {launches[kernel]}; card {t_gpu:.2f} s, "
             f"CPU {t_cpu:.2f} s")
-        check(launches[kernel] == cfg.n_layers,
-              f"{arch}: {kernel} launches {launches[kernel]} != 2 layers")
+        check(launches[kernel] == want,
+              f"{arch}: {kernel} launches {launches[kernel]} != {want}")
         check(launches["flash_attention_sm90"] == 0
               and launches["ssd_scan_tc"] == 0,
               f"{arch}: float32 reached a bf16 tensor-core kernel")
         bad = {k: e for k, e in errs.items() if not e <= LM_PARITY_TOL}
         check(not bad, f"{arch} card vs CPU prefill differs: {bad}")
-        del cpu
+        del model, lg, cg, lc, cc
 
 
 def _serve_engine(cfg, model, pim_pool=None, lose=None):
@@ -2196,28 +2289,68 @@ def _serve_engine(cfg, model, pim_pool=None, lose=None):
     return eng, wall
 
 
-def lm_path(arch: str, prompt_len: int, batch: int = 4,
-            decode_steps: int = 32, after=None) -> dict:
-    """The LM serving path at full width and depth in bf16: prefill,
-    greedy decode steps past it, then a ServeEngine; ``after(cfg, model,
-    tokens)``, given, runs last on the loaded model with the engine's
-    tokens (its result kept as ``"after"``)."""
+#: the LM serving path of every family in bf16 (full width; depth cut
+#: only where the float32 weights would not fit the card's 80 GB):
+#: (arch, config fields replaced, batch, text tokens, patches or frames,
+#: flash launches in one prefill: one a self-attention layer, encdec's
+#: encoder layers alone)
+LM_PATHS = [
+    ("llama3-8b", {}, 4, 1024, 0, 32),
+    ("mamba2-130m", {}, 4, 2048, 0, 0),
+    # 24 of 48 layers (48: 122 GB of float32 weights)
+    ("qwen3-moe-30b-a3b", dict(n_layers=24), 4, 1024, 0, 24),
+    # 1 dense (MLA) + 1 MoE layer of 256 experts (~56 GB)
+    ("deepseek-v3-671b", dict(n_layers=2, n_dense_layers=1), 1, 256, 0, 2),
+    # 38 layers: 12 groups (one local-attention layer each) + 2 rglru; the
+    # 4,096-token prompts fill the 2,048-slot window ring twice
+    ("recurrentgemma-9b", {}, 4, 4096, 0, 12),
+    # 24 + 24 layers; the prefill encodes 1,024 frames, then decodes a BOS
+    ("seamless-m4t-large-v2", {}, 4, 0, 1024, 24),
+    # 32 layers; 2,880 anyres patches + 1,216 text tokens
+    ("llava-next-mistral-7b", {}, 4, 1216, 2880, 32),
+]
+#: prefills of each LM_PATHS run: the first carries one-time costs (lazy
+#: loading of library kernels, their heuristics, first allocations) that
+#: spread its time 0.27-0.72 s at llama3-8b's on one H100, so the second
+#: is the one timed (tools/lm_prefill_ab.py)
+LM_PREFILLS = 2
+
+
+def _pad_positions(cache, n: int, family: str):
+    """Room for ``n`` more positions in the dense, moe and vlm cache
+    leaves (axis 2); the hybrid ring and encdec's self cache (as long as
+    the source) need none."""
     import torch
     import torch.nn.functional as F
-    cfg, model = _lm_model(arch, seed=3)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(4), device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": toks})
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
+    if family not in ("dense", "moe", "vlm"):
+        return cache
+    return {k: F.pad(v, [0, 0] * (v.dim() - 3) + [0, n])
+            if torch.is_tensor(v) else v for k, v in cache.items()}
+
+
+def lm_path(arch: str, replace: dict, batch: int, text: int, frontend: int,
+            decode_steps: int = 32, after=None) -> dict:
+    """The LM serving path at full width in bf16: LM_PREFILLS prefills
+    (the last timed, the first's time kept), greedy decode steps past the
+    last, then a ServeEngine; ``after(cfg, model, tokens)``,
+    given, runs last on the loaded model with the engine's tokens (its
+    result kept as ``"after"``)."""
+    import torch
+    cfg, model = _lm_model(arch, seed=3, **replace)
+    inputs = _lm_inputs(cfg, batch, text, frontend, 4, "cuda")
+    t_prefill = []
+    for _ in range(LM_PREFILLS):     # the first carries one-time costs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(inputs)
+        torch.cuda.synchronize()
+        t_prefill.append(time.perf_counter() - t0)
     check(bool(torch.isfinite(logits).all()),
           f"{arch}: prefill logits not finite")
-    if cfg.family == "dense":  # room for the decoded tokens
-        cache = {k: F.pad(v, (0, 0, 0, 0, 0, decode_steps))
-                 if torch.is_tensor(v) else v for k, v in cache.items()}
+    pos = cache["pos"]
+    check(pos == (1 if cfg.family == "encdec" else text + frontend),
+          f"{arch}: prefill pos {pos}")
+    cache = _pad_positions(cache, decode_steps, cfg.family)
     nxt = logits.argmax(-1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2228,15 +2361,16 @@ def lm_path(arch: str, prompt_len: int, batch: int = 4,
     t_decode = time.perf_counter() - t0
     check(bool(torch.isfinite(logits).all()),
           f"{arch}: decode logits not finite")
-    check(cache["pos"] == prompt_len + decode_steps,
-          f"{arch}: pos {cache['pos']}")
+    check(cache["pos"] == pos + decode_steps, f"{arch}: pos {cache['pos']}")
     res = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "cut": replace,
            "params": sum(p.numel() for p in model.parameters()),
-           "batch": batch, "prompt": prompt_len, "prefill_s": t_prefill,
-           "prefill_tokens_per_s": batch * prompt_len / t_prefill,
+           "batch": batch, "text": text, "frontend": frontend,
+           "prefill_first_s": t_prefill[0], "prefill_s": t_prefill[-1],
+           "prefill_tokens_per_s": batch * (text + frontend) / t_prefill[-1],
            "decode_steps": decode_steps,
            "decode_ms_per_step": t_decode / decode_steps * 1e3}
-    del cache
+    del cache, inputs
     eng, wall = _serve_engine(cfg, model)
     res.update({"serve_wall_s": wall, "serve_requests": len(eng.requests),
                 "serve_tokens": sum(len(r.out)
@@ -2250,35 +2384,45 @@ def lm_path(arch: str, prompt_len: int, batch: int = 4,
 
 
 def phase_lm_main() -> dict:
-    """The LM serving path of both families, with the kernel launch counts
-    taken from this run alone: flash once per llama3-8b layer per prefill,
-    the SSD scan once per mamba2-130m layer per prefill.  [cluster] (d)
+    """The LM serving path of every family (LM_PATHS), one model loaded at
+    a time, each run's launch counts set to 0 just before it and read
+    just after: flash once per self-attention layer per prefill (all on
+    the tensor-core kernel), the SSD scan once per mamba2-130m layer per
+    prefill (all on the tensor-core route), nothing else.  [cluster] (d)
     (:func:`lease_serve`) runs on the loaded llama3-8b, counted apart."""
+    import gc
     import torch
     runs = []
     lease = None
-    reset_launches()                       # counts of this path only
-    for arch, prompt in (("llama3-8b", 1024), ("mamba2-130m", 2048)):
+    total = dict.fromkeys(_counters(), 0)
+    for arch, replace, batch, text, frontend, n_flash in LM_PATHS:
         torch.cuda.reset_peak_memory_stats()
-        runs.append(lm_path(arch, prompt, after=lease_serve
-                            if arch == "llama3-8b" else None))
-        lease = runs[-1].pop("after", lease)
-        log(f"[lm] main path: {json.dumps(runs[-1])}")
+        reset_launches()                   # counts of this run only
+        run = lm_path(arch, replace, batch, text, frontend,
+                      after=lease_serve if arch == "llama3-8b" else None)
+        launches = read_launches()
+        lease = run.pop("after", lease)
+        run["launches"] = {k: n for k, n in launches.items() if n}
+        runs.append(run)
+        log(f"[lm] main path: {json.dumps(run)}")
+        gc.collect()
         torch.cuda.empty_cache()
-    launches = read_launches()
-    check(launches["flash_attention"] == 32 * 1,
-          f"flash_attention launches {launches['flash_attention']} != 32 "
-          "layers x 1 prefill")
-    check(launches["flash_attention_sm90"] == launches["flash_attention"],
-          f"of {launches['flash_attention']} flash_attention launches, "
-          f"{launches['flash_attention_sm90']} on the tensor-core kernel")
-    check(launches["ssd_scan"] == 24 * 1,
-          f"ssd_scan launches {launches['ssd_scan']} != 24 layers x 1 "
-          "prefill")
-    check(launches["ssd_scan_tc"] == launches["ssd_scan"],
-          f"of {launches['ssd_scan']} ssd_scan launches, "
-          f"{launches['ssd_scan_tc']} on the tensor-core route")
-    return {"runs": runs, "launches": launches, "lease": lease}
+        n_flash *= LM_PREFILLS
+        n_ssd = 24 * LM_PREFILLS if arch == "mamba2-130m" else 0
+        check(launches["flash_attention"] == n_flash,
+              f"{arch}: flash_attention launches "
+              f"{launches['flash_attention']} != {n_flash} (one a "
+              "self-attention layer of each prefill)")
+        check(launches["flash_attention_sm90"] == n_flash,
+              f"{arch}: of {n_flash} flash_attention launches, "
+              f"{launches['flash_attention_sm90']} on the tensor-core kernel")
+        check(launches["ssd_scan"] == launches["ssd_scan_tc"] == n_ssd,
+              f"{arch}: ssd_scan launches {launches['ssd_scan']} "
+              f"(tensor-core route {launches['ssd_scan_tc']}) != {n_ssd}")
+        check(run["peak_gb"] < 80, f"{arch}: peak {run['peak_gb']:.1f} GB")
+        for name, n in launches.items():
+            total[name] += n
+    return {"runs": runs, "launches": total, "lease": lease}
 
 
 def _flash_work(b, s, h, kv, dk, dv, causal, window, esize):
@@ -2313,6 +2457,44 @@ def _bound(flops, nbytes, flops_per_s):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_family_times(gen, shape: dict) -> dict:
+    """Device ms of one call at ``shape`` (bf16) of the tensor-core flash
+    kernel (raw launcher, uncounted), of its plain version, and of
+    ``scaled_dot_product_attention`` on the same inputs (``enable_gqa``; a
+    window as an explicit boolean mask), each between CUDA events, beside
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_sm90_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    bf16 = torch.bfloat16
+    q, k, v = _flash_inputs(gen, dtype=bf16, **shape)
+    out = torch.empty((shape["b"], shape["s"], shape["h"], shape["dv"]),
+                      dtype=bf16, device="cuda")
+    causal, window, s = shape["causal"], shape["window"], shape["s"]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window > 0:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    flops, nbytes = _flash_work(esize=2, **shape)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    r = {"ms": cuda_time_ms(lambda: flash_attention_sm90_cuda(
+            q, k, v, out, causal, window), n=50, warm=5),
+         "plain_ms": cuda_time_ms(lambda: flash_attention_ref(
+             q, k, v, causal=causal, window=window), n=2, warm=1),
+         "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+             enable_gqa=True), n=50, warm=5),
+         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+         "bytes": nbytes, "shape": shape}
+    r["tflops"] = flops / r["ms"] / 1e9
+    r["bound_share"] = bound_ms / r["ms"]
+    r["library_ratio"] = r["ms"] / r["library_ms"]
+    return r
 
 
 def phase_lm_kernel_times() -> dict:
@@ -2355,6 +2537,9 @@ def phase_lm_kernel_times() -> dict:
     r["bound_share"] = bound_ms / r["ms"]
     r["library_ratio"] = r["ms"] / r["library_ms"]
     r["scalar_speedup"] = r["scalar_ms"] / r["ms"]
+    del q, k, v, out, qt, kt, vt
+    for name, (_, shape) in FLASH_FAMILIES.items():
+        res[f"flash_attention ({name})"] = _flash_family_times(gen, shape)
     sm = SSD_MAIN
     args = _ssd_inputs(gen, dtype=bf16, **sm)
     y = torch.empty_like(args[0])
@@ -2383,6 +2568,13 @@ def phase_lm_kernel_times() -> dict:
     for name, r in res.items():
         log(f"[kernels] {name} at the main path's shape, bf16: "
             + json.dumps(r))
+    for name, (arch, shape) in FLASH_FAMILIES.items():
+        r = res[f"flash_attention ({name})"]
+        log(f"[kernels] flash_attention at {arch}'s prefill {shape}, bf16: "
+            f"tensor-core kernel {r['ms']:.5f} ms ({r['bound_share']:.3f} of "
+            f"the {r['bound_ms']:.5f} ms bound, by {r['bound_by']}); SDPA "
+            f"{r['library_ms']:.5f} ms (kernel / SDPA "
+            f"{r['library_ratio']:.3f}); plain {r['plain_ms']:.3f} ms")
     r = res["flash_attention"]
     log(f"[kernels] flash_attention at {FLASH_MAIN}, bf16: tensor-core "
         f"kernel {r['ms']:.5f} ms ({r['tflops']:.1f} TFLOP/s, "
@@ -2428,29 +2620,39 @@ def main(argv=None) -> int:
     card = gpu_name_power()
     log(f"[card] {torch.cuda.get_device_name(0)}; {card}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    walls = {}                             # host seconds of each phase
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[fn.__name__.removeprefix("phase_")] = round(
+            time.perf_counter() - t0, 1)
+        return out
+
     try:
-        phase_build()
-        err = phase_kernels()
-        lm_err = phase_lm_kernels()
-        step_run = phase_step()
+        timed(phase_build)
+        err = timed(phase_kernels)
+        lm_err = timed(phase_lm_kernels)
+        step_run = timed(phase_step)
         step_err = step_run["max_abs_err"]
-        phase_golden()
-        full = phase_full_parity()
-        main_run = phase_main_path(args.scale)
-        step_times = phase_step_times(
-            main_run.pop("launch_args"),
+        timed(phase_golden)
+        full = timed(phase_full_parity)
+        main_run = timed(phase_main_path, args.scale)
+        step_times = timed(
+            phase_step_times, main_run.pop("launch_args"),
             n=max(1, min(100, main_run["launches"] - 11)))
         from repro_torch.core.compile_cache import dpu_bucket
-        times = phase_kernel_times(dpu_bucket(_full_cfg().n_dpus))
-        work = phase_workloads()
-        simt_run = phase_simt()
-        system_run = phase_system()
-        cluster_run = phase_cluster(work.pop("recordings"))
-        scripts_run = phase_scripts(
+        times = timed(phase_kernel_times, dpu_bucket(_full_cfg().n_dpus))
+        work = timed(phase_workloads)
+        simt_run = timed(phase_simt)
+        system_run = timed(phase_system)
+        cluster_run = timed(phase_cluster, work.pop("recordings"))
+        scripts_run = timed(
+            phase_scripts,
             next(r for r in work["full"] if r["workload"] == "VA"))
-        phase_lm_parity()
-        lm_run = phase_lm_main()
-        lm_times = phase_lm_kernel_times()
+        timed(phase_lm_parity)
+        lm_run = timed(phase_lm_main)
+        lm_times = timed(phase_lm_kernel_times)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2523,9 +2725,13 @@ def main(argv=None) -> int:
         "ssd_scan_tc": ("src/repro/kernels/ssd_scan/ssd_scan.py:57",
                         "ssd_scan/csrc/ssd_scan_tc.cu")}
     # the scalar SSD kernel's launches on the main path: those of neither
-    # route but the tensor-core one
+    # route but the tensor-core one; flash's, llama3-8b's alone (the shape
+    # its ms is timed at; each other family's are in its own entry below)
+    lm = {r["arch"]: r for r in lm_run["runs"]}
     launched = dict(lm_run["launches"])
     launched["ssd_scan"] -= launched["ssd_scan_tc"]
+    launched["flash_attention"] = lm["llama3-8b"]["launches"].get(
+        "flash_attention", 0)
     lease = lm_run["lease"]
     for name, (src, csrc) in replaces.items():
         r = lm_times[name]
@@ -2540,11 +2746,29 @@ def main(argv=None) -> int:
     # decode_step, which reaches no flash kernel (prefill does)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["lease_launches"] = lease["launches"]["flash_attention"]
-    lm = {r["arch"]: r for r in lm_run["runs"]}
-    log("[report] LM serving (bf16, 4 prompts): " + "; ".join(
-        f"{a} prefill {r['prefill_tokens_per_s']:.1f} tokens/s, decode "
+    flash["launches_by_arch"] = {
+        a: r["launches"].get("flash_attention", 0) for a, r in lm.items()}
+    # the same kernel at each other family's prefill shape: its launches
+    # are those of that family's run
+    src, csrc = replaces["flash_attention"]
+    for name, (arch, shape) in FLASH_FAMILIES.items():
+        key = f"flash_attention ({name})"
+        r = lm_times[key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{csrc}", "replaces": src,
+            "launches": lm[arch]["launches"].get("flash_attention", 0),
+            "max_abs_err": lm_err[key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "arch": arch, "shape": shape})
+    log("[report] LM serving (bf16): " + "; ".join(
+        f"{a} ({r['batch']} x {r['text'] + r['frontend']}) prefill "
+        f"{r['prefill_tokens_per_s']:.1f} tokens/s (first "
+        f"{r['prefill_first_s']:.3f} s, then {r['prefill_s']:.3f}), decode "
         f"{r['decode_ms_per_step']:.3f} ms/step, ServeEngine "
-        f"{r['serve_wall_s']:.3f} s" for a, r in lm.items()))
+        f"{r['serve_wall_s']:.3f} s, peak {r['peak_gb']:.2f} GB"
+        for a, r in lm.items()))
     log(f"[report] full-width cold launch {full['cold_s']:.3f} s, warm "
         f"{full['warm_s']:.3f} s; main path {main_run['kips']:.3f} KIPS, "
         f"{main_run['cycles_per_s']:.1f} simulated cycles/s, "
@@ -2559,6 +2783,7 @@ def main(argv=None) -> int:
                     for r in (step_run["us_per_step"][FULL_SYSTEM_DPUS],
                               carry))
         + f"; smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+    log(f"[report] phase walls (s): {json.dumps(walls)}")
     sva = system_run["va"]
     log(f"[report] system: VA on {FULL_SYSTEM_DPUS} DPUs (1 MiB, scale 1.0) "
         f"{sva['wall_s']:.3f} s, {sva['kips']:.1f} KIPS, "

@@ -5,6 +5,10 @@ config in float32 on random weights from a seed, on the CUDA card unless
 
     python examples/torch_serve_lm.py --arch mamba2-130m [--device cpu]
 
+``--arch`` takes a configuration of any family (dense, ssm, moe, hybrid,
+encdec, vlm); encdec's engine holds no encoder positions, as the
+original's.
+
 ``--cluster`` submits through the multi-tenant cluster runtime instead
 of attaching a private accelerator: the serving replica leases ranks
 from a shared :class:`repro_torch.cluster.PimCluster` (fault-aware placement)

@@ -17,8 +17,10 @@ import torch
 
 from repro_torch.models.transformer import Transformer
 
-#: top-level keys whose leaves carry a leading layer axis
-STACKED = ("blocks",)
+#: top-level keys whose leaves carry a leading layer axis (hybrid
+#: ``groups``: one axis over the groups, each holding lru0, lru1, attn)
+STACKED = ("blocks", "dense_blocks", "moe_blocks", "groups", "rem_lru",
+           "enc_blocks", "dec_blocks")
 
 
 def _leaves(tree, prefix="") -> Iterator[Tuple[str, np.ndarray]]:

@@ -1,4 +1,13 @@
-"""Model assembly: the dense (GQA decoder) and ssm (Mamba-2) families.
+"""Model assembly for every architecture family.
+
+Families
+--------
+* ``dense`` / ``vlm``  — GQA decoder stack (vlm puts stub patch
+  embeddings in front of the token embeddings)
+* ``moe``              — GQA or MLA attention + (dense prefix, MoE rest)
+* ``ssm``              — Mamba-2 (SSD) mixer stack
+* ``hybrid``           — RecurrentGemma (rglru, rglru, local-attn) pattern
+* ``encdec``           — bidirectional encoder + causal decoder w/ cross-attn
 
 The counterpart of ``repro.models.transformer`` for serving: parameters
 (``init_params``), ``forward_hidden`` (inference only, no remat),
@@ -12,11 +21,9 @@ module are not carried over, because they do nothing on one card:
 ``_x_constraint`` (sharding annotations for a device mesh).
 
 Caches hold the JAX package's leaves, stacked over layers, with ``pos`` a
-Python int.  ``decode_step`` writes the new K/V (dense) into the cache's
-tensors in place and returns a new dict; the serving engine, like the JAX
-one that donates its cache, never reuses the old one.
-
-The moe, hybrid, encdec and vlm families raise ``NotImplementedError``.
+Python int.  ``decode_step`` writes the step into the cache's tensors in
+place and returns a new dict holding them; the serving engine, like the
+JAX one that donates its cache, never reuses the old one.
 """
 from __future__ import annotations
 
@@ -27,19 +34,10 @@ from torch import nn
 
 from repro_torch.core.carry import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import ParamTree, cdtype
 
 Cache = Dict[str, Any]
-
-PORTED_FAMILIES = ("dense", "ssm")
-
-
-def _check_family(cfg):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            "§1, still-to-port item 6.5: moe, hybrid, encdec, vlm)")
 
 
 # ===========================================================================
@@ -47,13 +45,24 @@ def _check_family(cfg):
 # ===========================================================================
 
 
-def _dense_block_init(gen, cfg, device):
+def _dense_block_init(gen, cfg, device, use_mla=False):
     return {
         "ln1": layers.norm_init(cfg.d_model, device),
-        "attn": attn.attn_init(gen, cfg, device),
+        "attn": (attn.mla_init if use_mla else attn.attn_init)(gen, cfg,
+                                                                device),
         "ln2": layers.norm_init(cfg.d_model, device),
         "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                                device),
+    }
+
+
+def _moe_block_init(gen, cfg, device):
+    return {
+        "ln1": layers.norm_init(cfg.d_model, device),
+        "attn": (attn.mla_init if cfg.use_mla else attn.attn_init)(
+            gen, cfg, device),
+        "ln2": layers.norm_init(cfg.d_model, device),
+        "moe": moe.moe_init(gen, cfg, device),
     }
 
 
@@ -62,34 +71,120 @@ def _ssm_block_init(gen, cfg, device):
             "ssm": ssm.ssm_init(gen, cfg, device)}
 
 
+def _lru_block_init(gen, cfg, device):
+    return {
+        "ln1": layers.norm_init(cfg.d_model, device),
+        "lru": rglru.lru_init(gen, cfg, device),
+        "ln2": layers.norm_init(cfg.d_model, device),
+        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                               device),
+    }
+
+
+def _hybrid_group_init(gen, cfg, device):
+    return {"lru0": _lru_block_init(gen, cfg, device),
+            "lru1": _lru_block_init(gen, cfg, device),
+            "attn": _dense_block_init(gen, cfg, device)}
+
+
+def _dec_block_init(gen, cfg, device):
+    return {
+        "ln1": layers.norm_init(cfg.d_model, device),
+        "self_attn": attn.attn_init(gen, cfg, device),
+        "ln2": layers.norm_init(cfg.d_model, device),
+        "cross_attn": attn.attn_init(gen, cfg, device),
+        "ln3": layers.norm_init(cfg.d_model, device),
+        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                               device),
+    }
+
+
+def _hybrid_split(cfg):
+    """(groups, remaining rglru blocks) of the (rglru, rglru, local)
+    pattern."""
+    assert cfg.block_pattern == ("rglru", "rglru", "local"), \
+        "hybrid supports the rg pattern"
+    ng, rem = divmod(cfg.n_layers, 3)
+    assert rem <= 2
+    return ng, rem
+
+
+def _stacks(cfg):
+    """The stacked top-level keys of ``cfg``: {key: (block init, n)}."""
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return {"blocks": (_dense_block_init, cfg.n_layers)}
+    if fam == "moe":
+        out = {}
+        if cfg.n_dense_layers:
+            out["dense_blocks"] = (
+                lambda g, c, d: _dense_block_init(g, c, d, c.use_mla),
+                cfg.n_dense_layers)
+        out["moe_blocks"] = (_moe_block_init,
+                             cfg.n_layers - cfg.n_dense_layers)
+        return out
+    if fam == "ssm":
+        return {"blocks": (_ssm_block_init, cfg.n_layers)}
+    if fam == "hybrid":
+        ng, rem = _hybrid_split(cfg)
+        out = {"groups": (_hybrid_group_init, ng)}
+        if rem:
+            out["rem_lru"] = (_lru_block_init, rem)
+        return out
+    if fam == "encdec":
+        return {"enc_blocks": (_dense_block_init, cfg.n_enc_layers),
+                "dec_blocks": (_dec_block_init, cfg.n_dec_layers)}
+    raise ValueError(fam)
+
+
 # ===========================================================================
 # Block bodies
 # ===========================================================================
 
 
-def _dense_block_apply(p, x, positions, cfg, collect_kv=False):
+def _dense_block_apply(p, x, positions, cfg, *, causal=True, window=0,
+                       use_mla=False, collect_kv=False):
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     kv = None
-    if collect_kv:
+    if use_mla:
+        h, kv = attn.mla_apply_train(p["attn"], h, positions, cfg)
+    elif collect_kv:
+        h, kv = _attn_with_kv(p["attn"], h, positions, cfg, causal, window)
+    else:
+        h = attn.attn_apply_train(p["attn"], h, positions, cfg,
+                                  causal=causal, window=window)
+    x = x + h
+    h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + layers.mlp_apply(p["mlp"], h, cfg)
+    return (x, kv) if (collect_kv or use_mla) else x
+
+
+def _attn_with_kv(p, h, positions, cfg, causal=True, window=0):
+    """Like attn_apply_train but also returns the rope'd K/V (prefill)."""
+    q, k, v = attn._project_qkv(p, h, h, cfg)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    o = attn.blocked_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=cfg.attn_chunk,
+                               kv_chunk=cfg.attn_chunk)
+    o = o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head)
+    out = o @ p["wo"].to(cdtype(cfg))
+    return out, (k, v)
+
+
+def _moe_block_apply(p, x, positions, cfg, collect_kv=False):
+    h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    kv = None
+    if cfg.use_mla:
+        h, kv = attn.mla_apply_train(p["attn"], h, positions, cfg)
+    elif collect_kv:
         h, kv = _attn_with_kv(p["attn"], h, positions, cfg)
     else:
         h = attn.attn_apply_train(p["attn"], h, positions, cfg)
     x = x + h
     h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-    x = x + layers.mlp_apply(p["mlp"], h, cfg)
-    return (x, kv) if collect_kv else x
-
-
-def _attn_with_kv(p, h, positions, cfg):
-    """Like attn_apply_train but also returns the rope'd K/V (prefill)."""
-    q, k, v = attn._project_qkv(p, h, cfg)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.blocked_attention(q, k, v, q_chunk=cfg.attn_chunk,
-                               kv_chunk=cfg.attn_chunk)
-    o = o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head)
-    out = o @ p["wo"].to(cdtype(cfg))
-    return out, (k, v)
+    y, aux = moe.moe_apply(p["moe"], h, cfg)
+    return x + y, aux, kv
 
 
 def _ssm_block_apply(p, x, cfg, collect_state=False):
@@ -100,34 +195,107 @@ def _ssm_block_apply(p, x, cfg, collect_state=False):
     return x + ssm.ssm_apply_train(p["ssm"], h, cfg)
 
 
+def _lru_block_apply(p, x, cfg, collect_state=False):
+    h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    st = None
+    if collect_state:
+        y, st = rglru.lru_apply_train(p["lru"], h, cfg, return_state=True)
+    else:
+        y = rglru.lru_apply_train(p["lru"], h, cfg)
+    x = x + y
+    h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + layers.mlp_apply(p["mlp"], h, cfg)
+    return (x, st) if collect_state else x
+
+
+def _lru_step(p, x, h, cb, cfg):
+    """One decode step of an rglru block: (x, new h, new conv buffer)."""
+    u = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    y, h, cb = rglru.lru_apply_decode(p["lru"], u, h, cb, cfg)
+    x = x + y
+    u = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    return x + layers.mlp_apply(p["mlp"], u, cfg), h, cb
+
+
+# ===========================================================================
+# The cache
+# ===========================================================================
+
+
+def init_cache(cfg, batch: int, capacity: int, device=None,
+               src_len: int = 0) -> Cache:
+    """Zeroed serving cache of ``batch`` sequences of ``capacity``
+    positions (encdec: and ``src_len`` encoder positions), with the JAX
+    package's leaves."""
+    device = resolve_device(device)
+    dt = cdtype(cfg)
+    fam = cfg.family
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if fam in ("dense", "vlm"):
+        L = cfg.n_layers
+        return {"k": zeros(L, batch, capacity, KV, Dh),
+                "v": zeros(L, batch, capacity, KV, Dh), "pos": 0}
+    if fam == "moe":
+        c: Cache = {"pos": 0}
+        Ld, Lm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
+        for suffix, n in (("_d", Ld), ("_m", Lm)):
+            if not n:
+                continue
+            if cfg.use_mla:
+                c["ckv" + suffix] = zeros(n, batch, capacity, cfg.kv_lora_rank)
+                c["krope" + suffix] = zeros(n, batch, capacity,
+                                            cfg.qk_rope_dim)
+            else:
+                c["k" + suffix] = zeros(n, batch, capacity, KV, Dh)
+                c["v" + suffix] = zeros(n, batch, capacity, KV, Dh)
+        return c
+    if fam == "ssm":
+        L, H, N, Pd = (cfg.n_layers, cfg.n_ssm_heads, cfg.ssm_state,
+                       cfg.ssm_headdim)
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * N
+        return {"state": zeros(L, batch, H, N, Pd, dtype=torch.float32),
+                "conv": zeros(L, batch, cfg.ssm_conv - 1, conv_dim),
+                "pos": 0}
+    if fam == "hybrid":
+        ng, rem = _hybrid_split(cfg)
+        W = cfg.lru_width or cfg.d_model
+        K = cfg.ssm_conv
+        win = min(cfg.window, capacity)
+        c = {"lru_h": zeros(ng, 2, batch, W, dtype=torch.float32),
+             "lru_conv": zeros(ng, 2, batch, K - 1, W),
+             "attn_k": zeros(ng, batch, win, KV, Dh),
+             "attn_v": zeros(ng, batch, win, KV, Dh),
+             "pos": 0}
+        if rem:
+            c["rem_lru_h"] = zeros(rem, batch, W, dtype=torch.float32)
+            c["rem_lru_conv"] = zeros(rem, batch, K - 1, W)
+        return c
+    if fam == "encdec":
+        Ld = cfg.n_dec_layers
+        return {"self_k": zeros(Ld, batch, capacity, KV, Dh),
+                "self_v": zeros(Ld, batch, capacity, KV, Dh),
+                "cross_k": zeros(Ld, batch, src_len, KV, Dh),
+                "cross_v": zeros(Ld, batch, src_len, KV, Dh),
+                "pos": 0}
+    raise ValueError(fam)
+
+
+def _moe_cache_keys(cfg):
+    """The moe cache's leaf names, before their ``_d`` / ``_m`` suffix."""
+    return ("ckv", "krope") if cfg.use_mla else ("k", "v")
+
+
 # ===========================================================================
 # The model
 # ===========================================================================
 
 
-def init_cache(cfg, batch: int, capacity: int, device=None) -> Cache:
-    """Zeroed serving cache of ``batch`` sequences of ``capacity``
-    positions (dense: K/V; ssm: state and conv tail)."""
-    _check_family(cfg)
-    device = resolve_device(device)
-    dt = cdtype(cfg)
-    L = cfg.n_layers
-    if cfg.family == "dense":
-        KV, Dh = cfg.n_kv_heads, cfg.d_head
-        shape = (L, batch, capacity, KV, Dh)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device), "pos": 0}
-    H, N, Pd = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_headdim
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * N
-    return {"state": torch.zeros((L, batch, H, N, Pd), dtype=torch.float32,
-                                 device=device),
-            "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_dim),
-                                dtype=dt, device=device),
-            "pos": 0}
-
-
 class Transformer(nn.Module):
-    """A dense or ssm LM with random weights drawn from ``generator``.
+    """An LM of any family with random weights drawn from ``generator``.
 
     ``device=None`` means the CUDA card (raises without one); pass
     ``device="cpu"`` for the CPU.  ``generator`` (a ``torch.Generator`` on
@@ -135,7 +303,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        _check_family(cfg)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -147,65 +314,182 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree({"w": layers.dense_param(
                 gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, device)})
-        block_init = (_dense_block_init if cfg.family == "dense"
-                      else _ssm_block_init)
-        self.blocks = nn.ModuleList(
-            ParamTree(block_init(gen, cfg, device))
-            for _ in range(cfg.n_layers))
+        for key, (block_init, n) in _stacks(cfg).items():
+            self.add_module(key, nn.ModuleList(
+                ParamTree(block_init(gen, cfg, device)) for _ in range(n)))
+        if cfg.family == "encdec":
+            self.enc_norm = ParamTree(layers.norm_init(cfg.d_model, device))
 
     # the JAX package's top-level keys, for layers.logits_apply
     def __getitem__(self, key):
         return getattr(self, key)
 
+    def __contains__(self, key) -> bool:
+        return key in self._modules
+
     @property
     def device(self) -> torch.device:
         return self.embed["tok"].device
 
-    def init_cache(self, batch: int, capacity: int) -> Cache:
-        return init_cache(self.cfg, batch, capacity, self.device)
+    def init_cache(self, batch: int, capacity: int, src_len: int = 0) -> Cache:
+        return init_cache(self.cfg, batch, capacity, self.device, src_len)
 
+    @torch.no_grad()
     def logits(self, x):
         return layers.logits_apply(self, x, self.cfg)
 
-    @torch.no_grad()
-    def forward_hidden(self, tokens):
-        """tokens (B,S) -> (hidden (B,S,D), aux loss 0.0)."""
-        cfg = self.cfg
-        x = layers.embed_apply(self.embed["tok"], tokens, cfg)
+    def _positions(self, x):
         B, S = x.shape[0], x.shape[1]
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        for p in self.blocks:
-            if cfg.family == "dense":
+        return torch.arange(S, device=x.device).expand(B, S)
+
+    def _inputs(self, tokens, patches=None):
+        """Token embeddings, after the patch embeddings for vlm."""
+        x = layers.embed_apply(self.embed["tok"], tokens, self.cfg)
+        if self.cfg.family == "vlm":
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
+
+    def _encode(self, frames):
+        """Encoder over precomputed frame embeddings (frontend stub)."""
+        cfg = self.cfg
+        x = frames.to(cdtype(cfg))
+        positions = self._positions(x)
+        for p in self.enc_blocks:
+            x = _dense_block_apply(p, x, positions, cfg, causal=False)
+        return layers.rms_norm(x, self.enc_norm["scale"], cfg.norm_eps)
+
+    @torch.no_grad()
+    def forward_hidden(self, tokens, patches=None, frames=None,
+                       tgt_tokens=None):
+        """Returns (hidden (B,S,D), aux loss float32 scalar: the MoE load
+        balance, else 0).  vlm takes ``patches`` (B,P,D) in front of
+        ``tokens``; encdec takes ``frames`` (B,Ssrc,D) and ``tgt_tokens``
+        (B,S) of the same length (the blocked cross-attention's)."""
+        cfg = self.cfg
+        fam = cfg.family
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if fam == "encdec":
+            enc = self._encode(frames)
+            x = layers.embed_apply(self.embed["tok"], tgt_tokens, cfg)
+            positions = self._positions(x)
+            for p in self.dec_blocks:
+                h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+                x = x + attn.attn_apply_train(p["self_attn"], h, positions,
+                                              cfg)
+                h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+                x = x + attn.attn_apply_train(p["cross_attn"], h, positions,
+                                              cfg, causal=False, kv_x=enc,
+                                              use_rope=False)
+                h = layers.rms_norm(x, p["ln3"]["scale"], cfg.norm_eps)
+                x = x + layers.mlp_apply(p["mlp"], h, cfg)
+            return x, aux
+
+        x = self._inputs(tokens, patches)
+        positions = self._positions(x)
+        if fam in ("dense", "vlm"):
+            for p in self.blocks:
                 x = _dense_block_apply(p, x, positions, cfg)
-            else:
+        elif fam == "moe":
+            for p in self.dense_blocks if "dense_blocks" in self else ():
+                out = _dense_block_apply(p, x, positions, cfg,
+                                         use_mla=cfg.use_mla)
+                x = out[0] if isinstance(out, tuple) else out
+            for p in self.moe_blocks:
+                x, a, _ = _moe_block_apply(p, x, positions, cfg)
+                aux = aux + a
+        elif fam == "ssm":
+            for p in self.blocks:
                 x = _ssm_block_apply(p, x, cfg)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        else:  # hybrid
+            for g in self.groups:
+                x = _lru_block_apply(g["lru0"], x, cfg)
+                x = _lru_block_apply(g["lru1"], x, cfg)
+                x = _dense_block_apply(g["attn"], x, positions, cfg,
+                                       window=cfg.window)
+            for p in self.rem_lru if "rem_lru" in self else ():
+                x = _lru_block_apply(p, x, cfg)
+        return x, aux
 
     @torch.no_grad()
     def prefill(self, batch) -> tuple:
-        """Process the prompt ``batch["tokens"]`` (B,S); returns
-        (last-position logits (B,V), cache of S positions)."""
+        """Process the prompt (``batch["tokens"]`` (B,S); vlm also
+        ``batch["patches"]``; encdec ``batch["frames"]`` alone, then one
+        BOS decode step); returns (last-position logits (B,V), cache)."""
         cfg = self.cfg
+        fam = cfg.family
         dt = cdtype(cfg)
-        x = layers.embed_apply(self.embed["tok"], batch["tokens"], cfg)
-        B, S = x.shape[0], x.shape[1]
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        if cfg.family == "dense":
-            ks, vs = [], []
+
+        if fam == "encdec":
+            frames = batch["frames"]
+            enc = self._encode(frames)
+            B, Ssrc = frames.shape[0], frames.shape[1]
+            kvs = [attn.cross_attn_project_kv(p["cross_attn"], enc, cfg)
+                   for p in self.dec_blocks]
+            cache = self.init_cache(B, capacity=Ssrc)
+            cache["cross_k"] = torch.stack([k for k, _ in kvs]).to(dt)
+            cache["cross_v"] = torch.stack([v for _, v in kvs]).to(dt)
+            bos = torch.zeros((B,), dtype=torch.int64, device=self.device)
+            return self.decode_step(cache, bos)
+
+        x = self._inputs(batch["tokens"], batch.get("patches"))
+        S = x.shape[1]
+        positions = self._positions(x)
+        cache: Cache = {"pos": S}
+
+        def put(keys, leaves):
+            for key, col in zip(keys, zip(*leaves)):
+                cache[key] = torch.stack(col)
+
+        if fam in ("dense", "vlm"):
+            kvs = []
             for p in self.blocks:
                 x, (k, v) = _dense_block_apply(p, x, positions, cfg,
                                                collect_kv=True)
-                ks.append(k.to(dt))
-                vs.append(v.to(dt))
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
-        else:
-            states, convs = [], []
+                kvs.append((k.to(dt), v.to(dt)))
+            put(("k", "v"), kvs)
+        elif fam == "moe":
+            keys = _moe_cache_keys(cfg)
+            kvs = []
+            for p in self.dense_blocks if "dense_blocks" in self else ():
+                x, kv = _dense_block_apply(p, x, positions, cfg,
+                                           use_mla=cfg.use_mla,
+                                           collect_kv=True)
+                kvs.append(tuple(t.to(dt) for t in kv))
+            if kvs:
+                put([k + "_d" for k in keys], kvs)
+            kvs = []
+            for p in self.moe_blocks:
+                x, _, kv = _moe_block_apply(p, x, positions, cfg,
+                                            collect_kv=True)
+                kvs.append(tuple(t.to(dt) for t in kv))
+            put([k + "_m" for k in keys], kvs)
+        elif fam == "ssm":
+            states = []
             for p in self.blocks:
-                x, (st, conv) = _ssm_block_apply(p, x, cfg, collect_state=True)
-                states.append(st)
-                convs.append(conv.to(dt))
-            cache = {"state": torch.stack(states), "conv": torch.stack(convs),
-                     "pos": S}
+                x, (st, conv) = _ssm_block_apply(p, x, cfg,
+                                                 collect_state=True)
+                states.append((st, conv.to(dt)))
+            put(("state", "conv"), states)
+        else:  # hybrid
+            win = cfg.window
+            groups = []
+            for g in self.groups:
+                x, st0 = _lru_block_apply(g["lru0"], x, cfg,
+                                          collect_state=True)
+                x, st1 = _lru_block_apply(g["lru1"], x, cfg,
+                                          collect_state=True)
+                x, (k, v) = _dense_block_apply(g["attn"], x, positions, cfg,
+                                               window=win, collect_kv=True)
+                groups.append((torch.stack([st0[0], st1[0]]),
+                               torch.stack([st0[1].to(dt), st1[1].to(dt)]),
+                               k[:, -win:].to(dt), v[:, -win:].to(dt)))
+            put(("lru_h", "lru_conv", "attn_k", "attn_v"), groups)
+            rems = []
+            for p in self.rem_lru if "rem_lru" in self else ():
+                x, (h, conv) = _lru_block_apply(p, x, cfg, collect_state=True)
+                rems.append((h, conv.to(dt)))
+            if rems:
+                put(("rem_lru_h", "rem_lru_conv"), rems)
         return self.logits(x[:, -1]), cache
 
     @torch.no_grad()
@@ -213,23 +497,47 @@ class Transformer(nn.Module):
         """One token for the whole batch.  tokens: (B,) int.  Returns
         (logits (B,V), new cache at ``pos + 1``).
 
-        Consumes ``cache``: both families write the step into its tensors
-        in place (the dense K/V at ``pos``, the ssm state and conv buffer
-        whole), and the new cache holds those same tensors.  A caller
-        that needs the old cache afterwards (a branch, a retry) clones it
-        first.  The JAX package's ``decode_step`` is functional instead."""
+        Consumes ``cache``: every family writes the step into its tensors
+        in place (K/V or MLA latents at ``pos``, the hybrid ring at ``pos
+        % window``, recurrent states and conv buffers whole; encdec's
+        cross K/V are only read), and the new cache holds those same
+        tensors.  A caller that needs the old cache afterwards (a branch,
+        a retry) clones it first.  The JAX package's ``decode_step`` is
+        functional instead."""
         cfg = self.cfg
+        fam = cfg.family
         pos = int(cache["pos"])
         x = layers.embed_apply(self.embed["tok"], tokens, cfg)  # (B, D)
-        new_cache = dict(cache)
-        if cfg.family == "dense":
+
+        def mlp_res(p, x, ln="ln2"):
+            h = layers.rms_norm(x, p[ln]["scale"], cfg.norm_eps)
+            return x + layers.mlp_apply(p["mlp"], h, cfg)
+
+        def attn_res(p, x, k, v, window=0):
+            h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+            if cfg.use_mla:
+                h, _, _ = attn.mla_apply_decode(p["attn"], h, pos, k, v, cfg)
+            else:
+                h, _, _ = attn.attn_apply_decode(p["attn"], h, pos, k, v, cfg,
+                                                 window=window)
+            return x + h
+
+        if fam in ("dense", "vlm"):
             for p, k, v in zip(self.blocks, cache["k"], cache["v"]):
-                h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-                h, _, _ = attn.attn_apply_decode(p["attn"], h, pos, k, v, cfg)
-                x = x + h
+                x = mlp_res(p, attn_res(p, x, k, v))
+        elif fam == "moe":
+            keys = _moe_cache_keys(cfg)
+            if "dense_blocks" in self:
+                for p, a, b in zip(self.dense_blocks, cache[keys[0] + "_d"],
+                                   cache[keys[1] + "_d"]):
+                    x = mlp_res(p, attn_res(p, x, a, b))
+            for p, a, b in zip(self.moe_blocks, cache[keys[0] + "_m"],
+                               cache[keys[1] + "_m"]):
+                x = attn_res(p, x, a, b)
                 h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + layers.mlp_apply(p["mlp"], h, cfg)
-        else:
+                y, _ = moe.moe_apply(p["moe"], h[:, None, :], cfg)
+                x = x + y[:, 0]
+        elif fam == "ssm":
             for p, st, cb in zip(self.blocks, cache["state"], cache["conv"]):
                 h = layers.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
                 y, new_st, new_cb = ssm.ssm_apply_decode(p["ssm"], h, st, cb,
@@ -237,5 +545,35 @@ class Transformer(nn.Module):
                 x = x + y
                 st.copy_(new_st)
                 cb.copy_(new_cb)
+        elif fam == "hybrid":
+            for g, lh, lc, k, v in zip(self.groups, cache["lru_h"],
+                                       cache["lru_conv"], cache["attn_k"],
+                                       cache["attn_v"]):
+                for j, name in enumerate(("lru0", "lru1")):
+                    x, h, cb = _lru_step(g[name], x, lh[j], lc[j], cfg)
+                    lh[j].copy_(h)
+                    lc[j].copy_(cb)
+                x = mlp_res(g["attn"], attn_res(g["attn"], x, k, v,
+                                                window=cfg.window))
+            if "rem_lru" in self:
+                for p, lh, lc in zip(self.rem_lru, cache["rem_lru_h"],
+                                     cache["rem_lru_conv"]):
+                    x, h, cb = _lru_step(p, x, lh, lc, cfg)
+                    lh.copy_(h)
+                    lc.copy_(cb)
+        elif fam == "encdec":
+            for p, k, v, ck, cv in zip(self.dec_blocks, cache["self_k"],
+                                       cache["self_v"], cache["cross_k"],
+                                       cache["cross_v"]):
+                h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+                h, _, _ = attn.attn_apply_decode(p["self_attn"], h, pos, k, v,
+                                                 cfg)
+                x = x + h
+                h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+                x = x + attn.cross_attn_decode(p["cross_attn"], h, ck, cv, cfg)
+                x = mlp_res(p, x, "ln3")
+        else:
+            raise ValueError(fam)
+        new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self.logits(x), new_cache

@@ -20,101 +20,40 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs.base import get_smoke_config as jax_smoke_config  # noqa: E402
+from _torch_lm import (B, BF16_TOL, S, check_consumes_cache,  # noqa: E402
+                       check_decode, check_forward_hidden, check_prefill,
+                       check_serve_engine, close, make_pair)
+from repro.configs.base import get_smoke_config as jax_smoke_config  # noqa: E402,E501
 from repro.models import transformer as JT  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
-from repro_torch.admission import AdmissionRejected  # noqa: E402
 from repro_torch.configs.base import get_smoke_config  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-F32_TOL = 1e-4
-BF16_TOL = 5e-2
-B, S, EXTRA = 2, 32, 6
 ARCHS = ["llama3-8b", "mamba2-130m"]
-
-
-def _close(got, want, tol):
-    np.testing.assert_allclose(np.asarray(got.float() if torch.is_tensor(got)
-                                          else got, np.float32),
-                               np.asarray(want, np.float32),
-                               rtol=tol, atol=tol)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
-    """(arch, JAX cfg, JAX params, port cfg, port model, tokens)."""
-    arch = request.param
-    jcfg = jax_smoke_config(arch).replace(dtype="float32")
-    cfg = get_smoke_config(arch).replace(dtype="float32")
-    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    model = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
-                            device="cpu")
-    rng = np.random.default_rng(1)
-    toks = rng.integers(0, cfg.vocab_size, (B, S + EXTRA)).astype(np.int32)
-    return arch, jcfg, jparams, cfg, model, toks
+    return make_pair(request.param)
 
 
 def test_prefill_logits_and_every_cache_leaf(pair):
-    _, jcfg, jparams, cfg, model, toks = pair
-    jl, jc = JT.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])}, jcfg)
-    logits, cache = model.prefill({"tokens": torch.from_numpy(toks[:, :S])})
-    assert logits.shape == (B, cfg.vocab_size)
-    _close(logits, jl, F32_TOL)
-    assert sorted(cache) == sorted(jc)
-    for key, leaf in jc.items():
-        if key == "pos":
-            assert cache["pos"] == int(leaf) == S
-            continue
-        assert tuple(cache[key].shape) == leaf.shape, key
-        assert str(cache[key].dtype).split(".")[-1] == str(leaf.dtype), key
-        _close(cache[key], leaf, F32_TOL)
-
-
-def _pad(cache, extra, pad):
-    """tests/test_decode_continuation.py::_extend_dense_cache."""
-    return {k: pad(v) if hasattr(v, "ndim") and v.ndim >= 4 else v
-            for k, v in cache.items()}
+    assert check_prefill(pair)["pos"] == S
 
 
 def test_decode_continuation_matches_jax(pair):
-    _, jcfg, jparams, cfg, model, toks = pair
-    _, jc = JT.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])}, jcfg)
-    _, cache = model.prefill({"tokens": torch.from_numpy(toks[:, :S])})
-    if cfg.family == "dense":
-        def jpad(v):
-            pads = [(0, 0)] * v.ndim
-            pads[2] = (0, EXTRA)
-            return jnp.pad(v, pads)
-        jc = _pad(jc, EXTRA, jpad)
-        cache = _pad(cache, EXTRA, lambda v: torch.nn.functional.pad(
-            v, (0, 0, 0, 0, 0, EXTRA)))
-    for t in range(S, S + EXTRA):
-        jl, jc = JT.decode_step(jparams, jc, jnp.asarray(toks[:, t]), jcfg)
-        logits, cache = model.decode_step(cache, torch.from_numpy(toks[:, t]))
-    assert cache["pos"] == S + EXTRA
-    _close(logits, jl, F32_TOL)
+    check_decode(pair)
 
 
 def test_decode_step_consumes_its_cache(pair):
     """Both families write the step into the given cache in place and
     return those same tensors (decode_step's contract)."""
-    _, _, _, cfg, model, toks = pair
-    cache = model.init_cache(B, S)
-    before = {k: v.clone() for k, v in cache.items() if torch.is_tensor(v)}
-    _, new = model.decode_step(cache, torch.from_numpy(toks[:, 0]))
-    assert cache["pos"] == 0 and new["pos"] == 1
-    for key, old in before.items():
-        assert new[key] is cache[key], key
-        assert not torch.equal(cache[key], old), key  # rewritten in place
+    check_consumes_cache(pair)
 
 
 def test_forward_hidden_matches_jax(pair):
-    _, jcfg, jparams, cfg, model, toks = pair
-    jh, _ = JT.forward_hidden(jparams, jnp.asarray(toks), jcfg)
-    hidden, aux = model.forward_hidden(torch.from_numpy(toks))
-    assert hidden.shape == (B, S + EXTRA, cfg.d_model) and float(aux) == 0.0
-    _close(hidden, jh, F32_TOL)
+    assert check_forward_hidden(pair) == 0.0
 
 
 def _bf16_prefills(arch):
@@ -138,7 +77,7 @@ def _bf16_prefills(arch):
 
 def test_bf16_prefill_matches_jax():
     got, want, _ = _bf16_prefills("llama3-8b")
-    _close(got, want, BF16_TOL)
+    close(got, want, BF16_TOL)
 
 
 def test_bf16_prefill_ssm_errs_like_jax():
@@ -149,40 +88,11 @@ def test_bf16_prefill_ssm_errs_like_jax():
     got, jax_bf16, jax_f32 = _bf16_prefills("mamba2-130m")
     jax_err = np.abs(jax_bf16 - jax_f32).max()
     assert np.abs(got - jax_f32).max() <= 1.5 * jax_err
-    _close(got, jax_bf16, 2 * jax_err)
-
-
-def _drive(engine_cls, cfg, params, reject):
-    """Three requests with max_queue 1, a capacity rejection and a shed
-    deadline; returns (outputs, stats, shed flags, the shed request's id)."""
-    eng = engine_cls(cfg, params, batch=2, capacity=24, max_queue=1)
-    prompts = [np.arange(5) % cfg.vocab_size, np.arange(3, 10),
-               np.arange(7, 11)]
-    with pytest.raises(reject) as ei:
-        eng.submit(prompts[0], max_new=20)          # 5 + 20 > 23 positions
-    assert ei.value.reason == "capacity"
-    eng.submit(prompts[0], max_new=6)
-    eng.step()                                      # takes a slot
-    eng.submit(prompts[1], max_new=5)
-    eng.step()                                      # takes the other slot
-    rid = eng.submit(prompts[2], max_new=4, deadline=3)   # waits
-    with pytest.raises(reject) as ei:
-        eng.submit(prompts[0], max_new=2)
-    assert ei.value.reason == "queue_full"
-    out = eng.run()
-    shed = {r: q.shed for r, q in eng.requests.items()}
-    return out, dict(eng.stats), shed, rid
+    close(got, jax_bf16, 2 * jax_err)
 
 
 def test_serve_engine_identical_to_jax(pair):
-    from repro.admission import AdmissionRejected as JaxRejected
-    _, jcfg, jparams, cfg, model, _ = pair
-    want = _drive(JaxServeEngine, jcfg, jparams, JaxRejected)
-    got = _drive(ServeEngine, cfg, model, AdmissionRejected)
-    assert got == want
-    out, stats, shed, rid = got
-    assert shed[rid] and stats["shed"] == 1 and out[rid] == []
-    assert all(len(out[r]) > 0 for r in out if r != rid)
+    check_serve_engine(pair)
 
 
 class _FlakyPool:
@@ -203,15 +113,15 @@ def test_serve_engine_pim_pool_identical_to_jax(pair):
     """Faulted ticks fall back to the host and are counted, as in JAX."""
     import repro.faults.model as jax_faults
     import repro_torch.faults.model as faults
-    _, jcfg, jparams, cfg, model, toks = pair
     runs = []
-    for cls, conf, params, mod in ((JaxServeEngine, jcfg, jparams,
+    for cls, conf, params, mod in ((JaxServeEngine, pair.jcfg, pair.jparams,
                                     jax_faults),
-                                   (ServeEngine, cfg, model, faults)):
+                                   (ServeEngine, pair.cfg, pair.model,
+                                    faults)):
         pool = _FlakyPool(mod)
         eng = cls(conf, params, batch=2, capacity=16, pim_pool=pool)
         for r in range(3):
-            eng.submit(toks[r % B, :4], max_new=3)
+            eng.submit(pair.toks[r % B, :4], max_new=3)
         runs.append((eng.run(), dict(eng.stats), pool.ticks))
     assert runs[0] == runs[1]
     assert runs[1][1]["host_ticks"] > 0 and runs[1][1]["pim_ticks"] > 0

@@ -100,6 +100,7 @@ def _port_files():
                                          ROOT / "benchmarks/torch_pim_figs.py",
                                          ROOT / "tools/torch_step_profile.py",
                                          ROOT / "tools/torch_lm_profile.py",
+                                         ROOT / "tools/lm_prefill_ab.py",
                                          ROOT / "tools/torch_cluster_profiles.py",
                                          ROOT / "tools/script_runs.py"] \
         + [ROOT / s for s in SCRIPTS]
@@ -183,7 +184,12 @@ def test_default_device_raises_without_a_card():
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import transformer
     cfg = DPUConfig(n_dpus=1, n_tasklets=1, mram_bytes=1 << 14)
-    lm = get_smoke_config("llama3-8b")
+    # a config of every LM family: dense, moe (GQA and MLA), hybrid,
+    # encdec, vlm
+    lms = [get_smoke_config(a) for a in (
+        "llama3-8b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+        "recurrentgemma-9b", "seamless-m4t-large-v2",
+        "llava-next-mistral-7b")]
     binary = wl.get("VA").build(1).binary(cfg.iram_instrs)
     wram = np.zeros((1, 4), np.int32)
     mram = np.zeros((1, cfg.mram_words), np.int32)
@@ -197,8 +203,9 @@ def test_default_device_raises_without_a_card():
                   lambda: measure_profile("HST-S"),
                   lambda: PimCluster(PIMSystem(cfg), profiles="measured"),
                   # the LM serving path (ServeEngine runs where its model is)
-                  lambda: transformer.Transformer(lm),
-                  lambda: transformer.init_cache(lm, 1, 8)):
+                  *(lambda lm=lm: transformer.Transformer(lm) for lm in lms),
+                  *(lambda lm=lm: transformer.init_cache(lm, 1, 8)
+                    for lm in lms)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
 
@@ -231,26 +238,3 @@ def test_unported_backends_name_their_roadmap_item():
         assert backend.get(name).name == name
     with pytest.raises(KeyError):
         backend.get("nope")
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
-                                  "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2",
-                                  "llava-next-mistral-7b"])
-def test_unported_families_name_their_roadmap_item(arch):
-    from repro_torch.configs.base import get_smoke_config
-    from repro_torch.models import transformer
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("name", ["cross_attn_project_kv", "cross_attn_decode",
-                                  "mla_init", "mla_apply_train",
-                                  "mla_apply_decode"])
-def test_unported_attention_names_its_roadmap_item(name):
-    from repro_torch.models import attention
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(attention, name)()

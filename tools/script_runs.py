@@ -48,7 +48,8 @@ PORT_KEYS = {"engine_perf": ("steps", "steps_per_s", "loop_s",
                              "outside_share")}
 #: wall-clock numbers in printed lines: script -> regex whose one group
 #: is masked (the rest of a script's printed lines is modeled)
-WALL_TEXT = {"pim_arch_compare": r"records, ([0-9.]+)s wall"}
+WALL_TEXT = {"pim_arch_compare": r"records, ([0-9.]+)s wall",
+             "serve_lm": r"tokens\) in ([0-9.]+)s on"}
 #: what a masked wall-clock value reads as
 MASK = "*"
 
