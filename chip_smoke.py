@@ -6,10 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every CUDA kernel (alu_exec, cycle_step,
-             simt_step, crf_step, flash_attention's scalar and tensor-core
-             kernels, ssd_scan's scalar and tensor-core kernels; sm_90a)
-             from the sources in the checkout, all eight libraries at
-             once, into build/repro_torch/; the registers and spills
+             simt_step, crf_step, flash_attention's scalar, tensor-core
+             and backward kernels, ssd_scan's scalar, tensor-core and
+             backward kernels; sm_90a) from the sources in the checkout,
+             all ten libraries at once, into build/repro_torch/; the
+             registers and spills
              (ptxas -v) of cycle_step, simt_step, crf_step and of the
              tensor-core SSD kernels are logged; the
              tensor-core flash kernel's SASS (cuobjdump) must hold HGMMA
@@ -163,9 +164,28 @@ Phases (any failure exits non-zero and prints no result line):
              goldens.json's, the figs suite's characterization simulated
              in the run (its cycle_step launches counted), each with its
              wall and launches;
-12. report — the kernels line (launches, times, bounds; each step
-             kernel's routes), the card's name and power limit, and the
-             result line.
+12. train — the training path (repro_torch.train): (a) the backward
+             kernels (flash_attention_bwd.cu, ssd_scan_bwd.cu) against
+             autograd of their plain versions, f32 1e-4 and bf16 2e-2 of
+             each gradient's largest value, deterministic, the training
+             forward's output bitwise the serving one's, at the cases of
+             [kernels], llama3-8b's training shape (1 x 4,096, H 32, KV 8,
+             D 128), the quickstart's (f32) and mamba2-130m's (4 x 4,096);
+             timed beside the plain backward, the bound and (flash) SDPA's
+             backward; (b) one step's gradients of llama3-8b (4 of 32
+             layers) and mamba2-130m (24 layers) at full width, 4 x 1,024
+             tokens, kernels against plain versions in bf16 (every leaf
+             finite and not zero, within 5e-2, or held to the float32
+             step where bf16 noise dominates) and in float32 (1e-3);
+             (c) the same models at 4 x 4,096 tokens (train_4k's
+             sequence), the config's optimizer, remat and microbatches:
+             a warm-up step, then three timed (s a step, tokens/s, peak
+             GB), each kernel's launches equal to the reckoned ones; (d)
+             examples/torch_quickstart.py from the reference's initial
+             weights and batches: its lines those of goldens.json;
+13. report — the kernels line (launches, times, bounds; each step
+             kernel's routes; the backward kernels), the card's name and
+             power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
 """
@@ -173,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -217,7 +238,8 @@ def log(msg: str):
 def _counters():
     """name -> (module, attribute) of each launch count: flash_attention
     counts both flash kernels, flash_attention_sm90 the tensor-core one;
-    ssd_scan both SSD routes, ssd_scan_tc the tensor-core one."""
+    ssd_scan both SSD routes, ssd_scan_tc the tensor-core one; the _bwd
+    counts a backward pass each (two kernels)."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
     from repro_torch.kernels.crf_step import ops as crf_ops
     from repro_torch.kernels.cycle_step import ops as step_ops
@@ -231,7 +253,9 @@ def _counters():
             "flash_attention": (flash_ops, "launches"),
             "flash_attention_sm90": (flash_ops, "launches_sm90"),
             "ssd_scan": (ssd_ops, "launches"),
-            "ssd_scan_tc": (ssd_ops, "launches_tc")}
+            "ssd_scan_tc": (ssd_ops, "launches_tc"),
+            "flash_attention_bwd": (flash_ops, "launches_bwd"),
+            "ssd_scan_bwd": (ssd_ops, "launches_bwd")}
 
 
 #: the kernels driven by the pipelined K-block loop, which also count the
@@ -335,7 +359,7 @@ def _ptxas_report(lib) -> dict:
 
 
 def phase_build() -> float:
-    """Build the eight kernel libraries concurrently (one nvcc each), log
+    """Build the ten kernel libraries concurrently (one nvcc each), log
     the registers and spills of cycle_step, simt_step, crf_step and of
     the tensor-core SSD kernels, then check that every instance of the tensor-core flash
     kernel runs its products on wgmma (HGMMA in its SASS) and every
@@ -355,8 +379,10 @@ def phase_build() -> float:
             "crf_step": crf_step.library,
             "flash_attention": flash_attention.library,
             "flash_attention_sm90": flash_attention.library_sm90,
+            "flash_attention_bwd": flash_attention.library_bwd,
             "ssd_scan": ssd_scan.library,
-            "ssd_scan_tc": ssd_scan.library_tc}
+            "ssd_scan_tc": ssd_scan.library_tc,
+            "ssd_scan_bwd": ssd_scan.library_bwd}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
@@ -2591,6 +2617,507 @@ def phase_lm_kernel_times() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels, full-width steps, the quickstart
+# ---------------------------------------------------------------------------
+
+#: [train] (a): the flash backward at llama3-8b's training shape (one
+#: microbatch of train_4k's 4,096 tokens) and at the quickstart's (float32,
+#: the scalar forward), the SSD backward at mamba2-130m's (4 x 4,096)
+FLASH_TRAIN = dict(b=1, s=4096, h=32, kv=8, dk=128, dv=128, causal=True,
+                   window=0)
+FLASH_QUICKSTART = dict(b=4, s=64, h=4, kv=2, dk=16, dv=16, causal=True,
+                        window=0)
+SSD_TRAIN = dict(b=4, s=4096, h=24, g=1, p=64, n=128, chunk=256)
+#: each gradient against the plain backward's (autograd of the plain
+#: forward), |err| / max |plain|: float32 sums in another order; in bf16
+#: the plain version rounds its intermediate gradients to bf16 where its
+#: forward rounds (the kernels keep them in f32), ~6e-3 measured on an H100
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: [train] (b), (c): (arch, layers kept) at full width in bf16 with f32
+#: parameters, the config's optimizer, remat and train_microbatches, a
+#: batch of TRAIN_BATCH sequences.  llama3-8b at 4 of 32 layers: 1.92e9
+#: parameters, 16 bytes each with their gradient and AdamW's two moments
+#: (~31 GB); all 32 (8e9 x 16 B = 128 GB) cannot fit one card
+TRAIN_PATHS = [("llama3-8b", 4), ("mamba2-130m", 24)]
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096     # train_4k's sequence
+#: (b): the sequence where the plain attention's autograd fits the card
+TRAIN_PARITY_SEQ = 1024
+#: (b): each gradient leaf of a step with the kernels against the same
+#: step with the plain versions, |err| / max |plain|: bf16 activations
+#: rounded in other places through every layer.  A leaf past it (a sum
+#: over every position with heavy cancellation, such as a head's A_log,
+#: where the plain version's bf16-rounded intermediate gradients weigh)
+#: is held to the same step in float32 (plain versions): the kernels'
+#: bf16 gradient may be at most STEP_NOISE times as far from it as the
+#: plain version's (the two bf16 runs round in different places, and
+#: their distances to the float32 step scatter around each other: 0.35 to
+#: 1.5 of each other measured on mamba2-130m's A_log and dt_bias at
+#: random init, both up to ~0.5 of the leaf's largest value)
+STEP_GRAD_TOL = 5e-2
+STEP_NOISE = 2.0
+#: (b) in float32: the kernels' arithmetic against the plain versions'
+#: (float32 sums in other orders through every layer)
+STEP_GRAD_TOL_F32 = 1e-3
+#: (c): steps timed after one warm-up step
+TRAIN_TIMED_STEPS = 3
+
+
+def _flash_bwd_work(b, s, h, kv, dk, dv, causal, window, esize):
+    """(FLOPs, bytes) of one attention backward: five products per
+    visible (query, key) pair (S, dP, dv, dq, dk); q, k, v, o, do and the
+    log-sum-exp read once, dq, dk, dv written once."""
+    import numpy as np
+    seen = np.arange(1, s + 1) if causal else np.full(s, s)
+    if window > 0:
+        seen = np.minimum(seen, window)
+    flops = 2.0 * b * h * int(seen.sum()) * (3 * dk + 2 * dv)
+    nbytes = (esize * b * s * (2 * h * dk + 2 * kv * (dk + dv)
+                               + 2 * h * dv) + 4 * b * h * s)
+    return flops, nbytes
+
+
+def _ssd_bwd_work(b, s, h, g, p, n, chunk, esize):
+    """(FLOPs, bytes) of one SSD backward: per chunk of r rows, C.B over
+    the r(r+1)/2 causal pairs once per group, then for every head dy.x,
+    dx, dB and dC over the pairs, and five (N, P) products a row (the
+    reverse state pass, dx's and dB's state terms, dC's, the inter-chunk
+    d(seg)); x, B, C, dt, A, dy and the chunk-start states read once,
+    dx, ddt, dA, dB and dC written once."""
+    q = min(chunk, s)
+    nc = -(-s // q)
+    flops = 0.0
+    for c0 in range(0, s, q):
+        r = min(q, s - c0)
+        pairs = r * (r + 1) // 2
+        flops += b * (g * pairs * 2 * n
+                      + h * (pairs * (4 * p + 4 * n) + 10 * r * n * p))
+    nbytes = (esize * b * s * (3 * h * p + 4 * g * n) + 8 * b * s * h + 8 * h
+              + 4 * b * h * nc * n * p)
+    return flops, nbytes
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _flash_bwd_case(gen, shape, dt) -> dict:
+    """The flash backward kernels against the plain backward on one case:
+    the forward through the autograd Function (log-sum-exp written) gives
+    the serving forward's output bit for bit, one backward launch, two
+    backward runs give the same bits."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(
+        gen, dtype=getattr(torch, dt), **shape))
+    kw = dict(causal=shape["causal"], window=shape["window"])
+    with torch.no_grad():
+        serving = fops.flash_attention(q, k, v, **kw)
+    out = fops.flash_attention(q, k, v, **kw)
+    check(torch.equal(out.detach(), serving), f"flash_attention at {shape} "
+          f"{dt}: the training forward's output differs from serving's")
+    do = _normal(gen, out.shape, out.dtype)
+    before = fops.launches_bwd
+    got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    check(fops.launches_bwd - before == 2, f"flash backward at {shape} {dt}:"
+          f" {fops.launches_bwd - before} launches for two backward passes")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash backward at {shape} {dt}: two runs differ")
+    want = flash_attention_bwd_ref(q, k, v, do, **kw)
+    errs = [_rel_err(g, w) for g, w in zip(got, want)]
+    ratio = max(errs) / BWD_TOL[dt]
+    log(f"[train] flash_attention_bwd {shape} {dt}: dq, dk, dv |err| / max "
+        f"|plain| {', '.join(f'{e:.3g}' for e in errs)} (tolerance "
+        f"{BWD_TOL[dt]}; {ratio:.3g} of it used); serving forward bitwise "
+        "equal; deterministic")
+    check(ratio <= 1, f"flash backward != plain at {shape} {dt}: {errs}")
+    return {"rel_err": max(errs), "ratio": ratio,
+            "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
+
+
+def _ssd_bwd_case(gen, shape, dt) -> dict:
+    """The SSD backward kernels against the plain backward on one case
+    (the final state's gradient given), one backward launch, two runs the
+    same bits."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    ins = [t.requires_grad_() for t in _ssd_inputs(
+        gen, dtype=getattr(torch, dt), **shape)]
+    chunk = shape["chunk"]
+    y, state = sops.ssd_scan(*ins, chunk=chunk)
+    dy = _normal(gen, y.shape, y.dtype)
+    dst = _normal(gen, state.shape, torch.float32)
+    before = sops.launches_bwd
+    got = torch.autograd.grad((y, state), ins, (dy, dst), retain_graph=True)
+    again = torch.autograd.grad((y, state), ins, (dy, dst))
+    torch.cuda.synchronize()
+    route = sops.route(ins[0].dtype, shape["n"], shape["p"], chunk)
+    check(sops.launches_bwd - before == 2, f"SSD backward at {shape} {dt}: "
+          f"{sops.launches_bwd - before} launches for two backward passes")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"SSD backward at {shape} {dt}: two runs differ")
+    want = ssd_scan_bwd_ref(*ins, dy, dst, chunk=chunk)
+    errs = [_rel_err(g, w) for g, w in zip(got, want)]
+    ratio = max(errs) / BWD_TOL[dt]
+    log(f"[train] ssd_scan_bwd (forward on {route}) {shape} {dt}: dx, ddt, "
+        f"dA, dB, dC |err| / max |plain| "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (tolerance {BWD_TOL[dt]}; "
+        f"{ratio:.3g} of it used); deterministic")
+    check(ratio <= 1, f"SSD backward != plain at {shape} {dt}: {errs}")
+    return {"rel_err": max(errs), "ratio": ratio,
+            "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
+
+
+def _bwd_times(gen) -> dict:
+    """Device ms of one backward at the training shapes (bf16), raw
+    launchers (uncounted), beside the plain backward's, the bound and, for
+    flash, the backward of ``scaled_dot_product_attention`` (autograd,
+    ``enable_gqa``) on the same inputs; CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_sm90_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan_bwd_cuda,
+                                                       ssd_scan_tc_cuda)
+    bf16, res = torch.bfloat16, {}
+    fs = FLASH_TRAIN
+    q, k, v = _flash_inputs(gen, dtype=bf16, **fs)
+    out = torch.empty((fs["b"], fs["s"], fs["h"], fs["dv"]), dtype=bf16,
+                      device="cuda")
+    lse = torch.empty((fs["b"], fs["h"], fs["s"]), device="cuda")
+    flash_attention_sm90_cuda(q, k, v, out, True, 0, lse)
+    do = _normal(gen, out.shape, bf16)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    flops, nbytes = _flash_bwd_work(esize=2, **fs)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    r = res["flash_attention_bwd"] = {
+        "ms": cuda_time_ms(lambda: flash_attention_bwd_cuda(
+            q, k, v, out, do, lse, dq, dk, dv, True, 0), n=5, warm=1),
+        "plain_ms": cuda_time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, do), n=1, warm=1),
+        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), n=20, warm=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "bytes": nbytes, "shape": fs}
+    r["bound_share"] = bound_ms / r["ms"]
+    r["library_ratio"] = r["ms"] / r["library_ms"]
+    del q, k, v, out, lse, do, dq, dk, dv, qt, kt, vt, ot, dot
+    ss = SSD_TRAIN
+    args = _ssd_inputs(gen, dtype=bf16, **ss)
+    y = torch.empty_like(args[0])
+    state = torch.empty((ss["b"], ss["h"], ss["n"], ss["p"]),
+                        device="cuda")
+    states = ssd_scan_tc_cuda(*args, y, state, ss["chunk"])
+    dy = _normal(gen, y.shape, bf16)
+    flops, nbytes = _ssd_bwd_work(esize=2, **ss)
+    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    r = res["ssd_scan_bwd"] = {
+        "ms": cuda_time_ms(lambda: ssd_scan_bwd_cuda(
+            *args, dy, states, None, ss["chunk"]), n=5, warm=1),
+        "plain_ms": cuda_time_ms(lambda: ssd_scan_bwd_ref(
+            *args, dy, chunk=ss["chunk"]), n=1, warm=1),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": flops, "bytes": nbytes, "shape": ss}
+    r["bound_share"] = bound_ms / r["ms"]
+    for name, r in res.items():
+        log(f"[train] {name} at {r['shape']}, bf16: {r['ms']:.4f} ms "
+            f"({r['bound_share']:.4f} of the {r['bound_ms']:.5f} ms bound, "
+            f"by {r['bound_by']}); plain {r['plain_ms']:.2f} ms"
+            + (f"; SDPA's backward {r['library_ms']:.4f} ms (kernel / SDPA "
+               f"{r['library_ratio']:.2f})" if r["library_ms"] else ""))
+    return res
+
+
+def _train_batches(cfg, seq, n, seed=0):
+    """``n`` batches of TRAIN_BATCH sequences of the data pipeline on the
+    card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import loop
+    ds = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=TRAIN_BATCH,
+                                     vocab_size=cfg.vocab_size, seed=seed))
+    return [loop.to_device(next(ds), "cuda") for _ in range(n)]
+
+
+def _reckoned(cfg, layers: int, steps: int) -> dict:
+    """The forward and backward launches of ``steps`` steps: one forward a
+    layer and microbatch, again in remat's recompute, one backward."""
+    mb = cfg.train_microbatches
+    fwd = layers * mb * (1 + (cfg.remat == "block")) * steps
+    bwd = layers * mb * steps
+    if cfg.family == "ssm":
+        return {"ssd_scan": fwd, "ssd_scan_bwd": bwd, "flash_attention": 0,
+                "flash_attention_bwd": 0}
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
+def _step_grads(model, batch, mb, dtype=None, plain=False):
+    """(metrics, gradients) of one step's batch on the card; ``dtype``
+    replaces the config's compute dtype, ``plain`` runs the plain versions
+    in the kernels' place (their wrappers swapped for the plain functions
+    for this run alone)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.train import loop
+    cfg, saved = model.cfg, (fops.flash_attention, sops.ssd_scan)
+    if dtype is not None:
+        model.cfg = cfg.replace(dtype=dtype)
+    if plain:
+        fops.flash_attention, sops.ssd_scan = flash_attention_ref, ssd_scan_ref
+    try:
+        out = loop.grads_and_metrics(model, batch, mb)
+        torch.cuda.synchronize()
+    finally:
+        model.cfg = cfg
+        fops.flash_attention, sops.ssd_scan = saved
+    return out
+
+
+def _train_parity(arch: str, layers: int) -> dict:
+    """(b): one step's gradients at full width (TRAIN_PARITY_SEQ tokens a
+    sequence) with the kernels and with the plain versions, in bf16 and
+    in float32: every bf16 leaf finite, not all zero and within
+    STEP_GRAD_TOL of the plain versions' (or, past it, no farther than
+    STEP_NOISE times the plain version's own distance from the float32
+    step), every float32 leaf within STEP_GRAD_TOL_F32."""
+    import torch
+    cfg, model = _lm_model(arch, n_layers=layers)
+    batch = _train_batches(cfg, TRAIN_PARITY_SEQ, 1)[0]
+    mb = cfg.train_microbatches
+    reset_launches()
+    m_k, g_k = _step_grads(model, batch, mb)
+    launches = read_launches()
+    want = _reckoned(cfg, layers, 1)
+    check(all(launches[k] == n for k, n in want.items()),
+          f"[train] {arch}: kernel step launched {launches}, reckoned "
+          f"{want}")
+    m_p, g_p = _step_grads(model, batch, mb, plain=True)
+    errs, bad = {}, []
+    for name, g in g_k.items():
+        w = g_p[name]
+        if not (torch.isfinite(g).all() and g.abs().max() > 0
+                and torch.isfinite(w).all()):
+            bad.append(name)
+        errs[name] = _rel_err(g, w)
+    check(not bad, f"[train] {arch}: gradients not finite or all zero: "
+          f"{bad[:8]}")
+    # the float32 step, plain versions: the arbiter of the leaves past the
+    # tolerance, then the kernels' float32 step against it
+    _, g_32 = _step_grads(model, batch, mb, dtype="float32", plain=True)
+    over = sorted((n for n, e in errs.items() if e > STEP_GRAD_TOL),
+                  key=errs.get, reverse=True)
+    noise = {}
+    if over:
+        noise = {n: (_rel_err(g_k[n], g_32[n]), _rel_err(g_p[n], g_32[n]))
+                 for n in over}
+        log(f"[train] (b) {arch}: {len(over)} bf16 leaves past "
+            f"{STEP_GRAD_TOL} of the plain versions' (kernels' |err|, plain "
+            "version's |err| against the float32 step): " + ", ".join(
+                f"{n} {noise[n][0]:.3g}, {noise[n][1]:.3g}" for n in over))
+        farther = [n for n in over if noise[n][0] > STEP_NOISE * noise[n][1]]
+        check(not farther, f"[train] {arch}: the kernels' bf16 gradients "
+              f"of {farther[:8]} are more than {STEP_NOISE}x as far from the "
+              "float32 step as the plain versions'")
+    del g_k, g_p
+    _, g_k32 = _step_grads(model, batch, mb, dtype="float32")
+    errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
+    within = {n: e for n, e in errs.items() if n not in noise}
+    worst, worst32 = max(within, key=within.get), max(errs32, key=errs32.get)
+    ratio = errs[worst] / STEP_GRAD_TOL
+    ratio32 = errs32[worst32] / STEP_GRAD_TOL_F32
+    log(f"[train] (b) {arch} at {layers} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_PARITY_SEQ} tokens, {mb} microbatches: all {len(errs)} "
+        f"gradients finite and not zero; kernels vs plain versions, bf16: "
+        f"worst leaf {'but those ' if noise else ''}{worst} |err| / max "
+        f"|plain| {errs[worst]:.3g} (tolerance {STEP_GRAD_TOL}; "
+        f"{ratio:.3g} of it used), loss {float(m_k['loss']):.5f} vs "
+        f"{float(m_p['loss']):.5f}; float32: worst leaf {worst32} "
+        f"{errs32[worst32]:.3g} (tolerance {STEP_GRAD_TOL_F32}; "
+        f"{ratio32:.3g} of it used); launches of the bf16 step {want}")
+    check(ratio <= 1, f"[train] {arch}: gradient {worst} off the plain "
+          f"versions' by {errs[worst]}")
+    check(ratio32 <= 1, f"[train] {arch}: float32 gradient {worst32} off "
+          f"the plain versions' by {errs32[worst32]}")
+    check(abs(float(m_k["loss"]) - float(m_p["loss"]))
+          <= 1e-2 * abs(float(m_p["loss"])), f"[train] {arch}: loss "
+          f"{float(m_k['loss'])} vs plain {float(m_p['loss'])}")
+    return {"arch": arch, "layers": layers, "leaves": len(errs),
+            "worst_leaf": worst, "rel_err": errs[worst], "ratio": ratio,
+            "noise_leaves": noise, "worst_leaf_f32": worst32,
+            "rel_err_f32": errs32[worst32]}
+
+
+def _train_timed(arch: str, layers: int) -> dict:
+    """(c): a warm-up step then TRAIN_TIMED_STEPS timed steps at full
+    width and TRAIN_SEQ tokens a sequence (host clock around synchronised
+    steps), each kernel's launches over them equal to the reckoned ones,
+    losses and parameters finite, peak memory."""
+    import torch
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.train import loop
+    cfg, model = _lm_model(arch, n_layers=layers)
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(3e-4, warmup=10))
+    params = dict(model.named_parameters())
+    state = {"params": model, "opt": opt.init(params), "step": 0}
+    n_params = sum(p.numel() for p in params.values())
+    step = loop.make_train_step(cfg, opt,
+                                microbatches=cfg.train_microbatches)
+    batches = _train_batches(cfg, TRAIN_SEQ, 1 + TRAIN_TIMED_STEPS)
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    losses = [float(m["loss"])]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))   # synchronises each step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = _reckoned(cfg, layers, TRAIN_TIMED_STEPS)
+    check(all(launches[k] == n for k, n in want.items()),
+          f"[train] {arch}: {TRAIN_TIMED_STEPS} steps launched {launches}, "
+          f"reckoned {want}")
+    check(all(map(math.isfinite, losses)), f"[train] {arch}: losses {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in params.values()),
+          f"[train] {arch}: parameters not finite after the steps")
+    step_s = wall / TRAIN_TIMED_STEPS
+    run = {"arch": arch, "layers": layers, "of_layers": None,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": cfg.train_microbatches, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "step_s": step_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": {k: launches[k] for k in want},
+           "reckoned": want}
+    from repro_torch.configs.base import get_config
+    run["of_layers"] = get_config(arch).n_layers
+    log(f"[train] (c) {arch} at {layers} of {run['of_layers']} layers "
+        f"({n_params / 1e9:.3f}e9 parameters, f32 weights, bf16 compute, "
+        f"{cfg.optimizer}, remat {cfg.remat}), {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, {cfg.train_microbatches} microbatches: {step_s:.4f} s a "
+        f"step, {run['tokens_per_s']:.1f} tokens/s, peak "
+        f"{run['peak_gb']:.2f} GB, losses {[round(x, 4) for x in losses]}; "
+        f"launches over {TRAIN_TIMED_STEPS} steps {run['launches']} (as "
+        "reckoned)")
+    del state, model, params, batches
+    torch.cuda.empty_cache()
+    return run
+
+
+def _train_quickstart() -> dict:
+    """(d): examples/torch_quickstart.py on the card from the reference's
+    initial weights and on the batches the reference took (the card's
+    numpy may draw other Zipf samples for the data pipeline: its first
+    batch is compared and logged): its lines against goldens.json's (the
+    JAX package's) within script_runs.QUICKSTART_TOL, its loss falling,
+    its backward passes on the kernels (one an attention layer and
+    microbatch a step)."""
+    import numpy as np
+    import torch
+    from repro_torch.workloads import goldens
+    runs = _script_runs()
+    gold = goldens.load()["quickstart"]
+    mod = runs.load_script(ROOT, runs.QUICKSTART["script"], twin=True)
+    with np.load(ROOT / gold["data"]) as z:
+        taken = {k: z[k] for k in z.files}
+
+    class Taken(mod.SyntheticLM):
+        """The pipeline giving the reference's batches by step."""
+
+        def batch_at(self, step):
+            return {k: v[step] for k, v in taken.items()}
+
+    own = mod.SyntheticLM(mod.config(), mod.DataConfig(
+        seq_len=taken["tokens"].shape[2],
+        global_batch=taken["tokens"].shape[1],
+        vocab_size=mod.config().vocab_size)).batch_at(0)
+    same_data = all(np.array_equal(own[k], v[0]) for k, v in taken.items())
+    log(f"[train] (d) numpy {np.__version__} here draws "
+        f"{'the same' if same_data else 'other'} batches than the "
+        "reference's machine (Zipf samples of the data pipeline); the twin "
+        "takes the reference's")
+    mod.SyntheticLM = Taken
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, text = runs.run_main(mod, ["--init", str(ROOT / gold["init"])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = text.splitlines()
+    bad = runs.quickstart_departures(lines, gold["lines"])
+    losses = runs.quickstart_losses(lines)
+    # one backward an attention layer and microbatch (2) a step
+    bwd = len(taken["tokens"]) * 2 * mod.config().n_layers
+    log(f"[train] (d) examples/torch_quickstart.py on the card: exit {rc}, "
+        f"{wall:.2f} s, losses {losses}, {len(bad)} lines off the JAX "
+        f"package's beyond {runs.QUICKSTART_TOL}; flash launches "
+        f"{launches['flash_attention']} forward (scalar kernel, f32), "
+        f"{launches['flash_attention_bwd']} backward")
+    check(rc == 0 and not bad, f"[train] quickstart: exit {rc}, {bad}")
+    check(losses[-1] < losses[0] - 2, f"[train] quickstart: loss {losses}")
+    check(launches["flash_attention_bwd"] == bwd
+          and launches["flash_attention"] >= 2 * bwd,
+          f"[train] quickstart launched {launches}")
+    return {"wall_s": wall, "losses": losses, "lines": lines,
+            "same_data": same_data,
+            "launches": {k: launches[k] for k in
+                         ("flash_attention", "flash_attention_bwd")}}
+
+
+def phase_train() -> dict:
+    """[train] (a) the backward kernels against their plain versions on
+    the card (and timed), (b) one full-width step's gradients with the
+    kernels against the plain versions, (c) timed full-width steps, (d)
+    the quickstart twin against the JAX package's lines."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    keys = ("s", "h", "kv", "dk", "dv", "causal", "window")
+    flash = [(dict(zip(keys, c), b=2), dt) for c in FLASH_CASES
+             for dt in ("float32", "bfloat16")]
+    flash += [(FLASH_QUICKSTART, "float32"), (FLASH_TRAIN, "bfloat16")]
+    worst = {}
+    for shape, dt in flash:
+        r = _flash_bwd_case(gen, shape, dt)
+        if shape is FLASH_TRAIN:
+            worst["flash_attention_bwd"] = r["max_abs_err"]
+    keys = ("b", "s", "h", "g", "p", "n", "chunk")
+    ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
+    # the tensor-core forward's cases whose backward fits shared memory
+    # (all but N = P = 128: the model families' widths are N 128, P 64)
+    ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES
+            if min(c[4], c[5]) <= 64]
+    ssd += [(dict(SSD_TRAIN, s=1024), "float32"), (SSD_TRAIN, "bfloat16")]
+    for shape, dt in ssd:
+        r = _ssd_bwd_case(gen, shape, dt)
+        if shape is SSD_TRAIN:
+            worst["ssd_scan_bwd"] = r["max_abs_err"]
+    times = _bwd_times(gen)
+    torch.cuda.empty_cache()
+    parity = [_train_parity(a, n) for a, n in TRAIN_PATHS]
+    torch.cuda.empty_cache()
+    timed = [_train_timed(a, n) for a, n in TRAIN_PATHS]
+    quick = _train_quickstart()
+    return {"max_abs_err": worst, "times": times, "parity": parity,
+            "timed": timed, "quickstart": quick}
+
+
 def gpu_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2653,6 +3180,7 @@ def main(argv=None) -> int:
         timed(phase_lm_parity)
         lm_run = timed(phase_lm_main)
         lm_times = timed(phase_lm_kernel_times)
+        train = timed(phase_train)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2762,6 +3290,33 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "arch": arch, "shape": shape})
+    # the backward kernels: no Pallas kernel; they stand for jax.grad of
+    # the jnp functions the forward kernels compute.  Launches: [train]
+    # (c)'s timed steps (llama3-8b's for flash, mamba2-130m's for SSD)
+    timed_runs = {r["arch"]: r for r in train["timed"]}
+    for name, src, csrc, arch in (
+            ("flash_attention_bwd", "src/repro/models/attention.py:28",
+             "flash_attention/csrc/flash_attention_bwd.cu", "llama3-8b"),
+            ("ssd_scan_bwd", "src/repro/models/ssm.py:58",
+             "ssd_scan/csrc/ssd_scan_bwd.cu", "mamba2-130m")):
+        r = train["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{csrc}", "replaces": src,
+            "launches": timed_runs[arch]["launches"][name],
+            "max_abs_err": train["max_abs_err"][name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "stands_for": "jax.value_and_grad of the jnp function (no "
+                          "Pallas backward)", "shape": r["shape"]})
+    log("[report] training (bf16, f32 weights; card: " + card + "): "
+        + "; ".join(
+            f"{r['arch']} at {r['layers']} of {r['of_layers']} layers, "
+            f"{r['batch']} x {r['seq']} tokens, {r['microbatches']} "
+            f"microbatches: {r['step_s']:.4f} s a step, "
+            f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gb']:.2f} GB"
+            for r in train["timed"])
+        + f"; quickstart {train['quickstart']['wall_s']:.2f} s")
     log("[report] LM serving (bf16): " + "; ".join(
         f"{a} ({r['batch']} x {r['text'] + r['frontend']}) prefill "
         f"{r['prefill_tokens_per_s']:.1f} tokens/s (first "

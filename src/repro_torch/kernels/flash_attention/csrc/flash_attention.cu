@@ -66,8 +66,9 @@ size_t smem_bytes(int dk, int dv) {
 template <typename T, int kDV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             int KV, int Dk, int Dv, int causal, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int S, int H, int KV, int Dk, int Dv,
+             int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ldk = Dk + 1;
   float* Qs = smem;                      // kBQ x ldk, pre-scaled
@@ -209,6 +210,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();  // l_s is complete (also when no tile was visited)
+  // the row's log-sum-exp of the scaled scores, for the backward pass
+  if (lse != nullptr && tid < kBQ && q0 + tid < S)
+    lse[(static_cast<int64_t>(b) * H + h) * S + q0 + tid] =
+        m_s[tid] + logf(l_s[tid]);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -225,9 +230,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int kDV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int Dk, int Dv, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int Dk, int Dv, int causal,
+           int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, kDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,26 +241,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, kDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, Dk, Dv, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, Dk, Dv,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int Dk, int Dv, int causal, int window,
-              float scale, cudaStream_t stream) {
+int launch_dv(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, int Dk, int Dv,
+              int causal, int window, float scale, cudaStream_t stream) {
   if (Dv <= 32)
-    return launch<T, 32>(q, k, v, o, B, S, H, KV, Dk, Dv, causal, window,
-                         scale, stream);
+    return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, Dk, Dv, causal,
+                           window, scale, stream);
   if (Dv <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, H, KV, Dk, Dv, causal, window,
-                         scale, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, Dk, Dv, causal,
+                           window, scale, stream);
   if (Dv <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, KV, Dk, Dv, causal, window,
-                          scale, stream);
-  return launch<T, 256>(q, k, v, o, B, S, H, KV, Dk, Dv, causal, window,
-                        scale, stream);
+    return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, Dk, Dv, causal,
+                           window, scale, stream);
+  return launch<T, 256>(q, k, v, o, lse, B, S, H, KV, Dk, Dv, causal,
+                           window, scale, stream);
 }
 
 }  // namespace
@@ -270,22 +275,25 @@ extern "C" int64_t flash_attention_smem_limit() { return kMaxSmem; }
 
 // scale: Dk^-0.5 as the caller rounds it to float.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Contiguous
-// (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv).  Launches on `stream`
+// (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv).  lse: null, or a
+// float32 (B,H,S) that gets each row's log-sum-exp of its scaled, masked
+// scores (m + log l), which the backward pass reads.  Launches on `stream`
 // and returns the CUDA error code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, int Dk, int Dv,
                                       int causal, int window, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Dk <= 0 ||
       Dv <= 0 || Dv > 256 || smem_bytes(Dk, Dv) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dv<float>(q, k, v, o, B, S, H, KV, Dk, Dv, causal, window,
-                            scale, st);
+    return launch_dv<float>(q, k, v, o, static_cast<float*>(lse), B, S, H,
+                            KV, Dk, Dv, causal, window, scale, st);
   if (dtype == 1)
-    return launch_dv<__nv_bfloat16>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                    window, scale, st);
+    return launch_dv<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B,
+                                    S, H, KV, Dk, Dv, causal, window, scale,
+                                    st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -443,8 +443,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  const __grid_constant__ CUtensorMap tm_o, int B, int S,
-                  int H, int KV, int causal, int window, float scale_log2) {
+                  const __grid_constant__ CUtensorMap tm_o,
+                  float* __restrict__ lse, int B, int S, int H, int KV,
+                  int causal, int window, float scale_log2) {
   constexpr int kBK = pick_bk(kDK, kDV);
   constexpr int kStages = pick_stages(kDK, kDV, kBK);
   constexpr uint32_t kQBytes = 2 * kBQ * kDK;
@@ -754,6 +755,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      // each row's log-sum-exp of the scaled scores (m and l are base 2),
+      // for the backward pass: one thread of the row's quad writes it
+      if (lse != nullptr && lane % 4 == 0) {
+        float* lrow = lse + (static_cast<int64_t>(x.b) * H + x.h) * S;
+        if (row < S) lrow[row] = (m0 + log2f(l0)) * 0.6931471805599453f;
+        if (row + 8 < S)
+          lrow[row + 8] = (m1 + log2f(l1)) * 0.6931471805599453f;
+      }
       // o / l in bf16 into this warpgroup's 64 rows of the O tile, in the
       // 128-byte-swizzled box layout TMA reads, once the previous tile's
       // store has read them; then one thread stores the boxes, TMA clipping
@@ -834,9 +843,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int kDK, int kDV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int Dk, int Dv, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int Dk, int Dv, int causal,
+           int window, float scale, cudaStream_t stream) {
   constexpr int kBK = pick_bk(kDK, kDV);
   constexpr int kSmem =
       smem_bytes(kDK, kDV, kBK, pick_stages(kDK, kDV, kBK));
@@ -863,24 +872,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int tiles = (S + kBQ - 1) / kBQ * B * H;
   flash_sm90_kernel<kDK, kDV><<<tiles < sms ? tiles : sms, kThreads, kSmem,
                                 stream>>>(
-      tq, tk, tv, to, B, S, H, KV, causal, window,
+      tq, tk, tv, to, lse, B, S, H, KV, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kDK>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int Dk, int Dv, int causal, int window,
-              float scale, cudaStream_t st) {
+int launch_dv(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, int Dk, int Dv,
+              int causal, int window, float scale, cudaStream_t st) {
   switch ((Dv + kBox - 1) / kBox) {
-    case 1: return launch<kDK, 64>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                   window, scale, st);
-    case 2: return launch<kDK, 128>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                    window, scale, st);
-    case 3: return launch<kDK, 192>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                    window, scale, st);
-    default: return launch<kDK, 256>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                     window, scale, st);
+    case 1: return launch<kDK, 64>(q, k, v, o, lse, B, S, H, KV, Dk, Dv,
+                                   causal, window, scale, st);
+    case 2: return launch<kDK, 128>(q, k, v, o, lse, B, S, H, KV, Dk, Dv,
+                                    causal, window, scale, st);
+    case 3: return launch<kDK, 192>(q, k, v, o, lse, B, S, H, KV, Dk, Dv,
+                                    causal, window, scale, st);
+    default: return launch<kDK, 256>(q, k, v, o, lse, B, S, H, KV, Dk, Dv,
+                                     causal, window, scale, st);
   }
 }
 
@@ -890,12 +899,15 @@ int launch_dv(const void* q, const void* k, const void* v, void* o, int B,
 // bf16 (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv), 16-byte aligned;
 // Dk and Dv multiples of 16 in [16, 256].  Launches on `stream` and returns
 // the CUDA error code (0 on success; cudaErrorInvalidValue for arguments the
-// kernel does not take or a tensor map the driver refuses).
+// kernel does not take or a tensor map the driver refuses).  lse: null, or
+// a float32 (B,H,S) that gets each row's log-sum-exp of its scaled, masked
+// scores, which the backward pass reads.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int S, int H, int KV, int Dk,
                                            int Dv, int causal, int window,
-                                           float scale, void* stream) {
+                                           float scale, void* lse,
+                                           void* stream) {
   const auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
@@ -905,13 +917,13 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((Dk + kBox - 1) / kBox) {
-    case 1: return launch_dv<64>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                 window, scale, st);
-    case 2: return launch_dv<128>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                  window, scale, st);
-    case 3: return launch_dv<192>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                  window, scale, st);
-    default: return launch_dv<256>(q, k, v, o, B, S, H, KV, Dk, Dv, causal,
-                                   window, scale, st);
+    case 1: return launch_dv<64>(q, k, v, o, static_cast<float*>(lse), B, S,
+                                 H, KV, Dk, Dv, causal, window, scale, st);
+    case 2: return launch_dv<128>(q, k, v, o, static_cast<float*>(lse), B, S,
+                                  H, KV, Dk, Dv, causal, window, scale, st);
+    case 3: return launch_dv<192>(q, k, v, o, static_cast<float*>(lse), B, S,
+                                  H, KV, Dk, Dv, causal, window, scale, st);
+    default: return launch_dv<256>(q, k, v, o, static_cast<float*>(lse), B, S,
+                                   H, KV, Dk, Dv, causal, window, scale, st);
   }
 }

@@ -12,6 +12,11 @@ ctypes:
   by TMA, both products on the tensor cores (wgmma);
 * ``csrc/flash_attention.cu`` (float32 or bf16, any width that fits): one
   CTA per (64-row query tile, head, batch), scalar FMAs.
+
+Both forwards write each row's log-sum-exp when given an ``lse`` tensor
+(training); ``csrc/flash_attention_bwd.cu`` holds the backward pass that
+reads it (two kernels, scalar FMAs; no Pallas counterpart: the JAX package
+differentiates its jnp attention).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.kernels.build import load_library
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu",)
 SOURCES_SM90 = (CSRC / "flash_attention_sm90.cu",)
+SOURCES_BWD = (CSRC / "flash_attention_bwd.cu",)
 
 #: kernel dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,7 +44,8 @@ def library() -> ctypes.CDLL:
     if "launch" not in _FNS:
         fn = lib.flash_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.flash_attention_smem_bytes
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -56,9 +63,27 @@ def library_sm90() -> ctypes.CDLL:
     if "sm90" not in _FNS:
         fn = lib.flash_attention_sm90_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS["sm90"] = fn
+    return lib
+
+
+def library_bwd() -> ctypes.CDLL:
+    """Build (once) and load the backward kernels' shared library."""
+    lib = load_library("flash_attention_bwd", SOURCES_BWD)
+    if "bwd" not in _FNS:
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        smem = lib.flash_attention_bwd_smem_bytes
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_int64
+        limit = lib.flash_attention_bwd_smem_limit
+        limit.argtypes = []
+        limit.restype = ctypes.c_int64
+        _FNS.update(bwd=fn, bwd_smem=smem, bwd_limit=limit)
     return lib
 
 
@@ -69,21 +94,34 @@ def smem_fits(dk: int, dv: int) -> bool:
     return _FNS["smem"](dk, dv) <= _FNS["limit"]()
 
 
+def smem_fits_bwd(dk: int, dv: int) -> bool:
+    """Whether the backward kernels' shared memory for (Dk, Dv) fits one
+    block."""
+    library_bwd()
+    return _FNS["bwd_smem"](dk, dv) <= _FNS["bwd_limit"]()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         out: torch.Tensor, causal: bool, window: int) -> None:
+                         out: torch.Tensor, causal: bool, window: int,
+                         lse: torch.Tensor = None) -> None:
     """Launch the scalar kernel on the current stream:
-    ``out = attention(q, k, v)``.
+    ``out = attention(q, k, v)`` (and, given ``lse``, each row's
+    log-sum-exp into it).
 
     Contiguous (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv) tensors of
-    one dtype (float32 or bfloat16) on one CUDA device (checked by the
-    caller).  Raises on a launch error."""
+    one dtype (float32 or bfloat16) and a float32 (B,H,S) ``lse`` on one
+    CUDA device (checked by the caller).  Raises on a launch error."""
     library()
     B, S, H, Dk = q.shape
     KV, Dv = k.shape[2], v.shape[3]
     err = _FNS["launch"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         KV, Dk, Dv, int(causal), int(window), Dk ** -0.5, DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(lse), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
@@ -91,9 +129,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
-                              causal: bool, window: int) -> None:
+                              causal: bool, window: int,
+                              lse: torch.Tensor = None) -> None:
     """Launch the tensor-core kernel on the current stream:
-    ``out = attention(q, k, v)``.
+    ``out = attention(q, k, v)`` (and, given a float32 (B,H,S) ``lse``,
+    each row's log-sum-exp into it).
 
     Contiguous bf16 (B,S,H,Dk), (B,S,KV,Dk), (B,S,KV,Dv), (B,S,H,Dv)
     tensors on one CUDA device, 16-byte aligned, Dk and Dv multiples of 16
@@ -103,8 +143,34 @@ def flash_attention_sm90_cuda(q: torch.Tensor, k: torch.Tensor,
     KV, Dv = k.shape[2], v.shape[3]
     err = _FNS["sm90"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KV, Dk, Dv, int(causal), int(window), Dk ** -0.5,
+        KV, Dk, Dv, int(causal), int(window), Dk ** -0.5, _ptr(lse),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention_sm90 kernel launch failed: cudaError {err}")
+
+
+def flash_attention_bwd_cuda(q, k, v, o, dout, lse, dq, dk, dv,
+                             causal: bool, window: int) -> None:
+    """Launch the two backward kernels on the current stream: ``dq, dk, dv
+    = d attention(q, k, v) given do``, from the forward's ``o`` and
+    ``lse``.
+
+    Contiguous q (B,S,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv), o and ``dout``
+    (B,S,H,Dv) of one dtype, ``lse`` (B,H,S) float32, and dq, dk, dv shaped
+    and typed as q, k, v, on one CUDA device (checked by the caller).
+    Allocates the (B,H,S) float32 scratch rowsum(do o).  Raises on a
+    launch error."""
+    library_bwd()
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _FNS["bwd"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, H, KV, Dk, Dv, int(causal),
+        int(window), Dk ** -0.5, DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed: cudaError {err}")

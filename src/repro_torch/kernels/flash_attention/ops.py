@@ -17,19 +17,31 @@ picks the kernel from the dtype and the head widths alone:
 ``launches`` counts the launches of both kernels and ``launches_sm90``
 those of the tensor-core kernel (never plain-version calls); callers may
 reset either to 0.
+
+Training: where autograd records (grad enabled and an input that needs a
+gradient), a CUDA call goes through :class:`FlashAttention`, whose
+forward also writes each row's log-sum-exp and whose backward launches
+``csrc/flash_attention_bwd.cu`` (``launches_bwd`` counts those backward
+calls, two kernels each); the plain backward is autograd of
+:func:`.ref.flash_attention_ref` (:func:`.ref.flash_attention_bwd_ref`).
+A serving call passes no log-sum-exp and its output is unchanged.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    DTYPES, flash_attention_cuda, flash_attention_sm90_cuda, smem_fits)
+    DTYPES, flash_attention_bwd_cuda, flash_attention_cuda,
+    flash_attention_sm90_cuda, smem_fits, smem_fits_bwd)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: CUDA kernel launches made by :func:`flash_attention` (a plain integer)
 launches = 0
 #: of which launches of the tensor-core kernel
 launches_sm90 = 0
+#: backward calls (flash_bwd_dq + flash_bwd_dkdv each) made by
+#: :class:`FlashAttention`
+launches_bwd = 0
 
 #: largest value head width either kernel's accumulators hold
 MAX_DV = 256
@@ -61,12 +73,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype.  H must be a multiple of KV (query head h reads KV head
     h // (H // KV)); ``window > 0`` limits each query to its trailing
     ``window`` positions."""
-    global launches, launches_sm90
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, None)
+
+
+def _forward(q, k, v, causal, window, lse):
+    """One forward launch on the routed kernel; ``lse`` (B,H,S) float32 or
+    None."""
+    global launches, launches_sm90
+    dev = q.device
     _check(q, k, v)
     B, S, H, Dk = q.shape
     Dv = v.shape[3]
@@ -78,15 +99,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"flash_attention: {name}'s data is not "
                                  "16-byte aligned (the kernel loads it by "
                                  "TMA)")
-        flash_attention_sm90_cuda(q, k, v, out, causal, window)
+        flash_attention_sm90_cuda(q, k, v, out, causal, window, lse)
         launches_sm90 += 1
     else:
         if not smem_fits(Dk, Dv):
             raise ValueError(f"flash_attention: Dk {Dk}, Dv {Dv} exceed "
                              "the scalar kernel's shared memory")
-        flash_attention_cuda(q, k, v, out, causal, window)
+        flash_attention_cuda(q, k, v, out, causal, window, lse)
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on the card with its hand-written backward: the
+    forward kernel also writes the rows' log-sum-exp, and the backward
+    kernels read q, k, v, the output and it (nothing falls back to the
+    plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global launches_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        if not smem_fits_bwd(q.shape[3], v.shape[3]):
+            raise ValueError(f"flash_attention backward: Dk {q.shape[3]}, "
+                             f"Dv {v.shape[3]} exceed its kernels' shared "
+                             "memory")
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        flash_attention_bwd_cuda(q, k, v, out, dout.contiguous().to(q.dtype),
+                                 lse, dq, dk, dv, ctx.causal, ctx.window)
+        launches_bwd += 1
+        return dq, dk, dv, None, None
 
 
 def _check(q, k, v):

@@ -11,6 +11,10 @@ CUDA kernel's 64 x 64 tiles.  It is the CPU path of
 
 Layouts: q (B,S,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv) -> (B,S,H,Dv); query
 head h reads KV head h // (H // KV).
+
+:func:`flash_attention_bwd_ref` is the plain backward: autograd of
+:func:`flash_attention_ref`, what ``chip_smoke.py`` holds the backward
+kernels (``csrc/flash_attention_bwd.cu``) to.
 """
 from __future__ import annotations
 
@@ -68,3 +72,12 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
             m = m_new
         out[:, q0:q0 + bq] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, S, H, Dv).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=0):
+    """(dq, dk, dv) of :func:`flash_attention_ref` given the output's
+    gradient ``dout``, by autograd; each in its input's dtype."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(out, (q, k, v), dout)

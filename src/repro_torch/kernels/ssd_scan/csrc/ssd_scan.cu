@@ -80,8 +80,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, T* __restrict__ y,
-           float* __restrict__ state_out, int S, int H, int G, int N, int P,
-           int Q) {
+           float* __restrict__ state_out, float* __restrict__ states, int S,
+           int H, int G, int N, int P, int Q) {
   extern __shared__ float smem[];
   const int ldn = N + 1;
   float* St = smem;                 // N x P state
@@ -111,6 +111,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int c0 = 0; c0 < S; c0 += Q) {
     const int qe = min(Q, S - c0);  // rows of this chunk
     __syncthreads();                // the previous chunk is done
+    if (states != nullptr) {        // the chunk's incoming state (backward)
+      float* sc = states +
+                  ((static_cast<int64_t>(b) * H + h) * ((S + Q - 1) / Q) +
+                   c0 / Q) * N * P;
+      for (int i = tid; i < N * P; i += kThreads) sc[i] = St[i];
+    }
     for (int i = tid; i < qe; i += kThreads)
       dt_s[i] = dt[(static_cast<int64_t>(b) * S + c0 + i) * H + h];
     __syncthreads();
@@ -291,8 +297,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T, int kNB, int kPB>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, void* y, void* state, int B, int S, int H, int G,
-           int N, int P, int Q, cudaStream_t stream) {
+           const void* Cm, void* y, void* state, void* states, int B, int S,
+           int H, int G, int N, int P, int Q, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, P, Q);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_kernel<T, kNB, kPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,33 +308,34 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<T*>(y),
-      static_cast<float*>(state), S, H, G, N, P, Q);
+      static_cast<float*>(state), static_cast<float*>(states), S, H, G, N,
+      P, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kNB>
 int launch_p(const void* x, const void* dt, const void* A, const void* Bm,
-             const void* Cm, void* y, void* state, int B, int S, int H, int G,
-             int N, int P, int Q, cudaStream_t stream) {
+             const void* Cm, void* y, void* state, void* states, int B, int S,
+             int H, int G, int N, int P, int Q, cudaStream_t stream) {
   if (P <= 32)
-    return launch<T, kNB, 2>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                             stream);
+    return launch<T, kNB, 2>(x, dt, A, Bm, Cm, y, state, states, B, S,
+                             H, G, N, P, Q, stream);
   if (P <= 64)
-    return launch<T, kNB, 4>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                             stream);
-  return launch<T, kNB, 8>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                           stream);
+    return launch<T, kNB, 4>(x, dt, A, Bm, Cm, y, state, states, B, S,
+                             H, G, N, P, Q, stream);
+  return launch<T, kNB, 8>(x, dt, A, Bm, Cm, y, state, states, B, S,
+                             H, G, N, P, Q, stream);
 }
 
 template <typename T>
 int launch_np(const void* x, const void* dt, const void* A, const void* Bm,
-              const void* Cm, void* y, void* state, int B, int S, int H,
-              int G, int N, int P, int Q, cudaStream_t stream) {
+              const void* Cm, void* y, void* state, void* states, int B,
+              int S, int H, int G, int N, int P, int Q, cudaStream_t stream) {
   if (N <= 32)
-    return launch_p<T, 2>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                          stream);
-  return launch_p<T, 8>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                        stream);
+    return launch_p<T, 2>(x, dt, A, Bm, Cm, y, state, states, B, S, H,
+                          G, N, P, Q, stream);
+  return launch_p<T, 8>(x, dt, A, Bm, Cm, y, state, states, B, S, H,
+                          G, N, P, Q, stream);
 }
 
 }  // namespace
@@ -342,22 +349,25 @@ extern "C" int64_t ssd_scan_smem_limit() { return kMaxSmem; }
 
 // dtype: 0 = float32, 1 = bfloat16 (of x, B, C and y; dt, A and the state
 // are float32).  Contiguous x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm
-// (B,S,G,N), y (B,S,H,P), state (B,H,N,P); Q the chunk (<= S).  Launches on
-// `stream` and returns the CUDA error code (0 on success).
+// (B,S,G,N), y (B,S,H,P), state (B,H,N,P); Q the chunk (<= S).  states:
+// null, or a float32 (B,H,nc,N,P), nc = ceil(S / Q), that gets each chunk's
+// incoming state (the backward pass reads them).  Launches on `stream` and
+// returns the CUDA error code (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y,
-                               void* state, int B, int S, int H, int G, int N,
-                               int P, int Q, int dtype, void* stream) {
+                               void* state, void* states, int B, int S, int H,
+                               int G, int N, int P, int Q, int dtype,
+                               void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || N <= 0 ||
       N > 128 || P <= 0 || P > 128 || Q <= 0 ||
       smem_bytes(N, P, Q) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_np<float>(x, dt, A, Bm, Cm, y, state, B, S, H, G, N, P, Q,
-                            st);
+    return launch_np<float>(x, dt, A, Bm, Cm, y, state, states, B, S, H, G, N,
+                            P, Q, st);
   if (dtype == 1)
-    return launch_np<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state, B, S, H, G,
-                                    N, P, Q, st);
+    return launch_np<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state, states, B, S,
+                                    H, G, N, P, Q, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,6 +19,14 @@ chunk alone:
 ``launches`` counts the scans handed to either route and ``launches_tc``
 those of the tensor-core route (never plain-version calls); callers may
 reset either to 0.
+
+Training: where autograd records (grad enabled and an input that needs a
+gradient), a CUDA call goes through :class:`SsdScan`, whose forward also
+keeps each chunk's incoming state and whose backward launches
+``csrc/ssd_scan_bwd.cu`` (``launches_bwd`` counts those backward calls,
+two kernels each); it returns the gradients of x, dt, A, Bm and Cm and
+takes one for the final state.  The plain backward is autograd of
+:func:`.ref.ssd_scan_ref` (:func:`.ref.ssd_scan_bwd_ref`).
 """
 from __future__ import annotations
 
@@ -26,12 +34,16 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import (
-    DTYPES, TC_TILE, smem_fits, smem_fits_tc, ssd_scan_cuda, ssd_scan_tc_cuda)
+    DTYPES, TC_TILE, smem_fits, smem_fits_bwd, smem_fits_tc, ssd_scan_bwd_cuda,
+    ssd_scan_cuda, ssd_scan_tc_cuda)
 
 #: scans handed to a CUDA route by :func:`ssd_scan` (a plain integer)
 launches = 0
 #: of which on the tensor-core route
 launches_tc = 0
+#: backward calls (ssd_bwd_state_pass + ssd_bwd_chunk each) made by
+#: :class:`SsdScan`
+launches_bwd = 0
 
 #: largest state width N and head width P the kernels' registers hold
 MAX_N, MAX_P = 128, 128
@@ -61,12 +73,23 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     """x (B,S,H,P), dt (B,S,H) f32, A (H,) f32 negative, Bm/Cm (B,S,G,N)
     with G dividing H -> (y (B,S,H,P) in x's dtype, final state
     (B,H,N,P) f32)."""
-    global launches, launches_tc
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return SsdScan.apply(x, dt, A, Bm, Cm, chunk)
+    y, state, _ = _forward(x, dt, A, Bm, Cm, chunk, keep_states=False)
+    return y, state
+
+
+def _forward(x, dt, A, Bm, Cm, chunk, keep_states):
+    """One scan on the routed kernel: (y, final state, each chunk's
+    incoming state or None)."""
+    global launches, launches_tc
+    dev = x.device
     _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[3]
@@ -83,12 +106,55 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
             if t.data_ptr() % 16:
                 raise ValueError(f"ssd_scan: {name}'s data is not 16-byte "
                                  "aligned (the kernels copy it by cp.async)")
-        ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, Q)
+        states = ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, Q)
         launches_tc += 1
     else:
-        ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, Q)
+        states = None
+        if keep_states:
+            states = torch.empty((B, H, -(-S // Q), N, P),
+                                 dtype=torch.float32, device=dev)
+        ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, Q, states)
     launches += 1
-    return y, state
+    return y, state, states if keep_states else None
+
+
+class SsdScan(torch.autograd.Function):
+    """The SSD scan on the card with its hand-written backward: the
+    forward keeps each chunk's incoming state, the backward kernels read
+    it (nothing falls back to the plain version).  The gradients of Bm and
+    Cm come per head from the kernel and are summed over each group's
+    heads here, dA's per (batch, chunk) over both; all in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, state, states = _forward(x, dt, A, Bm, Cm, chunk,
+                                    keep_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        ctx.chunk = min(chunk, x.shape[1])
+        # an unused output's gradient comes as None, not zeros (training
+        # leaves the final state unused: the kernels take no dfinal then)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        global launches_bwd
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        B, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        if not smem_fits_bwd(N, P, ctx.chunk):
+            raise ValueError(f"ssd_scan backward: N {N}, P {P}, chunk "
+                             f"{ctx.chunk} exceed its kernels' shared memory")
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dfinal = None if dstate is None else dstate.float().contiguous()
+        dx, ddt, dBh, dCh, dA = ssd_scan_bwd_cuda(
+            x, dt, A, Bm, Cm, dy.contiguous().to(x.dtype), states, dfinal,
+            ctx.chunk)
+        launches_bwd += 1
+        dB = dBh.view(B, S, G, H // G, N).sum(3).to(Bm.dtype)
+        dC = dCh.view(B, S, G, H // G, N).sum(3).to(Cm.dtype)
+        return dx, ddt, dA.sum((0, 1)), dB, dC, None
 
 
 def _check(x, dt, A, Bm, Cm, chunk):

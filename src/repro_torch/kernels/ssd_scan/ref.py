@@ -6,9 +6,14 @@ group form (heads of a group share B/C and the (B,S,H,N) expansion is
 never made), dt = 0 padding of a ragged last chunk, and the rounding of
 ``exp(seg)``, of the intra-chunk weights ``w`` and of ``y`` to x's dtype
 (no-ops in float32, where it is the Pallas kernel ``ssd_chunk`` driven by
-``ssd_scan_op``).  It is the CPU path of
-:func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` and what
-``chip_smoke.py`` holds the CUDA kernel to.
+``ssd_scan_op``).  One departure, which changes no value of the forward:
+the decay above the diagonal is masked inside its exponent, so that the
+gradient stays finite where the reference's overflows (ROADMAP §3).  It
+is the CPU path of :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` and
+what ``chip_smoke.py`` holds the CUDA kernel to.
+:func:`ssd_scan_bwd_ref` is the plain backward: autograd of
+:func:`ssd_scan_ref`, what ``chip_smoke.py`` holds the backward kernels
+(``csrc/ssd_scan_bwd.cu``) to.
 """
 from __future__ import annotations
 
@@ -56,8 +61,12 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk):
         ).reshape(Bsz, Q, H, Pd)
         # --- intra-chunk (quadratic in Q); cb computed once per group
         cb = torch.einsum("bqgn,bkgn->bgqk", cq.to(f32), bq.to(f32))
-        # decay[b,h,q,k] = exp(seg_q - seg_k)
-        decay = torch.exp(seg[:, :, None] - seg[:, None, :]).permute(0, 3, 1, 2)
+        # decay[b,h,q,k] = exp(seg_q - seg_k), 0 above the diagonal (masked
+        # in the exponent: there seg_q - seg_k > 0 may overflow, and the
+        # gradient of the overflowed exp would be 0 * inf, a NaN)
+        diff = seg[:, :, None] - seg[:, None, :]
+        decay = torch.exp(diff.masked_fill(~mask[None, :, :, None],
+                                           -float("inf"))).permute(0, 3, 1, 2)
         decay = decay.reshape(Bsz, G, hg, Q, Q)
         dqh = dq.transpose(1, 2).reshape(Bsz, G, hg, 1, Q)
         w = torch.where(mask, cb[:, :, None] * decay * dqh, 0.0)
@@ -74,3 +83,17 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk):
         ys.append((y_inter + y_intra).to(xq.dtype))
     y = torch.stack(ys, dim=1).reshape(Bsz, nc * Q, H, Pd)[:, :S]
     return y, state
+
+
+def ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate=None, *, chunk):
+    """(dx, ddt, dA, dBm, dCm) of :func:`ssd_scan_ref` given the output's
+    gradient ``dy`` and the final state's ``dstate`` (None: unused), by
+    autograd; each in its input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, state = ssd_scan_ref(*ins, chunk=chunk)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, ins, grads)

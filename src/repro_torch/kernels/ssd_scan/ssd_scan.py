@@ -8,9 +8,13 @@ that one computes one chunk per launch over a (batch x heads) grid, and
 (head, batch), and carries the state across chunks in shared memory (any
 width, float32 or bfloat16).  The tensor-core kernels (bfloat16, N and P
 multiples of 16) split the scan into four chunk-parallel launches:
-C B^T per group, chunk states, state passing, chunk outputs.  Each
-library is built with ``nvcc`` for ``sm_90a`` at first use and bound
-through ctypes.
+C B^T per group, chunk states, state passing, chunk outputs.  Both
+routes keep each chunk's incoming state when asked (training: the scalar
+kernel writes them in f32, the tensor-core route's state pass already
+holds them as a bf16 hi + lo pair), and ``csrc/ssd_scan_bwd.cu`` holds the
+backward pass that reads them (two kernels; no Pallas counterpart: the JAX
+package differentiates its jnp ``ssd_chunked``).  Each library is built
+with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.kernels.build import load_library
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "ssd_scan.cu",)
 SOURCES_TC = (CSRC / "ssd_scan_tc.cu",)
+SOURCES_BWD = (CSRC / "ssd_scan_bwd.cu",)
 #: ptxas reports the tensor-core kernels' registers and spills (build log)
 FLAGS_TC = ("-Xptxas", "-v")
 #: rows of the tensor-core kernels' tiles (``kT``)
@@ -40,7 +45,7 @@ def library() -> ctypes.CDLL:
     lib = load_library("ssd_scan", SOURCES)
     if not _FNS:
         fn = lib.ssd_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_smem_bytes
@@ -59,18 +64,22 @@ def smem_fits(n: int, p: int, q: int) -> bool:
     return _FNS["smem"](n, p, q) <= _FNS["limit"]()
 
 
-def ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, chunk: int) -> None:
-    """Launch the kernel on the current stream: ``y, state = ssd(x, ...)``.
+def ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, chunk: int,
+                  states=None) -> None:
+    """Launch the kernel on the current stream: ``y, state = ssd(x, ...)``
+    (and, given ``states``, each chunk's incoming state into it).
 
     Contiguous x/y (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm (B,S,G,N),
-    state (B,H,N,P) f32 on one CUDA device; ``chunk <= S`` (checked by the
-    caller).  Raises on a launch error."""
+    state (B,H,N,P) f32 and states (B,H,ceil(S / chunk),N,P) f32 on one
+    CUDA device; ``chunk <= S`` (checked by the caller).  Raises on a
+    launch error."""
     library()
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     err = _FNS["launch"](
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, G, N, P,
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if states is None else states.data_ptr(), B, S, H, G, N, P,
         chunk, DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -106,7 +115,7 @@ def smem_fits_tc(n: int, p: int, q: int) -> bool:
     return 0 <= need <= _FNS_TC["limit"]()
 
 
-def ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, chunk: int) -> None:
+def ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, chunk: int):
     """Launch the four tensor-core route kernels on the current stream:
     ``y, state = ssd(x, ...)``.
 
@@ -114,8 +123,9 @@ def ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, chunk: int) -> None:
     :func:`ssd_scan_cuda`; x, Bm and Cm 16-byte aligned; N and P
     multiples of 16 up to 128; ``chunk <= S`` (all checked by the
     caller).  Allocates the scratch (each chunk's own and incoming state,
-    its seg and dt, and C B^T) from the caching allocator.  Raises on a
-    launch error."""
+    its seg and dt, and C B^T) from the caching allocator, and returns the
+    incoming states (B,H,nc,2,N,P) bf16 hi and lo, which the backward pass
+    reads.  Raises on a launch error."""
     library_tc()
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -136,3 +146,69 @@ def ssd_scan_tc_cuda(x, dt, A, Bm, Cm, y, state, chunk: int) -> None:
     if err != 0:
         raise RuntimeError(f"ssd_scan tensor-core kernel launch failed: "
                            f"cudaError {err}")
+    return s_in
+
+
+_FNS_BWD = {}
+
+
+def library_bwd() -> ctypes.CDLL:
+    """Build (once) and load the backward kernels' shared library."""
+    lib = load_library("ssd_scan_bwd", SOURCES_BWD)
+    if not _FNS_BWD:
+        fn = lib.ssd_scan_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        smem = lib.ssd_scan_bwd_smem_bytes
+        smem.argtypes = [ctypes.c_int] * 3
+        smem.restype = ctypes.c_int64
+        limit = lib.ssd_scan_bwd_smem_limit
+        limit.argtypes = []
+        limit.restype = ctypes.c_int64
+        _FNS_BWD.update(launch=fn, smem=smem, limit=limit)
+    return lib
+
+
+def smem_fits_bwd(n: int, p: int, q: int) -> bool:
+    """Whether the backward kernels' shared memory for (N, P, Q) fits one
+    block."""
+    library_bwd()
+    return _FNS_BWD["smem"](n, p, q) <= _FNS_BWD["limit"]()
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int):
+    """Launch the two backward kernels on the current stream; returns
+    (dx in x's dtype, ddt (B,S,H), dB and dC per head (B,S,H,N), dA per
+    (batch, chunk, head) (B,nc,H), all but dx float32).
+
+    x, dt, A, Bm, Cm as the forward took them, ``dy`` (B,S,H,P) in x's
+    dtype, ``states`` the forward's chunk-start states (float32
+    (B,H,nc,N,P), or the tensor-core route's bf16 (B,H,nc,2,N,P) hi and
+    lo), ``dfinal`` (B,H,N,P) float32 or None, all contiguous on one CUDA
+    device (checked by the caller).  Allocates the outputs and the scratch
+    (each chunk's outgoing state's gradient, (B,H,nc,N,P) float32).
+    Raises on a launch error."""
+    library_bwd()
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // chunk)
+    dev, f32 = x.device, torch.float32
+    hilo = states.dtype == torch.bfloat16
+    dS = torch.empty((B, H, nc, N, P), dtype=f32, device=dev)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((B, S, H), dtype=f32, device=dev)
+    dBh = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dCh = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dA = torch.empty((B, nc, H), dtype=f32, device=dev)
+    err = _FNS_BWD["launch"](
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(), states.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), dS.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+        dA.data_ptr(), B, S, H, G, N, P, chunk, DTYPES[x.dtype], int(hilo),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: "
+                           f"cudaError {err}")
+    return dx, ddt, dBh, dCh, dA

@@ -4,8 +4,10 @@ GQA / MQA / local-window / cross / MLA variants.
 The counterpart of ``repro.models.attention``.  :func:`blocked_attention`
 is where the flash-attention kernel runs: on a CUDA tensor it launches
 ``repro_torch.kernels.flash_attention`` (the kernel's own 64-row tiles
-replace ``q_chunk`` / ``kv_chunk``); on the CPU it is the plain port of the
-JAX function, with its blocking and its casts.  Every prefill variant
+replace ``q_chunk`` / ``kv_chunk``; in training its autograd Function,
+whose backward is the hand-written backward kernel); on the CPU it is the
+plain port of the JAX function, with its blocking and its casts, which
+autograd differentiates as ``jax.value_and_grad`` does the JAX one.  Every prefill variant
 (causal, windowed, bidirectional, cross-attention at equal lengths, MLA
 with Dk != Dv) goes through it; the decode paths (:func:`decode_attention`,
 :func:`cross_attn_decode`, MLA's absorbed-matrix :func:`mla_apply_decode`)

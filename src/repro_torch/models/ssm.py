@@ -3,8 +3,9 @@
 The counterpart of ``repro.models.ssm``.  Prefill uses the chunked dual
 form (:func:`ssd_chunked`), where the SSD kernel runs: on a CUDA tensor it
 launches ``repro_torch.kernels.ssd_scan`` (one launch per sequence, the
-state carried across chunks inside the kernel); on the CPU it is the plain
-port of the JAX function.  Decode is the O(1) recurrent update, in plain
+state carried across chunks inside the kernel; in training its autograd
+Function, whose backward is the hand-written backward kernel); on the CPU
+it is the plain port of the JAX function, which autograd differentiates.  Decode is the O(1) recurrent update, in plain
 torch on every device.
 """
 from __future__ import annotations

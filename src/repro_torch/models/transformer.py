@@ -9,14 +9,18 @@ Families
 * ``hybrid``           — RecurrentGemma (rglru, rglru, local-attn) pattern
 * ``encdec``           — bidirectional encoder + causal decoder w/ cross-attn
 
-The counterpart of ``repro.models.transformer`` for serving: parameters
-(``init_params``), ``forward_hidden`` (inference only, no remat),
-``init_cache``, ``prefill`` and ``decode_step``, as methods of the
-:class:`Transformer` module.  Parameters are float32 in the JAX package's
-layout, one :class:`~repro_torch.models.layers.ParamTree` per block in an
-``nn.ModuleList`` (the JAX package stacks them along a leading layer axis
-and scans; here the layer scan is a Python loop).  Two pieces of the JAX
-module are not carried over, because they do nothing on one card:
+The counterpart of ``repro.models.transformer``: parameters
+(``init_params``), ``forward_hidden`` (autograd records it; ``cfg.remat ==
+"block"`` recomputes each block in the backward pass, as ``jax.checkpoint``
+does), the sequence-chunked loss (``_xent_sums``, ``lm_loss_from_hidden``,
+``loss_and_metrics``), ``init_cache``, ``prefill`` and ``decode_step``
+(both under ``no_grad``), as methods of the :class:`Transformer` module
+(the loss also as functions of it).  Parameters are float32 in the JAX
+package's layout, one :class:`~repro_torch.models.layers.ParamTree` per
+block in an ``nn.ModuleList`` (the JAX package stacks them along a leading
+layer axis and scans; here the layer scan is a Python loop).  Two pieces
+of the JAX module are not carried over, because they do nothing on one
+card:
 ``scan_util`` (its unrolled mode only serves XLA's cost analysis) and
 ``_x_constraint`` (sharding annotations for a device mesh).
 
@@ -31,6 +35,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.carry import resolve_device
 from repro_torch.models import attention as attn
@@ -208,6 +213,23 @@ def _lru_block_apply(p, x, cfg, collect_state=False):
     return (x, st) if collect_state else x
 
 
+def _hybrid_group_apply(g, x, positions, cfg):
+    x = _lru_block_apply(g["lru0"], x, cfg)
+    x = _lru_block_apply(g["lru1"], x, cfg)
+    return _dense_block_apply(g["attn"], x, positions, cfg,
+                              window=cfg.window)
+
+
+def _encdec_block_apply(p, x, enc, positions, cfg):
+    h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    x = x + attn.attn_apply_train(p["self_attn"], h, positions, cfg)
+    h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + attn.attn_apply_train(p["cross_attn"], h, positions, cfg,
+                                  causal=False, kv_x=enc, use_rope=False)
+    h = layers.rms_norm(x, p["ln3"]["scale"], cfg.norm_eps)
+    return x + layers.mlp_apply(p["mlp"], h, cfg)
+
+
 def _lru_step(p, x, h, cb, cfg):
     """One decode step of an rglru block: (x, new h, new conv buffer)."""
     u = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
@@ -284,6 +306,36 @@ def init_cache(cfg, batch: int, capacity: int, device=None,
     raise ValueError(fam)
 
 
+# ===========================================================================
+# Loss (sequence-chunked so (B,S,V) logits are never materialised at once)
+# ===========================================================================
+
+
+def _xent_sums(logits, labels):
+    """(summed negative log-likelihood, number of labels >= 0)."""
+    logits = logits.float()
+    valid = labels >= 0
+    safe = labels.clamp_min(0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None].long())[..., 0] - logz
+    return -(ll * valid).sum(), valid.sum()
+
+
+def lm_loss_from_hidden(params, hidden, labels, cfg, chunk=1024):
+    """Mean token cross-entropy of the LM head over ``hidden`` (B,S,D),
+    labels < 0 ignored, in sequence chunks of the largest divisor of S
+    that is at most ``chunk`` (vlm text spans are not powers of two)."""
+    S = hidden.shape[1]
+    C = max(d for d in range(1, min(chunk, S) + 1) if S % d == 0)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, S, C):
+        logits = layers.logits_apply(params, hidden[:, c0:c0 + C], cfg)
+        s, k = _xent_sums(logits, labels[:, c0:c0 + C])
+        tot, n = tot + s, n + k
+    return tot / n.clamp_min(1)
+
+
 def _moe_cache_keys(cfg):
     """The moe cache's leaf names, before their ``_d`` / ``_m`` suffix."""
     return ("ckv", "krope") if cfg.use_mla else ("k", "v")
@@ -349,22 +401,32 @@ class Transformer(nn.Module):
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
 
+    def _block(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, a block of a layer stack; with ``cfg.remat
+        == "block"`` and autograd recording, under activation
+        checkpointing (``jax.checkpoint``'s counterpart: the block's
+        forward runs again in the backward pass; no number changes)."""
+        if self.cfg.remat == "block" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
     def _encode(self, frames):
         """Encoder over precomputed frame embeddings (frontend stub)."""
         cfg = self.cfg
         x = frames.to(cdtype(cfg))
         positions = self._positions(x)
         for p in self.enc_blocks:
-            x = _dense_block_apply(p, x, positions, cfg, causal=False)
+            x = self._block(_dense_block_apply, p, x, positions, cfg,
+                            causal=False)
         return layers.rms_norm(x, self.enc_norm["scale"], cfg.norm_eps)
 
-    @torch.no_grad()
     def forward_hidden(self, tokens, patches=None, frames=None,
                        tgt_tokens=None):
         """Returns (hidden (B,S,D), aux loss float32 scalar: the MoE load
         balance, else 0).  vlm takes ``patches`` (B,P,D) in front of
         ``tokens``; encdec takes ``frames`` (B,Ssrc,D) and ``tgt_tokens``
-        (B,S) of the same length (the blocked cross-attention's)."""
+        (B,S) of the same length (the blocked cross-attention's).
+        Autograd records it unless the caller turns it off."""
         cfg = self.cfg
         fam = cfg.family
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -373,42 +435,51 @@ class Transformer(nn.Module):
             x = layers.embed_apply(self.embed["tok"], tgt_tokens, cfg)
             positions = self._positions(x)
             for p in self.dec_blocks:
-                h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-                x = x + attn.attn_apply_train(p["self_attn"], h, positions,
-                                              cfg)
-                h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + attn.attn_apply_train(p["cross_attn"], h, positions,
-                                              cfg, causal=False, kv_x=enc,
-                                              use_rope=False)
-                h = layers.rms_norm(x, p["ln3"]["scale"], cfg.norm_eps)
-                x = x + layers.mlp_apply(p["mlp"], h, cfg)
+                x = self._block(_encdec_block_apply, p, x, enc, positions,
+                                cfg)
             return x, aux
 
         x = self._inputs(tokens, patches)
         positions = self._positions(x)
         if fam in ("dense", "vlm"):
             for p in self.blocks:
-                x = _dense_block_apply(p, x, positions, cfg)
+                x = self._block(_dense_block_apply, p, x, positions, cfg)
         elif fam == "moe":
             for p in self.dense_blocks if "dense_blocks" in self else ():
-                out = _dense_block_apply(p, x, positions, cfg,
-                                         use_mla=cfg.use_mla)
+                out = self._block(_dense_block_apply, p, x, positions, cfg,
+                                  use_mla=cfg.use_mla)
                 x = out[0] if isinstance(out, tuple) else out
             for p in self.moe_blocks:
-                x, a, _ = _moe_block_apply(p, x, positions, cfg)
+                x, a, _ = self._block(_moe_block_apply, p, x, positions, cfg)
                 aux = aux + a
         elif fam == "ssm":
             for p in self.blocks:
-                x = _ssm_block_apply(p, x, cfg)
+                x = self._block(_ssm_block_apply, p, x, cfg)
         else:  # hybrid
             for g in self.groups:
-                x = _lru_block_apply(g["lru0"], x, cfg)
-                x = _lru_block_apply(g["lru1"], x, cfg)
-                x = _dense_block_apply(g["attn"], x, positions, cfg,
-                                       window=cfg.window)
+                x = self._block(_hybrid_group_apply, g, x, positions, cfg)
             for p in self.rem_lru if "rem_lru" in self else ():
-                x = _lru_block_apply(p, x, cfg)
+                x = self._block(_lru_block_apply, p, x, cfg)
         return x, aux
+
+    def loss_and_metrics(self, batch):
+        """batch: the family's dict of tensors (``tokens`` and ``labels``;
+        vlm also ``patches``; encdec ``frames``, ``tokens`` and ``labels``)
+        -> (loss, {"loss", "xent", "aux"}), float32 scalars."""
+        fam = self.cfg.family
+        if fam == "encdec":
+            hidden, aux = self.forward_hidden(None, frames=batch["frames"],
+                                              tgt_tokens=batch["tokens"])
+        elif fam == "vlm":
+            hidden, aux = self.forward_hidden(batch["tokens"],
+                                              patches=batch["patches"])
+            # loss on the text positions
+            hidden = hidden[:, batch["patches"].shape[1]:]
+        else:
+            hidden, aux = self.forward_hidden(batch["tokens"])
+        xent = lm_loss_from_hidden(self, hidden, batch["labels"], self.cfg)
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, batch) -> tuple:

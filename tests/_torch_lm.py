@@ -25,8 +25,10 @@ B, S, EXTRA = 2, 32, 6
 
 
 def close(got, want, tol):
-    np.testing.assert_allclose(np.asarray(got.float() if torch.is_tensor(got)
-                                          else got, np.float32),
+    # forward_hidden records autograd (training): its outputs are detached
+    np.testing.assert_allclose(np.asarray(got.detach().float()
+                                          if torch.is_tensor(got) else got,
+                                          np.float32),
                                np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
 

@@ -559,6 +559,133 @@ def test_lm_prefill_on_card_matches_cpu(card, arch):
                                        atol=1e-3)
 
 
+
+# ---- training: the backward kernels and a train step -----------------------
+
+#: each gradient against autograd of the plain version, |err| / max |plain|
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", FLASH_CASES)
+def test_flash_backward_matches_plain_version(card, s, h, kv, dk, dv, causal,
+                                              window, dtype):
+    """dq, dk, dv of the backward kernels (one counted backward pass)
+    against autograd of the plain version; the forward under autograd
+    (which writes the log-sum-exp) gives the serving forward's output."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    rng = np.random.default_rng(s + h + dk + 1)
+    q, k, v = (_normal(rng, (2, s, n, d), dtype, card).requires_grad_()
+               for n, d in ((h, dk), (kv, dk), (kv, dv)))
+    with torch.no_grad():
+        serving = fops.flash_attention(q, k, v, causal=causal, window=window)
+    out = fops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(out.detach(), serving)
+    do = _normal(rng, out.shape, dtype, card)
+    before = fops.launches_bwd
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fops.launches_bwd == before + 1
+    want = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,dtype", [
+    (1, 64, 3, 3, 8, 8, 16, torch.float32),
+    (2, 50, 4, 2, 8, 8, 16, torch.float32),          # groups, ragged
+    (1, 512, 2, 1, 64, 128, 256, torch.float32),     # mamba2 widths
+    (2, 300, 4, 1, 64, 64, 128, torch.bfloat16),     # tensor-core forward
+    (2, 1000, 6, 3, 64, 128, 256, torch.bfloat16),   # ragged, G = H / 2
+])
+def test_ssd_backward_matches_plain_version(card, b, s, h, g, p, n, chunk,
+                                            dtype):
+    """dx, ddt, dA, dB, dC of the backward kernels (the final state's
+    gradient given; one counted backward pass) against autograd of the
+    plain version, from either forward route's chunk-start states."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    rng = np.random.default_rng(s + h + n + 1)
+    args = [t.requires_grad_()
+            for t in _ssd_inputs(rng, b, s, h, g, p, n, dtype, card)]
+    y, state = sops.ssd_scan(*args, chunk=chunk)
+    dy = _normal(rng, y.shape, dtype, card)
+    dst = _normal(rng, state.shape, torch.float32, card)
+    before = sops.launches_bwd
+    got = torch.autograd.grad((y, state), args, (dy, dst))
+    torch.cuda.synchronize()
+    assert sops.launches_bwd == before + 1
+    want = ssd_scan_bwd_ref(*args, dy, dst, chunk=chunk)
+    for gr, w in zip(got, want):
+        assert gr.dtype == w.dtype and gr.shape == w.shape
+        assert _rel_err(gr, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_backward_refuses_what_its_kernels_cannot_take(card):
+    """Widths past the backward kernels' shared memory raise in the
+    backward pass (nothing falls back to the plain version)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    rng = np.random.default_rng(0)
+    q = _normal(rng, (1, 64, 2, 256), torch.bfloat16, card).requires_grad_()
+    out = fops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="shared"):
+        out.sum().backward()
+    args = [t.requires_grad_() for t in _ssd_inputs(
+        rng, 1, 256, 2, 1, 128, 128, torch.bfloat16, card)]
+    y, _ = sops.ssd_scan(*args, chunk=256)
+    with pytest.raises(ValueError, match="shared"):
+        y.float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """A smoke-size model in float32 (microbatches 2, remat) on the card
+    (forward and backward kernels) and on the CPU (plain versions) from
+    the same weights: the first step's gradients within 1e-4 of each
+    leaf's largest magnitude, then two train steps' metrics within 1e-4.
+    (AdamW's first update is about the sign of each gradient, so the
+    parameters after it are not compared at 1e-4: an element whose
+    gradient is ~1e-6 of its leaf's largest may take either sign.)"""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3, warmup=1))
+    cpu = loop.init_train_state(cfg, opt, device="cpu")
+    gpu = loop.init_train_state(cfg, opt, device=card)
+    gpu["params"].load_state_dict(cpu["params"].state_dict())
+    ds = SyntheticLM(cfg, DataConfig(seq_len=64, global_batch=4,
+                                     vocab_size=cfg.vocab_size))
+    batches = [next(ds) for _ in range(2)]
+    _, gc = loop.grads_and_metrics(cpu["params"],
+                                   loop.to_device(batches[0], "cpu"), 2)
+    _, gg = loop.grads_and_metrics(gpu["params"],
+                                   loop.to_device(batches[0], card), 2)
+    for name, g in gg.items():
+        assert _rel_err(g.cpu(), gc[name]) <= 1e-4, name
+    step = loop.make_train_step(cfg, opt, microbatches=2)
+    for b in batches:
+        cpu, mc = step(cpu, loop.to_device(b, "cpu"))
+        gpu, mg = step(gpu, loop.to_device(b, card))
+        for k in mc:
+            assert float(mg[k]) == pytest.approx(float(mc[k]), rel=1e-4,
+                                                 abs=1e-6), k
+
 # ---- every workload against the JAX package's goldens ----------------------
 
 @pytest.mark.cuda

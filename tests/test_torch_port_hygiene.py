@@ -38,7 +38,7 @@ COPIES = [
     "admission/journal.py", "admission/__init__.py", "obs/report.py",
     "trace/__init__.py", "trace/record.py", "trace/replay.py",
     "serve/pim_pool.py", "cluster/__init__.py", "cluster/arrivals.py",
-    "cluster/metrics.py",
+    "cluster/metrics.py", "data/pipeline.py",
 ]
 
 #: cluster/scheduler.py is a copy but for its device: (the twin's lines,
@@ -83,7 +83,8 @@ SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
            "examples/torch_pim_comm_pathfind.py",
            "examples/torch_pim_arch_compare.py",
            "examples/torch_pim_async_pipeline.py",
-           "examples/torch_pim_sample_sort.py"]
+           "examples/torch_pim_sample_sort.py",
+           "examples/torch_quickstart.py"]
 #: how each study script of SCRIPTS starts with no device named: its
 #: main() with its defaults, or (no main) its first bench at a small scale
 STUDY_ENTRIES = {
@@ -183,6 +184,8 @@ def test_default_device_raises_without_a_card():
     from repro_torch.core.host import PIMSystem
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models import transformer
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.train import loop as train_loop
     cfg = DPUConfig(n_dpus=1, n_tasklets=1, mram_bytes=1 << 14)
     # a config of every LM family: dense, moe (GQA and MLA), hybrid,
     # encdec, vlm
@@ -205,7 +208,10 @@ def test_default_device_raises_without_a_card():
                   # the LM serving path (ServeEngine runs where its model is)
                   *(lambda lm=lm: transformer.Transformer(lm) for lm in lms),
                   *(lambda lm=lm: transformer.init_cache(lm, 1, 8)
-                    for lm in lms)):
+                    for lm in lms),
+                  # training: a fresh train state lives on the card
+                  lambda: train_loop.init_train_state(
+                      lms[0], get_optimizer("adamw", warmup_cosine(1e-3)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
 

@@ -58,7 +58,7 @@ def build(name: str, parts) -> tuple:
     warnings = sorted(set(re.findall(r"\((C\d+)\)", proc.stderr)))
     fn = ctypes.CDLL(str(out)).flash_attention_sm90_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, warnings, instances(proc.stderr)
 
@@ -123,7 +123,8 @@ def main() -> int:
 
         def call(fn):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, s, h, kv, d, d, int(causal), 0, d ** -0.5, stream)
+                     b, s, h, kv, d, d, int(causal), 0, d ** -0.5, None,
+                     stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 

@@ -13,17 +13,21 @@ package, and the entry points (``script_runs.SCRIPT_RUNS``: the
 benchmark and example scripts' printed lines at the arguments
 ``chip_smoke.py`` [scripts] runs their twins at, wall-clock numbers
 masked; ``script_runs.ENGINE_PERF``: benchmarks/engine_perf.py's modeled
-rows), and
+rows; ``script_runs.QUICKSTART``: examples/quickstart.py's printed lines,
+its initial parameters into tests/data/quickstart_init.npz and the
+batches it took into tests/data/quickstart_data.npz), and
 records each run with ``goldens.run_entry``, the function the port's
 tests and ``chip_smoke.py`` compare with (a run that raises is recorded
 by its exception and the digest of its capped state).  The card's
 machine has no JAX, so this runs on a CPU with JAX installed:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_workload_goldens.py
-        [--only KEY ... | --only cluster | --only scripts]
+        [--only KEY ... | --only cluster | --only scripts |
+         --only quickstart]
 
 ``--only`` writes only those configurations (``cluster``: the cluster
-goldens; ``scripts``: the entry points'; no remap scenario either way)
+goldens; ``scripts``: the entry points'; ``quickstart``: the quickstart's
+lines and initial parameters; no remap scenario either way)
 into
 the existing file, under a lock, and leaves every other entry as it was:
 several ``--only`` runs may go at once.
@@ -149,6 +153,59 @@ def _scripts() -> dict:
     return out
 
 
+def quickstart_init(path):
+    """Write examples/quickstart.py's initial parameters (``init_params``
+    of its configuration, which is its twin's ``config()``, at its key) to
+    ``path`` as an npz keyed by leaf path."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+    from repro.configs.base import ArchConfig
+    from repro.models import transformer as T
+    twin = script_runs.load_script(ROOT, QUICKSTART_PATH, twin=True)
+    cfg = ArchConfig(**dataclasses.asdict(twin.config()))
+    params = T.init_params(cfg, jax.random.PRNGKey(0))
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    np.savez(path, **{"/".join(str(k.key) for k in p): np.asarray(v)
+                      for p, v in leaves})
+
+
+QUICKSTART_PATH = script_runs.QUICKSTART["script"]
+
+
+def _quickstart() -> dict:
+    """examples/quickstart.py's golden lines, its initial parameters
+    written to ``script_runs.QUICKSTART["init"]`` and the batches its data
+    pipeline gave it (tokens and labels, (steps, batch, seq) int32, by
+    step) to ``script_runs.QUICKSTART["data"]``."""
+    import numpy as np
+    from repro.data.pipeline import SyntheticLM
+    t0 = time.perf_counter()
+    quickstart_init(ROOT / script_runs.QUICKSTART["init"])
+    taken = {}
+    batch_at = SyntheticLM.batch_at
+
+    def recording(self, step):
+        taken[step] = b = batch_at(self, step)
+        return b
+
+    SyntheticLM.batch_at = recording
+    try:
+        rc, text = script_runs.run_main(
+            script_runs.load_script(ROOT, QUICKSTART_PATH), [])
+    finally:
+        SyntheticLM.batch_at = batch_at
+    steps = sorted(taken)
+    assert steps == list(range(len(steps))), steps
+    np.savez_compressed(
+        ROOT / script_runs.QUICKSTART["data"],
+        **{k: np.stack([taken[i][k] for i in steps]) for k in taken[0]})
+    print(f"quickstart: exit {rc} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return dict(script_runs.QUICKSTART, rc=rc, lines=text.splitlines())
+
+
 def _write(out: dict):
     with open(goldens.PATH, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
@@ -159,11 +216,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="+", metavar="KEY",
                     choices=sorted(goldens.CONFIGS) + ["cluster",
-                                                       "scripts"],
+                                                       "scripts",
+                                                       "quickstart"],
                     help="write only these configurations")
     args = ap.parse_args(argv)
     if args.only:
-        made = {"cluster": _cluster, "scripts": _scripts}
+        made = {"cluster": _cluster, "scripts": _scripts,
+                "quickstart": _quickstart}
         new = {key: made[key]() if key in made else _entries(key)
                for key in args.only}
         with open(goldens.PATH.with_suffix(".lock"), "w") as lock:
@@ -186,6 +245,7 @@ def main(argv=None) -> int:
     print(f"remap {goldens.REMAP}: {out['remap']['fault_log']}", flush=True)
     out["cluster"] = _cluster()
     out["scripts"] = _scripts()
+    out["quickstart"] = _quickstart()
     _write(out)
     print(f"wrote {goldens.PATH}")
     return 0

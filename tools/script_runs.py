@@ -191,3 +191,51 @@ def load_script(root, path: str, twin: bool = False):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+#: examples/quickstart.py's golden run: the twin starts from the
+#: reference's initial parameters (an npz of its tree) and, on a machine
+#: whose numpy draws other Zipf samples for the data pipeline (the card's),
+#: takes the batches the reference took (``data``: its tokens and labels a
+#: step), both written beside the golden lines by
+#: ``make_workload_goldens.py --only quickstart``
+QUICKSTART = {"script": "examples/quickstart.py",
+              "init": "tests/data/quickstart_init.npz",
+              "data": "tests/data/quickstart_data.npz"}
+#: how far the twin's printed loss and gradient norm may be from the
+#: reference's: the lines round them to 3 and 2 decimals, and 120 float32
+#: steps in another order of sums on another device move the last digit
+QUICKSTART_TOL = {"loss": 5e-3, "gnorm": 2e-2}
+_STEP_LINE = re.compile(r"step +(\d+) loss ([0-9.]+) gnorm ([0-9.]+)$")
+_FINAL_LINE = re.compile(r"final loss ([0-9.]+) ")
+
+
+def quickstart_departures(got: list, want: list) -> list:
+    """What keeps the twin's quickstart lines ``got`` from the
+    reference's ``want``: each step's loss and gnorm beyond
+    :data:`QUICKSTART_TOL`, the final loss beyond its loss tolerance, any
+    other line not equal (the served completions among them)."""
+    if len(got) != len(want):
+        return [f"{len(got)} lines, the reference printed {len(want)}"]
+    out = []
+    for g, w in zip(got, want):
+        mg, mw = _STEP_LINE.match(g), _STEP_LINE.match(w)
+        fg, fw = _FINAL_LINE.match(g), _FINAL_LINE.match(w)
+        if mg and mw and mg[1] == mw[1]:
+            if (abs(float(mg[2]) - float(mw[2])) > QUICKSTART_TOL["loss"]
+                    or abs(float(mg[3]) - float(mw[3]))
+                    > QUICKSTART_TOL["gnorm"]):
+                out.append(f"{g!r} != {w!r}")
+        elif fg and fw:
+            if abs(float(fg[1]) - float(fw[1])) > QUICKSTART_TOL["loss"]:
+                out.append(f"{g!r} != {w!r}")
+        elif g != w:
+            out.append(f"{g!r} != {w!r}")
+    return out
+
+
+def quickstart_losses(lines: list) -> list:
+    """The losses the quickstart printed, in order (its steps', then the
+    final one)."""
+    return [float(m[2]) for m in map(_STEP_LINE.match, lines) if m] + [
+        float(m[1]) for m in map(_FINAL_LINE.match, lines) if m]
