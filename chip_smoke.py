@@ -6,16 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every CUDA kernel (alu_exec, cycle_step,
-             simt_step, crf_step, flash_attention's scalar, tensor-core
-             and backward kernels, ssd_scan's scalar, tensor-core and
-             backward kernels; sm_90a) from the sources in the checkout,
-             all ten libraries at once, into build/repro_torch/; the
-             registers and spills
-             (ptxas -v) of cycle_step, simt_step, crf_step and of the
-             tensor-core SSD kernels are logged; the
-             tensor-core flash kernel's SASS (cuobjdump) must hold HGMMA
-             (wgmma) in every instance, the tensor-core SSD kernels' HMMA
-             (mma.sync);
+             simt_step, crf_step, flash_attention's scalar and
+             tensor-core forwards and backwards, ssd_scan's scalar and
+             tensor-core forwards and backwards; sm_90a) from the sources
+             in the checkout, all twelve libraries at once, into
+             build/repro_torch/; the registers and spills (ptxas -v) of
+             cycle_step, simt_step, crf_step and of the tensor-core SSD
+             and flash-backward kernels are logged; the SASS (cuobjdump)
+             of every instance of the tensor-core flash forward and
+             backward kernels must hold HGMMA (wgmma), of the tensor-core
+             SSD forward and backward kernels HMMA (mma.sync);
 2. kernels — each kernel against its plain-torch version on the card: the
              ALU bitwise (tolerance 0); flash attention at the cases of
              tests/test_kernels.py (f32 2e-5 on the scalar kernel, bf16
@@ -165,13 +165,20 @@ Phases (any failure exits non-zero and prints no result line):
              in the run (its cycle_step launches counted), each with its
              wall and launches;
 12. train — the training path (repro_torch.train): (a) the backward
-             kernels (flash_attention_bwd.cu, ssd_scan_bwd.cu) against
-             autograd of their plain versions, f32 1e-4 and bf16 2e-2 of
-             each gradient's largest value, deterministic, the training
-             forward's output bitwise the serving one's, at the cases of
-             [kernels], llama3-8b's training shape (1 x 4,096, H 32, KV 8,
-             D 128), the quickstart's (f32) and mamba2-130m's (4 x 4,096);
-             timed beside the plain backward, the bound and (flash) SDPA's
+             kernels on both routes (bf16 to the tensor-core ones,
+             flash_attention_bwd_sm90.cu and ssd_scan_bwd_tc.cu; float32
+             to the scalar ones, flash_attention_bwd.cu and
+             ssd_scan_bwd.cu), one counted backward each on its route,
+             against autograd of their plain versions, f32 1e-4 and bf16
+             2e-2 of each gradient's largest value, deterministic, the
+             training forward's output bitwise the serving one's, at the
+             cases of [kernels] (flash's tensor-core tiling cases, the
+             SSD tensor-core cases up to N = P = 128), llama3-8b's
+             training shape (1 x 4,096, H 32, KV 8, D 128),
+             recurrentgemma-9b's attention (1 x 4,096, H 16, KV 1, D 256,
+             window 2,048), the quickstart's (f32) and mamba2-130m's (4 x
+             4,096); each route and each kernel of a pair timed apart,
+             beside the plain backward, the bound and (flash) SDPA's
              backward; (b) one step's gradients of llama3-8b (4 of 32
              layers) and mamba2-130m (24 layers) at full width, 4 x 1,024
              tokens, kernels against plain versions in bf16 (every leaf
@@ -180,7 +187,8 @@ Phases (any failure exits non-zero and prints no result line):
              (c) the same models at 4 x 4,096 tokens (train_4k's
              sequence), the config's optimizer, remat and microbatches:
              a warm-up step, then three timed (s a step, tokens/s, peak
-             GB), each kernel's launches equal to the reckoned ones; (d)
+             GB), each kernel's launches equal to the reckoned ones,
+             every bf16 backward on the tensor-core routes; (d)
              examples/torch_quickstart.py from the reference's initial
              weights and batches: its lines those of goldens.json;
 13. report — the kernels line (launches, times, bounds; each step
@@ -239,7 +247,8 @@ def _counters():
     """name -> (module, attribute) of each launch count: flash_attention
     counts both flash kernels, flash_attention_sm90 the tensor-core one;
     ssd_scan both SSD routes, ssd_scan_tc the tensor-core one; the _bwd
-    counts a backward pass each (two kernels)."""
+    counts a backward pass each on either route, the _bwd_sm90 and
+    _bwd_tc counts those on the tensor-core routes."""
     from repro_torch.kernels.alu_exec import ops as alu_ops
     from repro_torch.kernels.crf_step import ops as crf_ops
     from repro_torch.kernels.cycle_step import ops as step_ops
@@ -255,7 +264,9 @@ def _counters():
             "ssd_scan": (ssd_ops, "launches"),
             "ssd_scan_tc": (ssd_ops, "launches_tc"),
             "flash_attention_bwd": (flash_ops, "launches_bwd"),
-            "ssd_scan_bwd": (ssd_ops, "launches_bwd")}
+            "flash_attention_bwd_sm90": (flash_ops, "launches_bwd_sm90"),
+            "ssd_scan_bwd": (ssd_ops, "launches_bwd"),
+            "ssd_scan_bwd_tc": (ssd_ops, "launches_bwd_tc")}
 
 
 #: the kernels driven by the pipelined K-block loop, which also count the
@@ -359,11 +370,13 @@ def _ptxas_report(lib) -> dict:
 
 
 def phase_build() -> float:
-    """Build the ten kernel libraries concurrently (one nvcc each), log
-    the registers and spills of cycle_step, simt_step, crf_step and of
-    the tensor-core SSD kernels, then check that every instance of the tensor-core flash
-    kernel runs its products on wgmma (HGMMA in its SASS) and every
-    instance of the tensor-core SSD kernels on mma.sync (HMMA)."""
+    """Build the twelve kernel libraries concurrently (one nvcc each),
+    log the registers and spills of cycle_step, simt_step, crf_step and
+    of the tensor-core SSD and flash-backward kernels, then check that
+    every instance of the tensor-core flash kernels (forward and
+    backward) runs its products on wgmma (HGMMA in its SASS) and every
+    instance of the tensor-core SSD kernels (forward and backward) on
+    mma.sync (HMMA)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
@@ -380,9 +393,11 @@ def phase_build() -> float:
             "flash_attention": flash_attention.library,
             "flash_attention_sm90": flash_attention.library_sm90,
             "flash_attention_bwd": flash_attention.library_bwd,
+            "flash_attention_bwd_sm90": flash_attention.library_bwd_sm90,
             "ssd_scan": ssd_scan.library,
             "ssd_scan_tc": ssd_scan.library_tc,
-            "ssd_scan_bwd": ssd_scan.library_bwd}
+            "ssd_scan_bwd": ssd_scan.library_bwd,
+            "ssd_scan_bwd_tc": ssd_scan.library_bwd_tc}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in libs.items()}
@@ -398,29 +413,33 @@ def phase_build() -> float:
             log(f"[build] {kernel.group(1) if kernel else name} (ptxas -v): "
                 f"{regs} registers, spill stores {stores} B, spill loads "
                 f"{loads} B")
-    tc = _ptxas_report(built["ssd_scan_tc"]).values()
-    log(f"[build] ssd_scan_tc (ptxas -v, {len(tc)} kernels): registers "
-        f"{min(t[0] for t in tc)}-{max(t[0] for t in tc)}, spill "
-        f"stores up to {max(t[1] for t in tc)} B, spill loads up to "
-        f"{max(t[2] for t in tc)} B")
+    for lib in ("ssd_scan_tc", "ssd_scan_bwd_tc",
+                "flash_attention_bwd_sm90"):
+        tc = _ptxas_report(built[lib]).values()
+        log(f"[build] {lib} (ptxas -v, {len(tc)} kernels): registers "
+            f"{min(t[0] for t in tc)}-{max(t[0] for t in tc)}, spill "
+            f"stores up to {max(t[1] for t in tc)} B, spill loads up to "
+            f"{max(t[2] for t in tc)} B")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    funcs = _sass_functions(built["flash_attention_sm90"], cuobjdump)
-    hgmma = [f.count("HGMMA") for k, f in funcs.items()
-             if "flash_sm90_kernel" in k]
-    check(hgmma and min(hgmma) > 0,
-          f"flash_attention_sm90: {len(hgmma)} kernel instances, HGMMA "
-          f"counts {hgmma}: the products are not on wgmma")
-    log(f"[build] flash_attention_sm90 SASS: {len(hgmma)} kernel "
-        f"instances, each with HGMMA ({min(hgmma)}-{max(hgmma)} a "
-        "instance)")
-    funcs = _sass_functions(built["ssd_scan_tc"], cuobjdump)
-    hmma = [f.count("HMMA") for k, f in funcs.items()
-            if "ssd_chunk_state" in k or "ssd_chunk_scan" in k]
-    check(hmma and min(hmma) > 0,
-          f"ssd_scan_tc: {len(hmma)} chunk-state/chunk-scan instances, HMMA "
-          f"counts {hmma}: the products are not on the tensor cores")
-    log(f"[build] ssd_scan_tc SASS: {len(hmma)} chunk-state and chunk-scan "
-        f"instances, each with HMMA ({min(hmma)}-{max(hmma)} an instance)")
+    # (library, SASS op, the kernels every instance of which must hold it)
+    for lib, op, kernels in (
+            ("flash_attention_sm90", "HGMMA", ("flash_sm90_kernel",)),
+            ("flash_attention_bwd_sm90", "HGMMA",
+             ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")),
+            ("ssd_scan_tc", "HMMA", ("ssd_chunk_state", "ssd_chunk_scan")),
+            ("ssd_scan_bwd_tc", "HMMA", ("ssd_bwd_chunk_state",
+                                         "ssd_bwd_keys", "ssd_bwd_queries"))):
+        funcs = _sass_functions(built[lib], cuobjdump)
+        counts = {k: [f.count(op) for name, f in funcs.items() if k in name]
+                  for k in kernels}
+        check(all(c and min(c) > 0 for c in counts.values()),
+              f"{lib}: {op} counts by instance {counts}: the products are "
+              "not on the tensor cores")
+        log(f"[build] {lib} SASS: " + ", ".join(
+            f"{len(c)} {k} instances" for k, c in counts.items())
+            + f", each with {op} ("
+            + ", ".join(f"{min(c)}-{max(c)}" for c in counts.values())
+            + " an instance)")
     return secs
 
 
@@ -2622,10 +2641,14 @@ def phase_lm_kernel_times() -> dict:
 # ---------------------------------------------------------------------------
 
 #: [train] (a): the flash backward at llama3-8b's training shape (one
-#: microbatch of train_4k's 4,096 tokens) and at the quickstart's (float32,
-#: the scalar forward), the SSD backward at mamba2-130m's (4 x 4,096)
+#: microbatch of train_4k's 4,096 tokens), at recurrentgemma-9b's local
+#: attention (the widest head, D 256, a 2,048-token window) and at the
+#: quickstart's (float32, the scalar forward), the SSD backward at
+#: mamba2-130m's (4 x 4,096)
 FLASH_TRAIN = dict(b=1, s=4096, h=32, kv=8, dk=128, dv=128, causal=True,
                    window=0)
+FLASH_TRAIN_WINDOW = dict(b=1, s=4096, h=16, kv=1, dk=256, dv=256,
+                          causal=True, window=2048)
 FLASH_QUICKSTART = dict(b=4, s=64, h=4, kv=2, dk=16, dv=16, causal=True,
                         window=0)
 SSD_TRAIN = dict(b=4, s=4096, h=24, g=1, p=64, n=128, chunk=256)
@@ -2705,8 +2728,9 @@ def _rel_err(got, want) -> float:
 def _flash_bwd_case(gen, shape, dt) -> dict:
     """The flash backward kernels against the plain backward on one case:
     the forward through the autograd Function (log-sum-exp written) gives
-    the serving forward's output bit for bit, one backward launch, two
-    backward runs give the same bits."""
+    the serving forward's output bit for bit, one backward launch a pass
+    on the route ``route_bwd`` picks, two backward runs give the same
+    bits."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
@@ -2719,30 +2743,34 @@ def _flash_bwd_case(gen, shape, dt) -> dict:
     check(torch.equal(out.detach(), serving), f"flash_attention at {shape} "
           f"{dt}: the training forward's output differs from serving's")
     do = _normal(gen, out.shape, out.dtype)
-    before = fops.launches_bwd
+    route = fops.route_bwd(q.dtype, shape["dk"], shape["dv"])
+    before = fops.launches_bwd, fops.launches_bwd_sm90
     got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     again = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    check(fops.launches_bwd - before == 2, f"flash backward at {shape} {dt}:"
-          f" {fops.launches_bwd - before} launches for two backward passes")
+    made = (fops.launches_bwd - before[0],
+            fops.launches_bwd_sm90 - before[1])
+    check(made == (2, 2 if route == "sm90" else 0), f"flash backward at "
+          f"{shape} {dt}: launches (all, sm90) {made} for two backward "
+          f"passes on the {route} route")
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash backward at {shape} {dt}: two runs differ")
     want = flash_attention_bwd_ref(q, k, v, do, **kw)
     errs = [_rel_err(g, w) for g, w in zip(got, want)]
     ratio = max(errs) / BWD_TOL[dt]
-    log(f"[train] flash_attention_bwd {shape} {dt}: dq, dk, dv |err| / max "
-        f"|plain| {', '.join(f'{e:.3g}' for e in errs)} (tolerance "
-        f"{BWD_TOL[dt]}; {ratio:.3g} of it used); serving forward bitwise "
-        "equal; deterministic")
+    log(f"[train] flash_attention_bwd ({route}) {shape} {dt}: dq, dk, dv "
+        f"|err| / max |plain| {', '.join(f'{e:.3g}' for e in errs)} "
+        f"(tolerance {BWD_TOL[dt]}; {ratio:.3g} of it used); serving "
+        "forward bitwise equal; deterministic")
     check(ratio <= 1, f"flash backward != plain at {shape} {dt}: {errs}")
-    return {"rel_err": max(errs), "ratio": ratio,
+    return {"route": route, "rel_err": max(errs), "ratio": ratio,
             "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
 
 
 def _ssd_bwd_case(gen, shape, dt) -> dict:
     """The SSD backward kernels against the plain backward on one case
-    (the final state's gradient given), one backward launch, two runs the
-    same bits."""
+    (the final state's gradient given), one backward launch a pass on the
+    route ``route_bwd`` picks, two runs the same bits."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
@@ -2752,91 +2780,143 @@ def _ssd_bwd_case(gen, shape, dt) -> dict:
     y, state = sops.ssd_scan(*ins, chunk=chunk)
     dy = _normal(gen, y.shape, y.dtype)
     dst = _normal(gen, state.shape, torch.float32)
-    before = sops.launches_bwd
+    route = sops.route_bwd(ins[0].dtype, shape["n"], shape["p"], chunk)
+    before = sops.launches_bwd, sops.launches_bwd_tc
     got = torch.autograd.grad((y, state), ins, (dy, dst), retain_graph=True)
     again = torch.autograd.grad((y, state), ins, (dy, dst))
     torch.cuda.synchronize()
-    route = sops.route(ins[0].dtype, shape["n"], shape["p"], chunk)
-    check(sops.launches_bwd - before == 2, f"SSD backward at {shape} {dt}: "
-          f"{sops.launches_bwd - before} launches for two backward passes")
+    made = (sops.launches_bwd - before[0], sops.launches_bwd_tc - before[1])
+    check(made == (2, 2 if route == "tc" else 0), f"SSD backward at "
+          f"{shape} {dt}: launches (all, tc) {made} for two backward passes "
+          f"on the {route} route")
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"SSD backward at {shape} {dt}: two runs differ")
     want = ssd_scan_bwd_ref(*ins, dy, dst, chunk=chunk)
     errs = [_rel_err(g, w) for g, w in zip(got, want)]
     ratio = max(errs) / BWD_TOL[dt]
-    log(f"[train] ssd_scan_bwd (forward on {route}) {shape} {dt}: dx, ddt, "
-        f"dA, dB, dC |err| / max |plain| "
-        f"{', '.join(f'{e:.3g}' for e in errs)} (tolerance {BWD_TOL[dt]}; "
-        f"{ratio:.3g} of it used); deterministic")
+    log(f"[train] ssd_scan_bwd ({route}) {shape} {dt}: dx, ddt, dA, dB, "
+        f"dC |err| / max |plain| {', '.join(f'{e:.3g}' for e in errs)} "
+        f"(tolerance {BWD_TOL[dt]}; {ratio:.3g} of it used); "
+        "deterministic")
     check(ratio <= 1, f"SSD backward != plain at {shape} {dt}: {errs}")
-    return {"rel_err": max(errs), "ratio": ratio,
+    return {"route": route, "rel_err": max(errs), "ratio": ratio,
             "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
 
 
-def _bwd_times(gen) -> dict:
-    """Device ms of one backward at the training shapes (bf16), raw
-    launchers (uncounted), beside the plain backward's, the bound and, for
-    flash, the backward of ``scaled_dot_product_attention`` (autograd,
-    ``enable_gqa``) on the same inputs; CUDA events."""
+def _flash_bwd_times(gen, shape: dict, routes: dict) -> dict:
+    """Device ms of one flash backward at ``shape`` (bf16) on each route
+    (raw launchers, uncounted) and of each of its two kernels alone (the
+    launcher's ``parts``, the scratch of a whole run kept), beside the
+    plain backward's, the bound and the backward of
+    ``scaled_dot_product_attention`` (autograd, ``enable_gqa``, the
+    window as an explicit mask) on the same inputs; CUDA events.
+    ``routes``: name -> (launcher, timed launches)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_sm90_cuda)
+        flash_attention_sm90_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan_bwd_cuda,
-                                                       ssd_scan_tc_cuda)
-    bf16, res = torch.bfloat16, {}
-    fs = FLASH_TRAIN
-    q, k, v = _flash_inputs(gen, dtype=bf16, **fs)
-    out = torch.empty((fs["b"], fs["s"], fs["h"], fs["dv"]), dtype=bf16,
-                      device="cuda")
-    lse = torch.empty((fs["b"], fs["h"], fs["s"]), device="cuda")
-    flash_attention_sm90_cuda(q, k, v, out, True, 0, lse)
+    bf16, causal, window = torch.bfloat16, shape["causal"], shape["window"]
+    q, k, v = _flash_inputs(gen, dtype=bf16, **shape)
+    out = torch.empty((shape["b"], shape["s"], shape["h"], shape["dv"]),
+                      dtype=bf16, device="cuda")
+    lse = torch.empty((shape["b"], shape["h"], shape["s"]), device="cuda")
+    flash_attention_sm90_cuda(q, k, v, out, causal, window, lse)
     do = _normal(gen, out.shape, bf16)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = (q, k, v, out, do, lse, *(torch.empty_like(t) for t in (q, k, v)),
+            causal, window)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    mask = None
+    if window > 0:
+        i = torch.arange(shape["s"], device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        is_causal=causal and mask is None,
                                         enable_gqa=True)
     dot = do.transpose(1, 2)
-    flops, nbytes = _flash_bwd_work(esize=2, **fs)
+    flops, nbytes = _flash_bwd_work(esize=2, **shape)
     bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
-    r = res["flash_attention_bwd"] = {
-        "ms": cuda_time_ms(lambda: flash_attention_bwd_cuda(
-            q, k, v, out, do, lse, dq, dk, dv, True, 0), n=5, warm=1),
+    common = {
         "plain_ms": cuda_time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, do), n=1, warm=1),
+            q, k, v, do, causal=causal, window=window), n=1, warm=1),
         "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), n=20, warm=3),
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-        "bytes": nbytes, "shape": fs}
-    r["bound_share"] = bound_ms / r["ms"]
-    r["library_ratio"] = r["ms"] / r["library_ms"]
-    del q, k, v, out, lse, do, dq, dk, dv, qt, kt, vt, ot, dot
+        "bytes": nbytes, "shape": shape}
+    res = {}
+    for name, (fn, n) in routes.items():
+        scratch = fn(*args)
+        r = res[name] = dict(common, ms=cuda_time_ms(
+            lambda: fn(*args, scratch=scratch), n=n, warm=1), parts={
+                part: cuda_time_ms(lambda: fn(*args, parts=mask_,
+                                              scratch=scratch), n=n, warm=1)
+                for part, mask_ in (("dq", 1), ("dkdv", 2))})
+        r["bound_share"] = bound_ms / r["ms"]
+        r["library_ratio"] = r["ms"] / r["library_ms"]
+    return res
+
+
+def _bwd_times(gen) -> dict:
+    """[train] (a)'s times at the training shapes (bf16): the flash
+    backward on both routes at FLASH_TRAIN and on the tensor-core route
+    at FLASH_TRAIN_WINDOW (:func:`_flash_bwd_times`), the SSD backward on
+    both routes at SSD_TRAIN, each kernel alone too (the launchers'
+    ``parts``), beside the plain backward and the bound; CUDA events."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_sm90_cuda)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        scratch_bwd_tc, ssd_scan_bwd_cuda, ssd_scan_bwd_tc_cuda,
+        ssd_scan_tc_cuda)
+    bf16 = torch.bfloat16
+    res = _flash_bwd_times(gen, FLASH_TRAIN, {
+        "flash_attention_bwd_sm90": (flash_attention_bwd_sm90_cuda, 20),
+        "flash_attention_bwd": (flash_attention_bwd_cuda, 3)})
+    res["flash_attention_bwd_sm90 (window)"] = _flash_bwd_times(
+        gen, FLASH_TRAIN_WINDOW, {"sm90": (flash_attention_bwd_sm90_cuda,
+                                           10)})["sm90"]
+    torch.cuda.empty_cache()
     ss = SSD_TRAIN
     args = _ssd_inputs(gen, dtype=bf16, **ss)
     y = torch.empty_like(args[0])
     state = torch.empty((ss["b"], ss["h"], ss["n"], ss["p"]),
                         device="cuda")
     states = ssd_scan_tc_cuda(*args, y, state, ss["chunk"])
-    dy = _normal(gen, y.shape, bf16)
+    full = (*args, _normal(gen, y.shape, bf16), states, None, ss["chunk"])
+    nc = -(-ss["s"] // ss["chunk"])
     flops, nbytes = _ssd_bwd_work(esize=2, **ss)
     bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
-    r = res["ssd_scan_bwd"] = {
-        "ms": cuda_time_ms(lambda: ssd_scan_bwd_cuda(
-            *args, dy, states, None, ss["chunk"]), n=5, warm=1),
+    common = {
         "plain_ms": cuda_time_ms(lambda: ssd_scan_bwd_ref(
-            *args, dy, chunk=ss["chunk"]), n=1, warm=1),
+            *full[:6], chunk=ss["chunk"]), n=1, warm=1),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes, "shape": ss}
-    r["bound_share"] = bound_ms / r["ms"]
+    for name, fn, scratch, n, parts in (
+            ("ssd_scan_bwd_tc", ssd_scan_bwd_tc_cuda,
+             scratch_bwd_tc(args[0], args[3], ss["chunk"]), 20,
+             ("ssd_chunk_cb", "ssd_bwd_chunk_state", "ssd_bwd_state_pass",
+              "ssd_bwd_keys", "ssd_bwd_queries", "ssd_bwd_finish")),
+            ("ssd_scan_bwd", ssd_scan_bwd_cuda,
+             torch.empty((ss["b"], ss["h"], nc, ss["n"], ss["p"]),
+                         device="cuda"), 5,
+             ("ssd_bwd_state_pass", "ssd_bwd_chunk"))):
+        fn(*full, scratch=scratch)
+        r = res[name] = dict(common, ms=cuda_time_ms(
+            lambda: fn(*full, scratch=scratch), n=n, warm=1), parts={
+                part: cuda_time_ms(lambda: fn(*full, parts=1 << i,
+                                              scratch=scratch), n=n, warm=1)
+                for i, part in enumerate(parts)})
+        r["bound_share"] = bound_ms / r["ms"]
     for name, r in res.items():
         log(f"[train] {name} at {r['shape']}, bf16: {r['ms']:.4f} ms "
             f"({r['bound_share']:.4f} of the {r['bound_ms']:.5f} ms bound, "
-            f"by {r['bound_by']}); plain {r['plain_ms']:.2f} ms"
+            f"by {r['bound_by']}; kernels alone "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
+            + f" ms); plain {r['plain_ms']:.2f} ms"
             + (f"; SDPA's backward {r['library_ms']:.4f} ms (kernel / SDPA "
-               f"{r['library_ratio']:.2f})" if r["library_ms"] else ""))
+               f"{r['library_ratio']:.3f})" if r["library_ms"] else ""))
     return res
 
 
@@ -2850,17 +2930,22 @@ def _train_batches(cfg, seq, n, seed=0):
     return [loop.to_device(next(ds), "cuda") for _ in range(n)]
 
 
-def _reckoned(cfg, layers: int, steps: int) -> dict:
+def _reckoned(cfg, layers: int, steps: int, dtype: str = "bfloat16"
+              ) -> dict:
     """The forward and backward launches of ``steps`` steps: one forward a
-    layer and microbatch, again in remat's recompute, one backward."""
+    layer and microbatch, again in remat's recompute, one backward; in
+    bf16 every backward on the tensor-core route, in float32 none."""
     mb = cfg.train_microbatches
     fwd = layers * mb * (1 + (cfg.remat == "block")) * steps
     bwd = layers * mb * steps
+    tc = bwd if dtype == "bfloat16" else 0
     if cfg.family == "ssm":
-        return {"ssd_scan": fwd, "ssd_scan_bwd": bwd, "flash_attention": 0,
-                "flash_attention_bwd": 0}
+        return {"ssd_scan": fwd, "ssd_scan_bwd": bwd, "ssd_scan_bwd_tc": tc,
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "flash_attention_bwd_sm90": 0}
     return {"flash_attention": fwd, "flash_attention_bwd": bwd,
-            "ssd_scan": 0, "ssd_scan_bwd": 0}
+            "flash_attention_bwd_sm90": tc, "ssd_scan": 0,
+            "ssd_scan_bwd": 0, "ssd_scan_bwd_tc": 0}
 
 
 def _step_grads(model, batch, mb, dtype=None, plain=False):
@@ -2934,7 +3019,13 @@ def _train_parity(arch: str, layers: int) -> dict:
               f"of {farther[:8]} are more than {STEP_NOISE}x as far from the "
               "float32 step as the plain versions'")
     del g_k, g_p
+    reset_launches()
     _, g_k32 = _step_grads(model, batch, mb, dtype="float32")
+    launches32 = read_launches()
+    want32 = _reckoned(cfg, layers, 1, "float32")
+    check(all(launches32[k] == n for k, n in want32.items()),
+          f"[train] {arch}: float32 kernel step launched {launches32}, "
+          f"reckoned {want32}")
     errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
     within = {n: e for n, e in errs.items() if n not in noise}
     worst, worst32 = max(within, key=within.get), max(errs32, key=errs32.get)
@@ -2948,7 +3039,8 @@ def _train_parity(arch: str, layers: int) -> dict:
         f"{ratio:.3g} of it used), loss {float(m_k['loss']):.5f} vs "
         f"{float(m_p['loss']):.5f}; float32: worst leaf {worst32} "
         f"{errs32[worst32]:.3g} (tolerance {STEP_GRAD_TOL_F32}; "
-        f"{ratio32:.3g} of it used); launches of the bf16 step {want}")
+        f"{ratio32:.3g} of it used); launches of the bf16 step {want}, "
+        f"of the float32 step {want32}")
     check(ratio <= 1, f"[train] {arch}: gradient {worst} off the plain "
           f"versions' by {errs[worst]}")
     check(ratio32 <= 1, f"[train] {arch}: float32 gradient {worst32} off "
@@ -2959,7 +3051,7 @@ def _train_parity(arch: str, layers: int) -> dict:
     return {"arch": arch, "layers": layers, "leaves": len(errs),
             "worst_leaf": worst, "rel_err": errs[worst], "ratio": ratio,
             "noise_leaves": noise, "worst_leaf_f32": worst32,
-            "rel_err_f32": errs32[worst32]}
+            "rel_err_f32": errs32[worst32], "launches_f32": want32}
 
 
 def _train_timed(arch: str, layers: int) -> dict:
@@ -3073,12 +3165,14 @@ def _train_quickstart() -> dict:
     check(rc == 0 and not bad, f"[train] quickstart: exit {rc}, {bad}")
     check(losses[-1] < losses[0] - 2, f"[train] quickstart: loss {losses}")
     check(launches["flash_attention_bwd"] == bwd
+          and launches["flash_attention_bwd_sm90"] == 0
           and launches["flash_attention"] >= 2 * bwd,
           f"[train] quickstart launched {launches}")
     return {"wall_s": wall, "losses": losses, "lines": lines,
             "same_data": same_data,
             "launches": {k: launches[k] for k in
-                         ("flash_attention", "flash_attention_bwd")}}
+                         ("flash_attention", "flash_attention_bwd",
+                          "flash_attention_bwd_sm90")}}
 
 
 def phase_train() -> dict:
@@ -3091,22 +3185,28 @@ def phase_train() -> dict:
     keys = ("s", "h", "kv", "dk", "dv", "causal", "window")
     flash = [(dict(zip(keys, c), b=2), dt) for c in FLASH_CASES
              for dt in ("float32", "bfloat16")]
-    flash += [(FLASH_QUICKSTART, "float32"), (FLASH_TRAIN, "bfloat16")]
+    flash += [(dict(zip(keys, c), b=2), "bfloat16") for c in FLASH_SM90_CASES]
+    flash += [(FLASH_QUICKSTART, "float32"), (FLASH_TRAIN, "bfloat16"),
+              (FLASH_TRAIN_WINDOW, "bfloat16")]
+    # each kernel's max |err| at its main path's shape: the tensor-core
+    # route's at llama3-8b's, the scalar one's at the quickstart's
     worst = {}
     for shape, dt in flash:
         r = _flash_bwd_case(gen, shape, dt)
         if shape is FLASH_TRAIN:
+            worst["flash_attention_bwd_sm90"] = r["max_abs_err"]
+        if shape is FLASH_QUICKSTART:
             worst["flash_attention_bwd"] = r["max_abs_err"]
     keys = ("b", "s", "h", "g", "p", "n", "chunk")
     ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
-    # the tensor-core forward's cases whose backward fits shared memory
-    # (all but N = P = 128: the model families' widths are N 128, P 64)
-    ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES
-            if min(c[4], c[5]) <= 64]
-    ssd += [(dict(SSD_TRAIN, s=1024), "float32"), (SSD_TRAIN, "bfloat16")]
+    ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES]
+    ssd_f32 = dict(SSD_TRAIN, s=1024)
+    ssd += [(ssd_f32, "float32"), (SSD_TRAIN, "bfloat16")]
     for shape, dt in ssd:
         r = _ssd_bwd_case(gen, shape, dt)
         if shape is SSD_TRAIN:
+            worst["ssd_scan_bwd_tc"] = r["max_abs_err"]
+        if shape is ssd_f32:
             worst["ssd_scan_bwd"] = r["max_abs_err"]
     times = _bwd_times(gen)
     torch.cuda.empty_cache()
@@ -3291,24 +3391,43 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "arch": arch, "shape": shape})
     # the backward kernels: no Pallas kernel; they stand for jax.grad of
-    # the jnp functions the forward kernels compute.  Launches: [train]
-    # (c)'s timed steps (llama3-8b's for flash, mamba2-130m's for SSD)
+    # the jnp functions the forward kernels compute.  Launches: the
+    # tensor-core routes', [train] (c)'s timed bf16 steps (llama3-8b's for
+    # flash, mamba2-130m's for SSD); the scalar ones', the float32 training
+    # paths (flash: (d)'s quickstart; SSD: (b)'s float32 mamba2-130m step)
     timed_runs = {r["arch"]: r for r in train["timed"]}
-    for name, src, csrc, arch in (
+    parity_runs = {r["arch"]: r for r in train["parity"]}
+    quick = train["quickstart"]["launches"]
+    for name, src, csrc, launches in (
+            ("flash_attention_bwd_sm90", "src/repro/models/attention.py:28",
+             "flash_attention/csrc/flash_attention_bwd_sm90.cu",
+             timed_runs["llama3-8b"]["launches"]["flash_attention_bwd_sm90"]),
             ("flash_attention_bwd", "src/repro/models/attention.py:28",
-             "flash_attention/csrc/flash_attention_bwd.cu", "llama3-8b"),
+             "flash_attention/csrc/flash_attention_bwd.cu",
+             quick["flash_attention_bwd"]),
+            ("ssd_scan_bwd_tc", "src/repro/models/ssm.py:58",
+             "ssd_scan/csrc/ssd_scan_bwd_tc.cu",
+             timed_runs["mamba2-130m"]["launches"]["ssd_scan_bwd_tc"]),
             ("ssd_scan_bwd", "src/repro/models/ssm.py:58",
-             "ssd_scan/csrc/ssd_scan_bwd.cu", "mamba2-130m")):
+             "ssd_scan/csrc/ssd_scan_bwd.cu",
+             parity_runs["mamba2-130m"]["launches_f32"]["ssd_scan_bwd"])):
         r = train["times"][name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{csrc}", "replaces": src,
-            "launches": timed_runs[arch]["launches"][name],
+            "launches": launches,
             "max_abs_err": train["max_abs_err"][name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "stands_for": "jax.value_and_grad of the jnp function (no "
-                          "Pallas backward)", "shape": r["shape"]})
+                          "Pallas backward)", "shape": r["shape"],
+            "kernels_ms": r["parts"]}
+        if name == "flash_attention_bwd_sm90":
+            w = train["times"]["flash_attention_bwd_sm90 (window)"]
+            entry["window"] = {k: w[k] for k in (
+                "shape", "ms", "parts", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}
+        kernels.append(entry)
     log("[report] training (bf16, f32 weights; card: " + card + "): "
         + "; ".join(
             f"{r['arch']} at {r['layers']} of {r['of_layers']} layers, "

@@ -359,7 +359,8 @@ template <typename T, int kJ>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, int B, int S, int H, int KV, int Dk, int Dv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, float scale, int parts,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq<T, kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -370,18 +371,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + kB - 1) / kB;
-  flash_bwd_dq<T, kJ><<<dim3(tiles, H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), S, H, KV,
-      Dk, Dv, causal, window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv<T, kJ><<<dim3(tiles, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, Dk, Dv, causal,
-      window, scale);
+  if (parts & 1) {
+    flash_bwd_dq<T, kJ><<<dim3(tiles, H, B), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), S, H,
+        KV, Dk, Dv, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2)
+    flash_bwd_dkdv<T, kJ><<<dim3(tiles, KV, B), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
+        static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, Dk, Dv, causal,
+        window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -389,19 +393,20 @@ template <typename T>
 int launch_w(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* dsum, void* dq,
              void* dk, void* dv, int B, int S, int H, int KV, int Dk, int Dv,
-             int causal, int window, float scale, cudaStream_t st) {
+             int causal, int window, float scale, int parts,
+             cudaStream_t st) {
   const int w = Dk > Dv ? Dk : Dv;
   if (w <= 32)
     return launch<T, 2>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, H, KV,
-                        Dk, Dv, causal, window, scale, st);
+                        Dk, Dv, causal, window, scale, parts, st);
   if (w <= 64)
     return launch<T, 4>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, H, KV,
-                        Dk, Dv, causal, window, scale, st);
+                        Dk, Dv, causal, window, scale, parts, st);
   if (w <= 128)
     return launch<T, 8>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, H, KV,
-                        Dk, Dv, causal, window, scale, st);
+                        Dk, Dv, causal, window, scale, parts, st);
   return launch<T, 12>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, H, KV,
-                       Dk, Dv, causal, window, scale, st);
+                       Dk, Dv, causal, window, scale, parts, st);
 }
 
 }  // namespace
@@ -418,24 +423,27 @@ extern "C" int64_t flash_attention_bwd_smem_limit() { return kMaxSmem; }
 // 1 = bfloat16 (q, k, v, o, do, dq, dk, dv alike).  Contiguous q (B,S,H,Dk),
 // k (B,S,KV,Dk), v (B,S,KV,Dv), o and do (B,S,H,Dv), lse (B,H,S) f32 from
 // the forward, the scratch dsum (B,H,S) f32, and dq, dk, dv shaped as q, k,
-// v; Dk, Dv at most 192.  Two launches on `stream` (flash_bwd_dq, then
-// flash_bwd_dkdv); returns the first CUDA error code (0 on success).
+// v; Dk, Dv at most 192.  parts: 1 launches flash_bwd_dq (which also
+// fills dsum), 2 flash_bwd_dkdv (which reads it), 3 both, in that order,
+// on `stream`; returns the first CUDA error code (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, int B, int S, int H, int KV, int Dk, int Dv, int causal,
-    int window, float scale, int dtype, void* stream) {
+    int window, float scale, int dtype, int parts, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Dk <= 0 ||
-      Dv <= 0 || Dk > 192 || Dv > 192 || smem_bytes(Dk, Dv) > kMaxSmem)
+      Dv <= 0 || Dk > 192 || Dv > 192 || smem_bytes(Dk, Dv) > kMaxSmem ||
+      parts < 1 || parts > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
   if (dtype == 0)
     return launch_w<float>(q, k, v, o, dout, l, ds, dq, dk, dv, B, S, H, KV,
-                           Dk, Dv, causal, window, scale, st);
+                           Dk, Dv, causal, window, scale, parts, st);
   if (dtype == 1)
     return launch_w<__nv_bfloat16>(q, k, v, o, dout, l, ds, dq, dk, dv, B, S,
-                                   H, KV, Dk, Dv, causal, window, scale, st);
+                                   H, KV, Dk, Dv, causal, window, scale,
+                                   parts, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,27 +21,40 @@ reset either to 0.
 Training: where autograd records (grad enabled and an input that needs a
 gradient), a CUDA call goes through :class:`FlashAttention`, whose
 forward also writes each row's log-sum-exp and whose backward launches
-``csrc/flash_attention_bwd.cu`` (``launches_bwd`` counts those backward
-calls, two kernels each); the plain backward is autograd of
-:func:`.ref.flash_attention_ref` (:func:`.ref.flash_attention_bwd_ref`).
-A serving call passes no log-sum-exp and its output is unchanged.
+the kernels :func:`route_bwd` picks (``launches_bwd`` counts those
+backward calls, two kernels each, and ``launches_bwd_sm90`` those on the
+tensor-core route):
+
+* ``"sm90"`` — ``csrc/flash_attention_bwd_sm90.cu`` (TMA and wgmma):
+  bfloat16 with Dk and Dv multiples of 16, at most 256 (the forward
+  ``"sm90"`` route's widths);
+* ``"scalar"`` — ``csrc/flash_attention_bwd.cu`` (scalar FMAs): float32,
+  and bfloat16 at the widths ``"sm90"`` does not take, up to its shared
+  memory (Dk, Dv <= 192).
+
+The plain backward is autograd of :func:`.ref.flash_attention_ref`
+(:func:`.ref.flash_attention_bwd_ref`).  A serving call passes no
+log-sum-exp and its output is unchanged.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    DTYPES, flash_attention_bwd_cuda, flash_attention_cuda,
-    flash_attention_sm90_cuda, smem_fits, smem_fits_bwd)
+    DTYPES, flash_attention_bwd_cuda, flash_attention_bwd_sm90_cuda,
+    flash_attention_cuda, flash_attention_sm90_cuda, smem_fits,
+    smem_fits_bwd)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: CUDA kernel launches made by :func:`flash_attention` (a plain integer)
 launches = 0
 #: of which launches of the tensor-core kernel
 launches_sm90 = 0
-#: backward calls (flash_bwd_dq + flash_bwd_dkdv each) made by
+#: backward calls (a dq and a dk/dv kernel each) made by
 #: :class:`FlashAttention`
 launches_bwd = 0
+#: of which on the tensor-core route
+launches_bwd_sm90 = 0
 
 #: largest value head width either kernel's accumulators hold
 MAX_DV = 256
@@ -65,6 +78,15 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> str:
             and dv % SM90_STEP == 0):
         return "sm90"
     return "scalar"
+
+
+def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
+    """The backward kernels that take a (dtype, Dk, Dv) call: ``"sm90"``
+    or ``"scalar"``, the forward's choice (:func:`route`): the tensor-core
+    backward takes every width its forward takes.  Raises as
+    :func:`route` does (the scalar kernels' shared-memory limit is
+    checked in the backward pass)."""
+    return route(dtype, dk, dv)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -127,15 +149,26 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        global launches_bwd
+        global launches_bwd, launches_bwd_sm90
         q, k, v, out, lse = ctx.saved_tensors
-        if not smem_fits_bwd(q.shape[3], v.shape[3]):
-            raise ValueError(f"flash_attention backward: Dk {q.shape[3]}, "
-                             f"Dv {v.shape[3]} exceed its kernels' shared "
-                             "memory")
+        Dk, Dv = q.shape[3], v.shape[3]
+        dout = dout.contiguous().to(q.dtype)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        flash_attention_bwd_cuda(q, k, v, out, dout.contiguous().to(q.dtype),
-                                 lse, dq, dk, dv, ctx.causal, ctx.window)
+        if route_bwd(q.dtype, Dk, Dv) == "sm90":
+            if dout.data_ptr() % 16:
+                raise ValueError("flash_attention backward: do's data is not "
+                                 "16-byte aligned (the kernels load it by "
+                                 "TMA)")
+            flash_attention_bwd_sm90_cuda(q, k, v, out, dout, lse, dq, dk,
+                                          dv, ctx.causal, ctx.window)
+            launches_bwd_sm90 += 1
+        else:
+            if not smem_fits_bwd(Dk, Dv):
+                raise ValueError(f"flash_attention backward: Dk {Dk}, Dv "
+                                 f"{Dv} exceed its scalar kernels' shared "
+                                 "memory")
+            flash_attention_bwd_cuda(q, k, v, out, dout, lse, dq, dk, dv,
+                                     ctx.causal, ctx.window)
         launches_bwd += 1
         return dq, dk, dv, None, None
 

@@ -616,7 +616,7 @@ struct Call {
   float* dSout;
   void* dx;
   float *ddt, *dBh, *dCh, *dA_part;
-  int B, S, H, G, N, P, Q, hilo;
+  int B, S, H, G, N, P, Q, hilo, parts;
   cudaStream_t stream;
 };
 
@@ -631,21 +631,25 @@ int launch(const Call& k) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s2));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_state_pass<T, kNB, kPB><<<dim3(k.H, k.B), kThreads, s1, k.stream>>>(
-      static_cast<const float*>(k.dt), static_cast<const float*>(k.A),
-      static_cast<const T*>(k.Cm), static_cast<const T*>(k.dy),
-      static_cast<const float*>(k.dfinal), k.dSout, k.S, k.H, k.G, k.N, k.P,
-      k.Q);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (k.parts & 1) {
+    ssd_bwd_state_pass<T, kNB, kPB>
+        <<<dim3(k.H, k.B), kThreads, s1, k.stream>>>(
+            static_cast<const float*>(k.dt), static_cast<const float*>(k.A),
+            static_cast<const T*>(k.Cm), static_cast<const T*>(k.dy),
+            static_cast<const float*>(k.dfinal), k.dSout, k.S, k.H, k.G, k.N,
+            k.P, k.Q);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int nc = (k.S + k.Q - 1) / k.Q;
-  ssd_bwd_chunk<T, kNB, kPB, kHiLo>
-      <<<dim3(nc, k.H, k.B), kThreads, s2, k.stream>>>(
-          static_cast<const T*>(k.x), static_cast<const float*>(k.dt),
-          static_cast<const float*>(k.A), static_cast<const T*>(k.Bm),
-          static_cast<const T*>(k.Cm), static_cast<const T*>(k.dy), k.states,
-          k.dSout, static_cast<T*>(k.dx), k.ddt, k.dBh, k.dCh, k.dA_part,
-          k.S, k.H, k.G, k.N, k.P, k.Q);
+  if (k.parts & 2)
+    ssd_bwd_chunk<T, kNB, kPB, kHiLo>
+        <<<dim3(nc, k.H, k.B), kThreads, s2, k.stream>>>(
+            static_cast<const T*>(k.x), static_cast<const float*>(k.dt),
+            static_cast<const float*>(k.A), static_cast<const T*>(k.Bm),
+            static_cast<const T*>(k.Cm), static_cast<const T*>(k.dy),
+            k.states, k.dSout, static_cast<T*>(k.dx), k.ddt, k.dBh, k.dCh,
+            k.dA_part, k.S, k.H, k.G, k.N, k.P, k.Q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -685,8 +689,9 @@ extern "C" int64_t ssd_scan_bwd_smem_limit() { return kMaxSmem; }
 // (B,H,nc,N,P) (hilo 0) or bf16 hi and lo (B,H,nc,2,N,P) (hilo 1, bf16
 // only), dfinal (B,H,N,P) or null; the scratch dSout (B,H,nc,N,P); the
 // outputs dx (B,S,H,P), ddt (B,S,H), dBh/dCh (B,S,H,N) per head and
-// dA_part (B,nc,H).  nc = ceil(S / Q), Q <= S.  Two launches on `stream`
-// (ssd_bwd_state_pass, then ssd_bwd_chunk); returns the first CUDA error
+// dA_part (B,nc,H).  nc = ceil(S / Q), Q <= S.  parts: 1 launches
+// ssd_bwd_state_pass (which fills dSout), 2 ssd_bwd_chunk (which reads
+// it), 3 both, in that order, on `stream`; returns the first CUDA error
 // code (0 on success).
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const void* A, const void* Bm,
@@ -695,16 +700,17 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    void* dSout, void* dx, void* ddt,
                                    void* dBh, void* dCh, void* dA_part,
                                    int B, int S, int H, int G, int N, int P,
-                                   int Q, int dtype, int hilo, void* stream) {
+                                   int Q, int dtype, int hilo, int parts,
+                                   void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || N <= 0 ||
       N > 128 || P <= 0 || P > 128 || Q <= 0 || Q > S ||
-      (hilo && dtype != 1) ||
+      (hilo && dtype != 1) || parts < 1 || parts > 3 ||
       ssd_scan_bwd_smem_bytes(N, P, Q) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   Call k{x, dt, A, Bm, Cm, dy, states, dfinal,
          static_cast<float*>(dSout), dx, static_cast<float*>(ddt),
          static_cast<float*>(dBh), static_cast<float*>(dCh),
-         static_cast<float*>(dA_part), B, S, H, G, N, P, Q, hilo,
+         static_cast<float*>(dA_part), B, S, H, G, N, P, Q, hilo, parts,
          static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_np<float>(k);
   if (dtype == 1) return launch_np<bf16>(k);

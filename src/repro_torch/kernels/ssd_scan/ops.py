@@ -22,11 +22,21 @@ reset either to 0.
 
 Training: where autograd records (grad enabled and an input that needs a
 gradient), a CUDA call goes through :class:`SsdScan`, whose forward also
-keeps each chunk's incoming state and whose backward launches
-``csrc/ssd_scan_bwd.cu`` (``launches_bwd`` counts those backward calls,
-two kernels each); it returns the gradients of x, dt, A, Bm and Cm and
-takes one for the final state.  The plain backward is autograd of
-:func:`.ref.ssd_scan_ref` (:func:`.ref.ssd_scan_bwd_ref`).
+keeps each chunk's incoming state and whose backward launches the kernels
+:func:`route_bwd` picks (``launches_bwd`` counts those backward calls and
+``launches_bwd_tc`` those on the tensor-core route); it returns the
+gradients of x, dt, A, Bm and Cm and takes one for the final state:
+
+* ``"tc"`` — ``csrc/ssd_scan_bwd_tc.cu`` (chunk-parallel, mma.sync, six
+  launches): the shapes the forward ``"tc"`` route takes, from its bf16
+  hi + lo states;
+* ``"scalar"`` — ``csrc/ssd_scan_bwd.cu`` (two kernels, scalar FMAs):
+  everything else, up to its shared memory (N x P up to 128 x 64 at Q
+  256).
+
+The plain backward is autograd of :func:`.ref.ssd_scan_ref`
+(:func:`.ref.ssd_scan_bwd_ref`); :func:`.ref.ssd_scan_bwd_chunked`
+mirrors the tensor-core route's decomposition in plain torch.
 """
 from __future__ import annotations
 
@@ -34,16 +44,17 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import (
-    DTYPES, TC_TILE, smem_fits, smem_fits_bwd, smem_fits_tc, ssd_scan_bwd_cuda,
-    ssd_scan_cuda, ssd_scan_tc_cuda)
+    DTYPES, TC_TILE, smem_fits, smem_fits_bwd, smem_fits_bwd_tc, smem_fits_tc,
+    ssd_scan_bwd_cuda, ssd_scan_bwd_tc_cuda, ssd_scan_cuda, ssd_scan_tc_cuda)
 
 #: scans handed to a CUDA route by :func:`ssd_scan` (a plain integer)
 launches = 0
 #: of which on the tensor-core route
 launches_tc = 0
-#: backward calls (ssd_bwd_state_pass + ssd_bwd_chunk each) made by
-#: :class:`SsdScan`
+#: backward calls made by :class:`SsdScan`
 launches_bwd = 0
+#: of which on the tensor-core route
+launches_bwd_tc = 0
 
 #: largest state width N and head width P the kernels' registers hold
 MAX_N, MAX_P = 128, 128
@@ -67,6 +78,15 @@ def route(dtype: torch.dtype, n: int, p: int, chunk: int) -> str:
             and chunk % TC_TILE == 0):
         return "tc"
     return "scalar"
+
+
+def route_bwd(dtype: torch.dtype, n: int, p: int, chunk: int) -> str:
+    """The backward kernels that take a (dtype, N, P, chunk) scan:
+    ``"tc"`` or ``"scalar"``, the forward's choice (:func:`route`): the
+    tensor-core backward reads the tensor-core forward's states and takes
+    every shape it takes.  Raises as :func:`route` does (shared memory is
+    checked in the backward pass)."""
+    return route(dtype, n, p, chunk)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
@@ -130,7 +150,7 @@ class SsdScan(torch.autograd.Function):
         y, state, states = _forward(x, dt, A, Bm, Cm, chunk,
                                     keep_states=True)
         ctx.save_for_backward(x, dt, A, Bm, Cm, states)
-        ctx.chunk = min(chunk, x.shape[1])
+        ctx.chunk_asked, ctx.chunk = chunk, min(chunk, x.shape[1])
         # an unused output's gradient comes as None, not zeros (training
         # leaves the final state unused: the kernels take no dfinal then)
         ctx.set_materialize_grads(False)
@@ -138,19 +158,30 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        global launches_bwd
+        global launches_bwd, launches_bwd_tc
         x, dt, A, Bm, Cm, states = ctx.saved_tensors
         B, S, H, P = x.shape
         G, N = Bm.shape[2], Bm.shape[3]
-        if not smem_fits_bwd(N, P, ctx.chunk):
+        kernel = route_bwd(x.dtype, N, P, ctx.chunk_asked)
+        fits = smem_fits_bwd_tc if kernel == "tc" else smem_fits_bwd
+        if not fits(N, P, ctx.chunk):
             raise ValueError(f"ssd_scan backward: N {N}, P {P}, chunk "
-                             f"{ctx.chunk} exceed its kernels' shared memory")
-        if dy is None:
-            dy = torch.zeros_like(x)
+                             f"{ctx.chunk} exceed its {kernel} kernels' "
+                             "shared memory")
+        dy = (torch.zeros_like(x) if dy is None
+              else dy.contiguous().to(x.dtype))
         dfinal = None if dstate is None else dstate.float().contiguous()
-        dx, ddt, dBh, dCh, dA = ssd_scan_bwd_cuda(
-            x, dt, A, Bm, Cm, dy.contiguous().to(x.dtype), states, dfinal,
-            ctx.chunk)
+        if kernel == "tc":
+            if dy.data_ptr() % 16:
+                raise ValueError("ssd_scan backward: dy's data is not "
+                                 "16-byte aligned (the kernels copy it by "
+                                 "cp.async)")
+            dx, ddt, dBh, dCh, dA = ssd_scan_bwd_tc_cuda(
+                x, dt, A, Bm, Cm, dy, states, dfinal, ctx.chunk)
+            launches_bwd_tc += 1
+        else:
+            dx, ddt, dBh, dCh, dA = ssd_scan_bwd_cuda(
+                x, dt, A, Bm, Cm, dy, states, dfinal, ctx.chunk)
         launches_bwd += 1
         dB = dBh.view(B, S, G, H // G, N).sum(3).to(Bm.dtype)
         dC = dCh.view(B, S, G, H // G, N).sum(3).to(Cm.dtype)

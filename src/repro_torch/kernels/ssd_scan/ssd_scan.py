@@ -11,10 +11,14 @@ multiples of 16) split the scan into four chunk-parallel launches:
 C B^T per group, chunk states, state passing, chunk outputs.  Both
 routes keep each chunk's incoming state when asked (training: the scalar
 kernel writes them in f32, the tensor-core route's state pass already
-holds them as a bf16 hi + lo pair), and ``csrc/ssd_scan_bwd.cu`` holds the
-backward pass that reads them (two kernels; no Pallas counterpart: the JAX
-package differentiates its jnp ``ssd_chunked``).  Each library is built
-with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.
+holds them as a bf16 hi + lo pair), and two backward libraries read them
+(no Pallas counterpart: the JAX package differentiates its jnp
+``ssd_chunked``): ``csrc/ssd_scan_bwd_tc.cu`` (bfloat16, the tensor-core
+forward's shapes: six chunk-parallel launches on mma.sync) and
+``csrc/ssd_scan_bwd.cu`` (two kernels, scalar FMAs; either forward's
+states).  The tensor-core sources share ``csrc/mma_common.cuh``.  Each
+library is built with ``nvcc`` for ``sm_90a`` at first use and bound
+through ctypes.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "ssd_scan.cu",)
 SOURCES_TC = (CSRC / "ssd_scan_tc.cu",)
 SOURCES_BWD = (CSRC / "ssd_scan_bwd.cu",)
+SOURCES_BWD_TC = (CSRC / "ssd_scan_bwd_tc.cu",)
+#: the mma.sync pieces both tensor-core sources include
+HEADERS_TC = (CSRC / "mma_common.cuh",)
 #: ptxas reports the tensor-core kernels' registers and spills (build log)
 FLAGS_TC = ("-Xptxas", "-v")
 #: rows of the tensor-core kernels' tiles (``kT``)
@@ -91,7 +98,7 @@ _FNS_TC = {}
 
 def library_tc() -> ctypes.CDLL:
     """Build (once) and load the tensor-core kernels' shared library."""
-    lib = load_library("ssd_scan_tc", SOURCES_TC, flags=FLAGS_TC)
+    lib = load_library("ssd_scan_tc", SOURCES_TC, HEADERS_TC, FLAGS_TC)
     if not _FNS_TC:
         fn = lib.ssd_scan_tc_launch
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
@@ -157,7 +164,7 @@ def library_bwd() -> ctypes.CDLL:
     lib = load_library("ssd_scan_bwd", SOURCES_BWD)
     if not _FNS_BWD:
         fn = lib.ssd_scan_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_bwd_smem_bytes
@@ -177,38 +184,127 @@ def smem_fits_bwd(n: int, p: int, q: int) -> bool:
     return _FNS_BWD["smem"](n, p, q) <= _FNS_BWD["limit"]()
 
 
-def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int):
-    """Launch the two backward kernels on the current stream; returns
-    (dx in x's dtype, ddt (B,S,H), dB and dC per head (B,S,H,N), dA per
-    (batch, chunk, head) (B,nc,H), all but dx float32).
+def _bwd_outputs(x, N, nc):
+    """(dx, ddt, dBh, dCh, dA) for a backward launch, uninitialised."""
+    B, S, H, _ = x.shape
+    dev, f32 = x.device, torch.float32
+    return (torch.empty_like(x),
+            torch.empty((B, S, H), dtype=f32, device=dev),
+            torch.empty((B, S, H, N), dtype=f32, device=dev),
+            torch.empty((B, S, H, N), dtype=f32, device=dev),
+            torch.empty((B, nc, H), dtype=f32, device=dev))
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int,
+                      parts: int = 3, scratch: torch.Tensor = None):
+    """Launch the two scalar backward kernels on the current stream;
+    returns (dx in x's dtype, ddt (B,S,H), dB and dC per head (B,S,H,N),
+    dA per (batch, chunk, head) (B,nc,H), all but dx float32).
 
     x, dt, A, Bm, Cm as the forward took them, ``dy`` (B,S,H,P) in x's
     dtype, ``states`` the forward's chunk-start states (float32
     (B,H,nc,N,P), or the tensor-core route's bf16 (B,H,nc,2,N,P) hi and
     lo), ``dfinal`` (B,H,N,P) float32 or None, all contiguous on one CUDA
-    device (checked by the caller).  Allocates the outputs and the scratch
-    (each chunk's outgoing state's gradient, (B,H,nc,N,P) float32).
-    Raises on a launch error."""
+    device (checked by the caller).  ``parts`` 1 launches the state pass
+    alone, 2 the chunk kernel alone (timing each apart; it reads the
+    ``scratch`` the pass filled), 3 both.  Allocates the outputs and,
+    unless given, the scratch (each chunk's outgoing state's gradient,
+    (B,H,nc,N,P) float32).  Raises on a launch error."""
     library_bwd()
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nc = -(-S // chunk)
-    dev, f32 = x.device, torch.float32
     hilo = states.dtype == torch.bfloat16
-    dS = torch.empty((B, H, nc, N, P), dtype=f32, device=dev)
-    dx = torch.empty_like(x)
-    ddt = torch.empty((B, S, H), dtype=f32, device=dev)
-    dBh = torch.empty((B, S, H, N), dtype=f32, device=dev)
-    dCh = torch.empty((B, S, H, N), dtype=f32, device=dev)
-    dA = torch.empty((B, nc, H), dtype=f32, device=dev)
+    if scratch is None:
+        scratch = torch.empty((B, H, nc, N, P), dtype=torch.float32,
+                              device=x.device)
+    outs = _bwd_outputs(x, N, nc)
     err = _FNS_BWD["launch"](
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), dy.data_ptr(), states.data_ptr(),
-        None if dfinal is None else dfinal.data_ptr(), dS.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
-        dA.data_ptr(), B, S, H, G, N, P, chunk, DTYPES[x.dtype], int(hilo),
+        None if dfinal is None else dfinal.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in outs), B, S, H, G, N, P, chunk,
+        DTYPES[x.dtype], int(hilo), parts,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: "
                            f"cudaError {err}")
-    return dx, ddt, dBh, dCh, dA
+    return outs
+
+
+_FNS_BWD_TC = {}
+
+
+def library_bwd_tc() -> ctypes.CDLL:
+    """Build (once) and load the tensor-core backward kernels' shared
+    library."""
+    lib = load_library("ssd_scan_bwd_tc", SOURCES_BWD_TC, HEADERS_TC,
+                       FLAGS_TC)
+    if not _FNS_BWD_TC:
+        fn = lib.ssd_scan_bwd_tc_launch
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        smem = lib.ssd_scan_bwd_tc_smem_bytes
+        smem.argtypes = [ctypes.c_int] * 3
+        smem.restype = ctypes.c_int64
+        limit = lib.ssd_scan_bwd_tc_smem_limit
+        limit.argtypes = []
+        limit.restype = ctypes.c_int64
+        scratch = lib.ssd_scan_bwd_tc_scratch_bytes
+        scratch.argtypes = [ctypes.c_int] * 7
+        scratch.restype = ctypes.c_int64
+        _FNS_BWD_TC.update(launch=fn, smem=smem, limit=limit,
+                           scratch=scratch)
+    return lib
+
+
+def smem_fits_bwd_tc(n: int, p: int, q: int) -> bool:
+    """Whether the tensor-core backward kernels' shared memory for (N, P,
+    Q) fits one block."""
+    library_bwd_tc()
+    need = _FNS_BWD_TC["smem"](n, p, q)
+    return 0 <= need <= _FNS_BWD_TC["limit"]()
+
+
+def ssd_scan_bwd_tc_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int,
+                         parts: int = 63, scratch: torch.Tensor = None):
+    """Launch the six tensor-core backward kernels on the current stream;
+    returns what :func:`ssd_scan_bwd_cuda` returns.
+
+    bfloat16 x, Bm, Cm, ``dy`` and the tensor-core forward's ``states``
+    (B,H,nc,2,N,P) hi and lo, float32 dt, A and ``dfinal`` (B,H,N,P) or
+    None, contiguous on one CUDA device; x, Bm, Cm, dy and states 16-byte
+    aligned; N and P multiples of 16 up to 128; ``chunk <= S`` (all
+    checked by the caller).  ``parts`` a mask of the launches (1 C B^T, 2
+    chunk states, 4 state pass, 8 key tiles, 16 query tiles, 32 finish;
+    one alone times it apart and reads the ``scratch`` the others filled),
+    63 all.  Allocates the outputs and, unless given, the scratch (a uint8
+    buffer :func:`scratch_bwd_tc` sizes).  Raises on a launch error."""
+    library_bwd_tc()
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if scratch is None:
+        scratch = scratch_bwd_tc(x, Bm, chunk)
+    outs = _bwd_outputs(x, N, -(-S // chunk))
+    err = _FNS_BWD_TC["launch"](
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(), states.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in outs), B, S, H, G, N, P, chunk, parts,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan tensor-core backward kernel launch "
+                           f"failed: cudaError {err}")
+    return outs
+
+
+def scratch_bwd_tc(x, Bm, chunk: int) -> torch.Tensor:
+    """The tensor-core backward's scratch for x (B,S,H,P), Bm (B,S,G,N)
+    and ``chunk`` (C B^T, seg and dt, each chunk's own and outgoing state
+    gradients, per-row partial sums), as one uint8 buffer."""
+    library_bwd_tc()
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    return torch.empty(_FNS_BWD_TC["scratch"](B, S, H, G, N, P, chunk),
+                       dtype=torch.uint8, device=x.device)

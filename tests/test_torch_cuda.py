@@ -500,8 +500,8 @@ def test_ssd_kernel_matches_plain_version(card, b, s, h, g, p, n, chunk):
     assert sops.launches == before + 1  # the CPU path launches nothing
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+#: the tensor-core SSD route's cases (bf16): (B, S, H, G, P, N, chunk)
+SSD_TC_CASES = [
     (1, 256, 4, 2, 16, 16, 64),       # Q 64, P 16, N 16, G = H / 2
     (2, 300, 4, 1, 64, 64, 128),      # Q 128, ragged last chunk
     (1, 512, 4, 2, 128, 128, 256),    # Q 256, the widest P and N
@@ -509,7 +509,11 @@ def test_ssd_kernel_matches_plain_version(card, b, s, h, g, p, n, chunk):
     (1, 100, 2, 1, 64, 128, 256),     # S shorter than the chunk
     (2, 200, 4, 2, 128, 16, 64),      # P 128 beside N 16
     (1, 192, 3, 3, 32, 32, 64),       # G = H, N = P = 32
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_TC_CASES)
 def test_ssd_tensor_core_route_matches_plain_version(card, b, s, h, g, p, n,
                                                      chunk):
     """bf16 with N, P multiples of 16 and a multiple-of-64 chunk goes to
@@ -577,27 +581,54 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", FLASH_CASES)
 def test_flash_backward_matches_plain_version(card, s, h, kv, dk, dv, causal,
                                               window, dtype):
-    """dq, dk, dv of the backward kernels (one counted backward pass)
-    against autograd of the plain version; the forward under autograd
-    (which writes the log-sum-exp) gives the serving forward's output."""
+    """dq, dk, dv of the backward kernels (one counted backward pass, on
+    the tensor-core route in bf16) against autograd of the plain version;
+    the forward under autograd (which writes the log-sum-exp) gives the
+    serving forward's output."""
+    _check_flash_backward(card, 2, s, h, kv, dk, dv, causal, window, dtype)
+
+
+def _check_flash_backward(card, b, s, h, kv, dk, dv, causal, window, dtype):
+    """One counted backward pass on the route ``route_bwd`` picks, within
+    BWD_TOL of autograd of the plain version, the same bits twice."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     rng = np.random.default_rng(s + h + dk + 1)
-    q, k, v = (_normal(rng, (2, s, n, d), dtype, card).requires_grad_()
+    q, k, v = (_normal(rng, (b, s, n, d), dtype, card).requires_grad_()
                for n, d in ((h, dk), (kv, dk), (kv, dv)))
     with torch.no_grad():
         serving = fops.flash_attention(q, k, v, causal=causal, window=window)
     out = fops.flash_attention(q, k, v, causal=causal, window=window)
     assert torch.equal(out.detach(), serving)
     do = _normal(rng, out.shape, dtype, card)
-    before = fops.launches_bwd
-    got = torch.autograd.grad(out, (q, k, v), do)
+    sm90 = fops.route_bwd(dtype, dk, dv) == "sm90"
+    assert sm90 == (dtype == torch.bfloat16)
+    before = fops.launches_bwd, fops.launches_bwd_sm90
+    got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     torch.cuda.synchronize()
-    assert fops.launches_bwd == before + 1
+    assert (fops.launches_bwd, fops.launches_bwd_sm90) == (
+        before[0] + 1, before[1] + int(sm90))
+    again = torch.autograd.grad(out, (q, k, v), do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kv,dk,dv,causal,window", SM90_CASES + [
+    (4096, 16, 1, 256, 256, True, 2048)])      # recurrentgemma-9b's (B 1)
+def test_flash_backward_sm90_tiling_matches_plain_version(card, s, h, kv, dk,
+                                                          dv, causal,
+                                                          window):
+    """The tensor-core backward at the shapes that stress its tiling (S
+    ragged to the tiles, Dk 192 / Dv 128, Dk = Dv = 256, a window across
+    tiles, bidirectional, H / KV = 8, recurrentgemma-9b's D 256 with a
+    2,048-token window): one counted backward on its route, within 2e-2 of
+    autograd of the plain version, the same bits twice."""
+    _check_flash_backward(card, 1 if s == 4096 else 2, s, h, kv, dk, dv,
+                          causal, window, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -611,8 +642,15 @@ def test_flash_backward_matches_plain_version(card, s, h, kv, dk, dv, causal,
 def test_ssd_backward_matches_plain_version(card, b, s, h, g, p, n, chunk,
                                             dtype):
     """dx, ddt, dA, dB, dC of the backward kernels (the final state's
-    gradient given; one counted backward pass) against autograd of the
-    plain version, from either forward route's chunk-start states."""
+    gradient given; one counted backward pass, on the tensor-core route in
+    bf16) against autograd of the plain version, from either forward
+    route's chunk-start states."""
+    _check_ssd_backward(card, b, s, h, g, p, n, chunk, dtype, True)
+
+
+def _check_ssd_backward(card, b, s, h, g, p, n, chunk, dtype, with_state):
+    """One counted backward pass on the route ``route_bwd`` picks, within
+    BWD_TOL of autograd of the plain version, the same bits twice."""
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     rng = np.random.default_rng(s + h + n + 1)
@@ -621,32 +659,62 @@ def test_ssd_backward_matches_plain_version(card, b, s, h, g, p, n, chunk,
     y, state = sops.ssd_scan(*args, chunk=chunk)
     dy = _normal(rng, y.shape, dtype, card)
     dst = _normal(rng, state.shape, torch.float32, card)
-    before = sops.launches_bwd
-    got = torch.autograd.grad((y, state), args, (dy, dst))
+    outs, grads = ((y, state), (dy, dst)) if with_state else ((y,), (dy,))
+    tc = sops.route_bwd(dtype, n, p, chunk) == "tc"
+    before = sops.launches_bwd, sops.launches_bwd_tc
+    got = torch.autograd.grad(outs, args, grads, retain_graph=True)
     torch.cuda.synchronize()
-    assert sops.launches_bwd == before + 1
-    want = ssd_scan_bwd_ref(*args, dy, dst, chunk=chunk)
+    assert (sops.launches_bwd, sops.launches_bwd_tc) == (
+        before[0] + 1, before[1] + int(tc))
+    again = torch.autograd.grad(outs, args, grads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_scan_bwd_ref(*args, dy, dst if with_state else None,
+                            chunk=chunk)
     for gr, w in zip(got, want):
         assert gr.dtype == w.dtype and gr.shape == w.shape
         assert _rel_err(gr, w) <= BWD_TOL[dtype]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [True, False], ids=["dstate", "none"])
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", SSD_TC_CASES)
+def test_ssd_backward_tensor_core_route_matches_plain_version(
+        card, b, s, h, g, p, n, chunk, with_state):
+    """The tensor-core SSD backward at the tensor-core forward's cases (Q
+    64/128/256, P and N 16 to 128, N = P = 128 among them, G 1, H / 2 and
+    H, ragged S, S below the chunk), with and without the final state's
+    gradient: one counted backward on its route, within 2e-2 of autograd
+    of the plain version, the same bits twice."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    assert sops.route_bwd(torch.bfloat16, n, p, chunk) == "tc"
+    _check_ssd_backward(card, b, s, h, g, p, n, chunk, torch.bfloat16,
+                        with_state)
+
+
+@pytest.mark.cuda
 def test_backward_refuses_what_its_kernels_cannot_take(card):
-    """Widths past the backward kernels' shared memory raise in the
-    backward pass (nothing falls back to the plain version)."""
+    """Widths past the scalar backward kernels' shared memory (float32:
+    flash at D 256, the SSD scan at N = P = 128, chunk 256) raise in the
+    backward pass (nothing falls back to the plain version); in bf16 the
+    tensor-core routes take both."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd_scan import ops as sops
     rng = np.random.default_rng(0)
-    q = _normal(rng, (1, 64, 2, 256), torch.bfloat16, card).requires_grad_()
+    q = _normal(rng, (1, 64, 2, 256), torch.float32, card).requires_grad_()
     out = fops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="shared"):
         out.sum().backward()
     args = [t.requires_grad_() for t in _ssd_inputs(
-        rng, 1, 256, 2, 1, 128, 128, torch.bfloat16, card)]
+        rng, 1, 256, 2, 1, 128, 128, torch.float32, card)]
     y, _ = sops.ssd_scan(*args, chunk=256)
     with pytest.raises(ValueError, match="shared"):
         y.float().sum().backward()
+    q = _normal(rng, (1, 64, 2, 256), torch.bfloat16, card).requires_grad_()
+    before = fops.launches_bwd_sm90
+    fops.flash_attention(q, q, q).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fops.launches_bwd_sm90 == before + 1
+    assert torch.isfinite(q.grad.float()).all() and q.grad.abs().max() > 0
 
 
 @pytest.mark.cuda
