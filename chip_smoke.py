@@ -155,7 +155,8 @@ Phases (any failure exits non-zero and prints no result line):
              VA; cold, warm, KIPS, steps per second, set-up share); then
              in this process, each in an empty working directory of its
              own, every run of tools/script_runs.py's SCRIPT_RUNS (the
-             five examples, torch_fault_tolerance.py with --smoke and
+             six examples, the design sweep among them,
+             torch_fault_tolerance.py with --smoke and
              --check, torch_overlap_scaling.py, torch_rank_overlap.py,
              and torch_run.py's suites but lm under --trace, with --check
              but for the overload suite, whose check fails in the
@@ -179,18 +180,30 @@ Phases (any failure exits non-zero and prints no result line):
              window 2,048), the quickstart's (f32) and mamba2-130m's (4 x
              4,096); each route and each kernel of a pair timed apart,
              beside the plain backward, the bound and (flash) SDPA's
-             backward; (b) one step's gradients of llama3-8b (4 of 32
-             layers) and mamba2-130m (24 layers) at full width, 4 x 1,024
-             tokens, kernels against plain versions in bf16 (every leaf
-             finite and not zero, within 5e-2, or held to the float32
-             step where bf16 noise dominates) and in float32 (1e-3);
-             (c) the same models at 4 x 4,096 tokens (train_4k's
-             sequence), the config's optimizer, remat and microbatches:
-             a warm-up step, then three timed (s a step, tokens/s, peak
-             GB), each kernel's launches equal to the reckoned ones,
-             every bf16 backward on the tensor-core routes; (d)
+             backward; the tensor-core flash backward at each family's
+             training shape beside SDPA's; (b) one step's gradients of
+             every family at full width (TRAIN_PATHS: llama3-8b 4 of 32
+             layers, mamba2-130m 24, qwen3-moe-30b-a3b 3 of 48,
+             deepseek-v3-671b its dense MLA layer, recurrentgemma-9b 6
+             of 38, seamless-m4t-large-v2 24 + 24, llava-next-mistral-7b
+             4 of 32), 4 x 1,024 tokens (llava 4 x 4,096, deepseek 8
+             sequences), kernels against plain versions in bf16 (every
+             leaf finite and not zero, within 5e-2, or held to the
+             float32 step where bf16 noise dominates) and in float32
+             (1e-3; not at recurrentgemma's D 256, which the scalar
+             backward does not take), a MoE's expert choices replayed
+             between the runs compared, each step's launches as
+             reckoned; (c) the same models at 4,096 tokens a sequence
+             (train_4k's), the config's optimizer, remat and
+             microbatches: a warm-up step, then three timed (s a step,
+             tokens/s, peak GB; the RG-LRU scan's share), each kernel's
+             launches equal to the reckoned ones, every bf16 backward
+             on the tensor-core routes; (d)
              examples/torch_quickstart.py from the reference's initial
-             weights and batches: its lines those of goldens.json;
+             weights and batches: its lines those of goldens.json; (e)
+             python -m repro_torch.launch.train --smoke: exit 0, losses
+             falling; run_with_restarts with two injected failures:
+             every parameter bit-equal to the run without;
 13. report — the kernels line (launches, times, bounds; each step
              kernel's routes; the backward kernels), the card's name and
              power limit, and the result line.
@@ -2652,20 +2665,79 @@ FLASH_TRAIN_WINDOW = dict(b=1, s=4096, h=16, kv=1, dk=256, dv=256,
 FLASH_QUICKSTART = dict(b=4, s=64, h=4, kv=2, dk=16, dv=16, causal=True,
                         window=0)
 SSD_TRAIN = dict(b=4, s=4096, h=24, g=1, p=64, n=128, chunk=256)
+#: the flash backward at each family's training shape (a microbatch of
+#: one sequence of 4,096, seamless's of two): name -> (its configuration,
+#: the shape), timed beside SDPA's backward
+FLASH_TRAIN_FAMILIES = {
+    # qwen3-moe-30b-a3b: GQA with KV 4
+    "moe": ("qwen3-moe-30b-a3b", dict(b=1, s=4096, h=32, kv=4, dk=128,
+                                      dv=128, causal=True, window=0)),
+    # deepseek-v3-671b's MLA: Dk = qk_nope + qk_rope 192, Dv 128, H 128
+    "mla": ("deepseek-v3-671b", dict(b=1, s=4096, h=128, kv=128, dk=192,
+                                     dv=128, causal=True, window=0)),
+    # recurrentgemma-9b's local attention: D 256, MQA, a 2,048 window
+    "window": ("recurrentgemma-9b", FLASH_TRAIN_WINDOW),
+    # seamless-m4t-large-v2: the bidirectional encoder and the
+    # equal-length cross-attention (D 64), and the causal decoder
+    "encoder": ("seamless-m4t-large-v2", dict(b=2, s=4096, h=16, kv=16,
+                                              dk=64, dv=64, causal=False,
+                                              window=0)),
+    "decoder": ("seamless-m4t-large-v2", dict(b=2, s=4096, h=16, kv=16,
+                                              dk=64, dv=64, causal=True,
+                                              window=0)),
+    # llava-next-mistral-7b's 4,096-position patch-prefixed prompt:
+    # llama3-8b's shape
+    "patch_prefix": ("llava-next-mistral-7b", FLASH_TRAIN),
+}
 #: each gradient against the plain backward's (autograd of the plain
 #: forward), |err| / max |plain|: float32 sums in another order; in bf16
 #: the plain version rounds its intermediate gradients to bf16 where its
 #: forward rounds (the kernels keep them in f32), ~6e-3 measured on an H100
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: [train] (b), (c): (arch, layers kept) at full width in bf16 with f32
-#: parameters, the config's optimizer, remat and train_microbatches, a
-#: batch of TRAIN_BATCH sequences.  llama3-8b at 4 of 32 layers: 1.92e9
-#: parameters, 16 bytes each with their gradient and AdamW's two moments
-#: (~31 GB); all 32 (8e9 x 16 B = 128 GB) cannot fit one card
-TRAIN_PATHS = [("llama3-8b", 4), ("mamba2-130m", 24)]
+#: [train] (b), (c): (arch, config fields replaced: the depth kept) at
+#: full width in bf16 with f32 parameters, the config's optimizer, remat
+#: and train_microbatches, a batch of TRAIN_BATCH sequences (or one a
+#: microbatch where the config takes more microbatches).  Depth is cut
+#: only where the float32 training state cannot fit the 80 GB card:
+#: AdamW holds 16 B a parameter (weight, gradient, two moments), and the
+#: microbatches' float32 gradient sum 4 B more; Adafactor ~8 B (weight and
+#: gradient; its factored moments are small) and the sum.  Reckoned
+#: (:func:`_state_gb`, logged with each run):
+#: - llama3-8b at 4 of 32 layers: 1.92e9 parameters, ~38 GB; all 32
+#:   (8e9 x 16 B = 128 GB) cannot fit;
+#: - mamba2-130m uncut (24 layers, 0.13e9);
+#: - qwen3-moe-30b-a3b at 3 of 48 layers: ~0.62e9 parameters a layer (128
+#:   experts) and 0.62e9 of embedding and head, 2.48e9, ~50 GB; all 128
+#:   experts run on every token (~0.8 GB a bf16 intermediate a layer at
+#:   4,096 tokens);
+#: - deepseek-v3-671b: one MoE layer is ~11.0e9 parameters (256 experts),
+#:   ~88 GB with its f32 weight and gradient alone, so only its dense MLA
+#:   layer trains here (1 layer, 2.44e9 with embedding and head, ~29 GB
+#:   with Adafactor); its MoE layer waits for bf16-held weights (ROADMAP
+#:   §3) and is held to the JAX package on the CPU only;
+#: - recurrentgemma-9b at 6 of 38 layers (two whole (rglru, rglru, local)
+#:   groups, ~0.2e9 a layer, 1.05e9 of tied embedding): 2.26e9, ~45 GB;
+#: - seamless-m4t-large-v2 uncut (24 + 24 layers, 1.63e9, ~33 GB);
+#: - llava-next-mistral-7b at 4 of 32 layers, as llama3-8b: 1.13e9, ~23 GB.
+TRAIN_PATHS = [("llama3-8b", dict(n_layers=4)), ("mamba2-130m", {}),
+               ("qwen3-moe-30b-a3b", dict(n_layers=3)),
+               ("deepseek-v3-671b", dict(n_layers=1, n_dense_layers=1)),
+               ("recurrentgemma-9b", dict(n_layers=6)),
+               ("seamless-m4t-large-v2", {}),
+               ("llava-next-mistral-7b", dict(n_layers=4))]
 TRAIN_BATCH, TRAIN_SEQ = 4, 4096     # train_4k's sequence
 #: (b): the sequence where the plain attention's autograd fits the card
 TRAIN_PARITY_SEQ = 1024
+#: (b): what (b) cuts further, for time: the plain flash version walks
+#: the kernel's 64 x 64 tiles in Python (~4 s a backward at 4,096
+#: positions, ~0.1-0.4 s at 1,024), so llava's patch prefix is cut to 512
+#: (its 2,880 would not leave a text token in 1,024 positions) and
+#: seamless to 6 + 6 layers (its 48 make 432 plain attention calls a
+#: step, ~3 minutes); (c) runs each at its TRAIN_PATHS depth and prompt
+TRAIN_PARITY_CUT = {
+    "llava-next-mistral-7b": dict(n_frontend_tokens=512),
+    "seamless-m4t-large-v2": dict(n_layers=12, n_enc_layers=6,
+                                  n_dec_layers=6)}
 #: (b): each gradient leaf of a step with the kernels against the same
 #: step with the plain versions, |err| / max |plain|: bf16 activations
 #: rounded in other places through every layer.  A leaf past it (a sum
@@ -2803,14 +2875,15 @@ def _ssd_bwd_case(gen, shape, dt) -> dict:
             "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
 
 
-def _flash_bwd_times(gen, shape: dict, routes: dict) -> dict:
+def _flash_bwd_times(gen, shape: dict, routes: dict,
+                     plain: bool = True) -> dict:
     """Device ms of one flash backward at ``shape`` (bf16) on each route
     (raw launchers, uncounted) and of each of its two kernels alone (the
     launcher's ``parts``, the scratch of a whole run kept), beside the
-    plain backward's, the bound and the backward of
-    ``scaled_dot_product_attention`` (autograd, ``enable_gqa``, the
-    window as an explicit mask) on the same inputs; CUDA events.
-    ``routes``: name -> (launcher, timed launches)."""
+    plain backward's (unless not ``plain``: None), the bound and the
+    backward of ``scaled_dot_product_attention`` (autograd,
+    ``enable_gqa``, the window as an explicit mask) on the same inputs;
+    CUDA events.  ``routes``: name -> (launcher, timed launches)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -2839,7 +2912,8 @@ def _flash_bwd_times(gen, shape: dict, routes: dict) -> dict:
     bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
     common = {
         "plain_ms": cuda_time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, do, causal=causal, window=window), n=1, warm=1),
+            q, k, v, do, causal=causal, window=window), n=1, warm=1)
+        if plain else None,
         "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), n=20, warm=3),
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
@@ -2878,6 +2952,12 @@ def _bwd_times(gen) -> dict:
         gen, FLASH_TRAIN_WINDOW, {"sm90": (flash_attention_bwd_sm90_cuda,
                                            10)})["sm90"]
     torch.cuda.empty_cache()
+    for name, (_, shape) in FLASH_TRAIN_FAMILIES.items():
+        if shape is not FLASH_TRAIN and shape is not FLASH_TRAIN_WINDOW:
+            res[f"flash_attention_bwd_sm90 ({name})"] = _flash_bwd_times(
+                gen, shape, {"sm90": (flash_attention_bwd_sm90_cuda, 10)},
+                plain=False)["sm90"]
+            torch.cuda.empty_cache()
     ss = SSD_TRAIN
     args = _ssd_inputs(gen, dtype=bf16, **ss)
     y = torch.empty_like(args[0])
@@ -2914,28 +2994,57 @@ def _bwd_times(gen) -> dict:
             f"({r['bound_share']:.4f} of the {r['bound_ms']:.5f} ms bound, "
             f"by {r['bound_by']}; kernels alone "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
-            + f" ms); plain {r['plain_ms']:.2f} ms"
+            + " ms)" + (f"; plain {r['plain_ms']:.2f} ms"
+                        if r["plain_ms"] is not None else "")
             + (f"; SDPA's backward {r['library_ms']:.4f} ms (kernel / SDPA "
                f"{r['library_ratio']:.3f})" if r["library_ms"] else ""))
     return res
 
 
+def _train_batch(cfg) -> int:
+    """Sequences a step of ``cfg``: TRAIN_BATCH, or one a microbatch where
+    its train_microbatches is larger (deepseek-v3-671b's 8)."""
+    return max(TRAIN_BATCH, cfg.train_microbatches)
+
+
 def _train_batches(cfg, seq, n, seed=0):
-    """``n`` batches of TRAIN_BATCH sequences of the data pipeline on the
-    card."""
+    """``n`` batches of :func:`_train_batch` sequences of the data
+    pipeline on the card."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train import loop
-    ds = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=TRAIN_BATCH,
+    ds = SyntheticLM(cfg, DataConfig(seq_len=seq,
+                                     global_batch=_train_batch(cfg),
                                      vocab_size=cfg.vocab_size, seed=seed))
     return [loop.to_device(next(ds), "cuda") for _ in range(n)]
 
 
-def _reckoned(cfg, layers: int, steps: int, dtype: str = "bfloat16"
-              ) -> dict:
-    """The forward and backward launches of ``steps`` steps: one forward a
-    layer and microbatch, again in remat's recompute, one backward; in
-    bf16 every backward on the tensor-core route, in float32 none."""
+def _attn_layers(cfg) -> int:
+    """Attention calls of one forward of ``cfg``: a flash launch each (an
+    SSD scan each for ssm): one a layer, hybrid's local layer of each
+    (rglru, rglru, local) group alone, encdec's encoder layers and each
+    decoder layer's self- and cross-attention."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // len(cfg.block_pattern)
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    return cfg.n_layers
+
+
+def _state_gb(cfg, n_params: int) -> float:
+    """The float32 training state reckoned: AdamW 16 B a parameter,
+    Adafactor 8 B, and 4 B more for the microbatches' gradient sum."""
+    per = (16 if cfg.optimizer == "adamw" else 8) \
+        + 4 * (cfg.train_microbatches > 1)
+    return n_params * per / 1e9
+
+
+def _reckoned(cfg, steps: int, dtype: str = "bfloat16") -> dict:
+    """The forward and backward launches of ``steps`` steps: one forward
+    an attention layer and microbatch (:func:`_attn_layers`), again in
+    remat's recompute, one backward; in bf16 every backward on the
+    tensor-core route, in float32 none."""
     mb = cfg.train_microbatches
+    layers = _attn_layers(cfg)
     fwd = layers * mb * (1 + (cfg.remat == "block")) * steps
     bwd = layers * mb * steps
     tc = bwd if dtype == "bfloat16" else 0
@@ -2948,50 +3057,90 @@ def _reckoned(cfg, layers: int, steps: int, dtype: str = "bfloat16"
             "ssd_scan_bwd": 0, "ssd_scan_bwd_tc": 0}
 
 
-def _step_grads(model, batch, mb, dtype=None, plain=False):
+def _f32_backward_fits(cfg) -> bool:
+    """Whether the scalar flash backward (float32's route) takes
+    ``cfg``'s head widths: its f32 tiles take Dk, Dv up to 192, so
+    recurrentgemma-9b's D 256 has no float32 backward on the card."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        smem_fits_bwd)
+    if cfg.family == "ssm":
+        return True
+    if cfg.use_mla:
+        return smem_fits_bwd(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                             cfg.v_head_dim)
+    return smem_fits_bwd(cfg.d_head, cfg.d_head)
+
+
+def _step_grads(model, batch, mb, dtype=None, plain=False, experts=None):
     """(metrics, gradients) of one step's batch on the card; ``dtype``
     replaces the config's compute dtype, ``plain`` runs the plain versions
     in the kernels' place (their wrappers swapped for the plain functions
-    for this run alone)."""
+    for this run alone).  ``experts``, a list: a MoE's expert choices
+    (``moe.top_k``'s indices, call by call) are appended to it when it is
+    empty, and replayed from it when it is not, so that two runs compared
+    route every token alike (top-k is discontinuous: a router logit tie
+    broken the other way by float noise moves a token to another expert
+    and its whole gradient with it)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models import moe
     from repro_torch.train import loop
-    cfg, saved = model.cfg, (fops.flash_attention, sops.ssd_scan)
+    cfg, saved = model.cfg, (fops.flash_attention, sops.ssd_scan, moe.top_k)
     if dtype is not None:
         model.cfg = cfg.replace(dtype=dtype)
     if plain:
         fops.flash_attention, sops.ssd_scan = flash_attention_ref, ssd_scan_ref
+    if experts is not None:
+        replay, calls = bool(experts), iter(list(experts))
+
+        def top_k(probs, k):
+            if replay:
+                idx = next(calls)
+                return probs.gather(-1, idx), idx
+            vals, idx = saved[2](probs, k)
+            experts.append(idx)
+            return vals, idx
+
+        moe.top_k = top_k
     try:
         out = loop.grads_and_metrics(model, batch, mb)
         torch.cuda.synchronize()
     finally:
         model.cfg = cfg
-        fops.flash_attention, sops.ssd_scan = saved
+        fops.flash_attention, sops.ssd_scan, moe.top_k = saved
     return out
 
 
-def _train_parity(arch: str, layers: int) -> dict:
+def _train_parity(arch: str, replace: dict) -> dict:
     """(b): one step's gradients at full width (TRAIN_PARITY_SEQ tokens a
-    sequence) with the kernels and with the plain versions, in bf16 and
-    in float32: every bf16 leaf finite, not all zero and within
+    sequence; TRAIN_PARITY_CUT) with the kernels and with the plain
+    versions, in
+    bf16 and in float32: every bf16 leaf finite, not all zero and within
     STEP_GRAD_TOL of the plain versions' (or, past it, no farther than
     STEP_NOISE times the plain version's own distance from the float32
-    step), every float32 leaf within STEP_GRAD_TOL_F32."""
+    step), every float32 leaf within STEP_GRAD_TOL_F32 (where the scalar
+    backward takes the widths: :func:`_f32_backward_fits`)."""
     import torch
-    cfg, model = _lm_model(arch, n_layers=layers)
-    batch = _train_batches(cfg, TRAIN_PARITY_SEQ, 1)[0]
+    cut = TRAIN_PARITY_CUT.get(arch, {})
+    cfg, model = _lm_model(arch, **{**replace, **cut})
+    seq = TRAIN_PARITY_SEQ
+    batch = _train_batches(cfg, seq, 1)[0]
     mb = cfg.train_microbatches
+    # each pair compared routes its tokens alike: the plain versions' bf16
+    # step replays the kernels' expert choices, the kernels' float32 step
+    # the plain versions' (a MoE's top-k; nothing for the other families)
+    experts, experts32 = [], []
     reset_launches()
-    m_k, g_k = _step_grads(model, batch, mb)
+    m_k, g_k = _step_grads(model, batch, mb, experts=experts)
     launches = read_launches()
-    want = _reckoned(cfg, layers, 1)
+    want = _reckoned(cfg, 1)
     check(all(launches[k] == n for k, n in want.items()),
           f"[train] {arch}: kernel step launched {launches}, reckoned "
           f"{want}")
-    m_p, g_p = _step_grads(model, batch, mb, plain=True)
+    m_p, g_p = _step_grads(model, batch, mb, plain=True, experts=experts)
     errs, bad = {}, []
     for name, g in g_k.items():
         w = g_p[name]
@@ -3003,7 +3152,8 @@ def _train_parity(arch: str, layers: int) -> dict:
           f"{bad[:8]}")
     # the float32 step, plain versions: the arbiter of the leaves past the
     # tolerance, then the kernels' float32 step against it
-    _, g_32 = _step_grads(model, batch, mb, dtype="float32", plain=True)
+    _, g_32 = _step_grads(model, batch, mb, dtype="float32", plain=True,
+                          experts=experts32)
     over = sorted((n for n, e in errs.items() if e > STEP_GRAD_TOL),
                   key=errs.get, reverse=True)
     noise = {}
@@ -3019,50 +3169,100 @@ def _train_parity(arch: str, layers: int) -> dict:
               f"of {farther[:8]} are more than {STEP_NOISE}x as far from the "
               "float32 step as the plain versions'")
     del g_k, g_p
-    reset_launches()
-    _, g_k32 = _step_grads(model, batch, mb, dtype="float32")
-    launches32 = read_launches()
-    want32 = _reckoned(cfg, layers, 1, "float32")
-    check(all(launches32[k] == n for k, n in want32.items()),
-          f"[train] {arch}: float32 kernel step launched {launches32}, "
-          f"reckoned {want32}")
-    errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
     within = {n: e for n, e in errs.items() if n not in noise}
-    worst, worst32 = max(within, key=within.get), max(errs32, key=errs32.get)
+    worst = max(within, key=within.get)
     ratio = errs[worst] / STEP_GRAD_TOL
-    ratio32 = errs32[worst32] / STEP_GRAD_TOL_F32
-    log(f"[train] (b) {arch} at {layers} layers, {TRAIN_BATCH} x "
-        f"{TRAIN_PARITY_SEQ} tokens, {mb} microbatches: all {len(errs)} "
-        f"gradients finite and not zero; kernels vs plain versions, bf16: "
-        f"worst leaf {'but those ' if noise else ''}{worst} |err| / max "
-        f"|plain| {errs[worst]:.3g} (tolerance {STEP_GRAD_TOL}; "
-        f"{ratio:.3g} of it used), loss {float(m_k['loss']):.5f} vs "
-        f"{float(m_p['loss']):.5f}; float32: worst leaf {worst32} "
-        f"{errs32[worst32]:.3g} (tolerance {STEP_GRAD_TOL_F32}; "
-        f"{ratio32:.3g} of it used); launches of the bf16 step {want}, "
-        f"of the float32 step {want32}")
+    want32, worst32, errs32, ratio32 = None, None, {}, 0.0
+    if _f32_backward_fits(cfg):
+        reset_launches()
+        _, g_k32 = _step_grads(model, batch, mb, dtype="float32",
+                               experts=experts32)
+        launches32 = read_launches()
+        want32 = _reckoned(cfg, 1, "float32")
+        check(all(launches32[k] == n for k, n in want32.items()),
+              f"[train] {arch}: float32 kernel step launched {launches32}, "
+              f"reckoned {want32}")
+        errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
+        worst32 = max(errs32, key=errs32.get)
+        ratio32 = errs32[worst32] / STEP_GRAD_TOL_F32
+        del g_k32
+    f32_note = (f"float32: worst leaf {worst32} {errs32[worst32]:.3g} "
+                f"(tolerance {STEP_GRAD_TOL_F32}; {ratio32:.3g} of it used)"
+                if worst32 else "float32: no kernel step (the scalar "
+                "backward's f32 tiles take Dk, Dv up to 192; this head is "
+                f"{cfg.d_head} wide), the plain versions' float32 step the "
+                "arbiter alone")
+    log(f"[train] (b) {arch} at {cfg.n_layers} layers"
+        + (f" (cut for (b): {cut})" if cut else "") + ", "
+        f"{_train_batch(cfg)} x {seq} tokens, {mb} microbatches: all "
+        f"{len(errs)} gradients finite and not zero; kernels vs plain "
+        f"versions, bf16: worst leaf {'but those ' if noise else ''}{worst} "
+        f"|err| / max |plain| {errs[worst]:.3g} (tolerance "
+        f"{STEP_GRAD_TOL}; {ratio:.3g} of it used), loss "
+        f"{float(m_k['loss']):.5f} vs {float(m_p['loss']):.5f}; {f32_note}; "
+        f"launches of the bf16 step {want} (kernel step launched as "
+        f"reckoned), of the float32 step {want32}")
     check(ratio <= 1, f"[train] {arch}: gradient {worst} off the plain "
           f"versions' by {errs[worst]}")
     check(ratio32 <= 1, f"[train] {arch}: float32 gradient {worst32} off "
-          f"the plain versions' by {errs32[worst32]}")
+          f"the plain versions' by {errs32.get(worst32)}")
     check(abs(float(m_k["loss"]) - float(m_p["loss"]))
           <= 1e-2 * abs(float(m_p["loss"])), f"[train] {arch}: loss "
           f"{float(m_k['loss'])} vs plain {float(m_p['loss'])}")
-    return {"arch": arch, "layers": layers, "leaves": len(errs),
-            "worst_leaf": worst, "rel_err": errs[worst], "ratio": ratio,
-            "noise_leaves": noise, "worst_leaf_f32": worst32,
-            "rel_err_f32": errs32[worst32], "launches_f32": want32}
+    del model, g_32
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "leaves": len(errs),
+            "seq": seq, "worst_leaf": worst, "rel_err": errs[worst],
+            "ratio": ratio, "noise_leaves": noise, "launches": want,
+            "worst_leaf_f32": worst32, "rel_err_f32": errs32.get(worst32),
+            "launches_f32": want32}
 
 
-def _train_timed(arch: str, layers: int) -> dict:
+def _lru_share(cfg, step_s: float) -> dict:
+    """The RG-LRU scan's share of a hybrid step: ``linear_scan`` (plain
+    torch; its gradient is autograd's, the JAX package has no kernel for
+    it) timed alone at a microbatch's shape, forward and forward +
+    backward (CUDA events), times its calls a step: each rglru layer's
+    forward once a microbatch, again in remat's recompute, and one
+    backward.  A reckoning from its parts' times, not a trace."""
+    import torch
+    from repro_torch.models import rglru
+    mb = cfg.train_microbatches
+    B, W = _train_batch(cfg) // mb, cfg.lru_width or cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    la = -torch.rand((B, TRAIN_SEQ, W), generator=gen, device="cuda")
+    b = torch.randn((B, TRAIN_SEQ, W), generator=gen, device="cuda")
+    h0 = torch.zeros((B, W), device="cuda")
+    la.requires_grad_(), b.requires_grad_()
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: rglru.linear_scan(la, b, h0,
+                                                     cfg.ssm_chunk), n=10,
+                           warm=2)
+    dh = torch.randn((B, TRAIN_SEQ, W), generator=gen, device="cuda")
+
+    def fwd_bwd():
+        h, _ = rglru.linear_scan(la, b, h0, cfg.ssm_chunk)
+        torch.autograd.grad(h, (la, b), dh)
+
+    both = cuda_time_ms(fwd_bwd, n=10, warm=2)
+    n_lru = cfg.n_layers - _attn_layers(cfg)
+    remat = cfg.remat == "block"
+    ms = n_lru * mb * (both + remat * fwd)
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both, "layers": n_lru,
+            "ms_a_step": ms, "share": ms / 1e3 / step_s}
+
+
+def _train_timed(arch: str, replace: dict) -> dict:
     """(c): a warm-up step then TRAIN_TIMED_STEPS timed steps at full
     width and TRAIN_SEQ tokens a sequence (host clock around synchronised
     steps), each kernel's launches over them equal to the reckoned ones,
-    losses and parameters finite, peak memory."""
+    losses and parameters finite, peak memory; hybrid's RG-LRU scan's
+    share (:func:`_lru_share`)."""
     import torch
+    from repro_torch.configs.base import get_config
     from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.train import loop
-    cfg, model = _lm_model(arch, n_layers=layers)
+    cfg, model = _lm_model(arch, **replace)
     opt = get_optimizer(cfg.optimizer, warmup_cosine(3e-4, warmup=10))
     params = dict(model.named_parameters())
     state = {"params": model, "opt": opt.init(params), "step": 0}
@@ -3082,7 +3282,7 @@ def _train_timed(arch: str, layers: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = _reckoned(cfg, layers, TRAIN_TIMED_STEPS)
+    want = _reckoned(cfg, TRAIN_TIMED_STEPS)
     check(all(launches[k] == n for k, n in want.items()),
           f"[train] {arch}: {TRAIN_TIMED_STEPS} steps launched {launches}, "
           f"reckoned {want}")
@@ -3090,26 +3290,40 @@ def _train_timed(arch: str, layers: int) -> dict:
     check(all(bool(torch.isfinite(p).all()) for p in params.values()),
           f"[train] {arch}: parameters not finite after the steps")
     step_s = wall / TRAIN_TIMED_STEPS
-    run = {"arch": arch, "layers": layers, "of_layers": None,
-           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "microbatches": cfg.train_microbatches, "remat": cfg.remat,
-           "optimizer": cfg.optimizer, "step_s": step_s,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+    batch = _train_batch(cfg)
+    run = {"arch": arch, "layers": cfg.n_layers,
+           "of_layers": get_config(arch).n_layers, "params": n_params,
+           "state_gb": _state_gb(cfg, n_params), "batch": batch,
+           "seq": TRAIN_SEQ, "microbatches": cfg.train_microbatches,
+           "remat": cfg.remat, "optimizer": cfg.optimizer, "step_s": step_s,
+           "tokens_per_s": batch * TRAIN_SEQ / step_s,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses, "launches": {k: launches[k] for k in want},
            "reckoned": want}
-    from repro_torch.configs.base import get_config
-    run["of_layers"] = get_config(arch).n_layers
-    log(f"[train] (c) {arch} at {layers} of {run['of_layers']} layers "
-        f"({n_params / 1e9:.3f}e9 parameters, f32 weights, bf16 compute, "
-        f"{cfg.optimizer}, remat {cfg.remat}), {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens, {cfg.train_microbatches} microbatches: {step_s:.4f} s a "
-        f"step, {run['tokens_per_s']:.1f} tokens/s, peak "
-        f"{run['peak_gb']:.2f} GB, losses {[round(x, 4) for x in losses]}; "
-        f"launches over {TRAIN_TIMED_STEPS} steps {run['launches']} (as "
-        "reckoned)")
     del state, model, params, batches
     torch.cuda.empty_cache()
+    extra = ""
+    if cfg.family == "hybrid":
+        run["rglru"] = _lru_share(cfg, step_s)
+        r = run["rglru"]
+        extra = (f"; the RG-LRU scan (plain torch, autograd) "
+                 f"{r['fwd_ms']:.3f} ms forward, {r['fwd_bwd_ms']:.3f} ms "
+                 f"forward + backward a layer and microbatch, x "
+                 f"{r['layers']} layers: {r['ms_a_step']:.1f} ms, "
+                 f"{r['share']:.3f} of the step (reckoned from its parts)")
+    if arch == "deepseek-v3-671b":
+        extra += ("; its dense MLA layer alone (a MoE layer, ~11.0e9 "
+                  "parameters, needs ~88 GB of f32 weight and gradient: it "
+                  "waits for bf16-held weights, ROADMAP §3, and is held to "
+                  "the JAX package on the CPU only)")
+    log(f"[train] (c) {arch} at {cfg.n_layers} of {run['of_layers']} layers "
+        f"({n_params / 1e9:.3f}e9 parameters, f32 weights, bf16 compute, "
+        f"{cfg.optimizer}, remat {cfg.remat}; state reckoned "
+        f"{run['state_gb']:.1f} GB), {batch} x {TRAIN_SEQ} tokens, "
+        f"{cfg.train_microbatches} microbatches: {step_s:.4f} s a step, "
+        f"{run['tokens_per_s']:.1f} tokens/s, peak {run['peak_gb']:.2f} GB, "
+        f"losses {[round(x, 4) for x in losses]}; launches over "
+        f"{TRAIN_TIMED_STEPS} steps {run['launches']} (as reckoned){extra}")
     return run
 
 
@@ -3175,11 +3389,111 @@ def _train_quickstart() -> dict:
                           "flash_attention_bwd_sm90")}}
 
 
+#: (e): the launch/train.py twin's arguments (its --ckpt-dir a fresh
+#: directory): three step lines (steps 0, 10, 20), a checkpoint every 10
+LAUNCH_TRAIN_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps",
+                     "21", "--batch", "8", "--seq", "64", "--ckpt-every",
+                     "10"]
+#: (e): run_with_restarts on RESTART_ARCH's smoke width in bf16 (the
+#: tensor-core backward; f32 weights): RESTART_STEPS steps, a checkpoint
+#: every RESTART_EVERY, a worker failure injected at each of RESTART_FAILS
+RESTART_ARCH = "qwen3-moe-30b-a3b"
+RESTART_STEPS, RESTART_EVERY, RESTART_FAILS = 10, 2, (3, 7)
+
+
+def _restart_run(inject: bool, ckpt_dir: str) -> tuple:
+    """(parameters, stats) of RESTART_STEPS steps under
+    ``run_with_restarts`` from the same initial weights, with or without
+    the injected failures (tests/test_ckpt_runtime.py's scenario on the
+    card)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.runtime.coordinator import (WorkerFailure,
+                                                 run_with_restarts)
+    from repro_torch.train import loop
+    cfg = get_smoke_config(RESTART_ARCH).replace(dtype="bfloat16")
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3))
+    ref = {"state": loop.init_train_state(cfg, opt, device="cuda")}
+    step_fn = loop.make_train_step(cfg, opt)
+    data = SyntheticLM(cfg, DataConfig(seq_len=32, global_batch=4,
+                                       vocab_size=cfg.vocab_size))
+    seen = set()
+
+    def one_step(i):
+        if inject and i in RESTART_FAILS and i not in seen:
+            seen.add(i)
+            raise WorkerFailure(f"node died at step {i}")
+        batch = loop.to_device(data.batch_at(i), "cuda")
+        ref["state"], _ = step_fn(ref["state"], batch)
+        data.step = i + 1
+
+    stats = run_with_restarts(one_step, state_ref=ref, data=data,
+                              n_steps=RESTART_STEPS, ckpt_dir=ckpt_dir,
+                              ckpt_every=RESTART_EVERY)
+    return dict(ref["state"]["params"].named_parameters()), stats
+
+
+def _train_restarts() -> dict:
+    """(e): ``python -m repro_torch.launch.train`` at ``--smoke`` on the
+    card (exit 0, its losses falling, its steps through the flash
+    kernels); then ``run_with_restarts`` with a worker failure injected at
+    two steps ends with every parameter bit-equal to the run without
+    failures (restored from the JAX-layout checkpoints; the backward
+    kernels use no atomics)."""
+    import re
+    import tempfile
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import train as launch_train
+    sr = _script_runs()
+    with tempfile.TemporaryDirectory(prefix="launch_train_") as td:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, text = sr.run_main(launch_train,
+                               LAUNCH_TRAIN_ARGV + ["--ckpt-dir", td])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    losses = [float(x) for x in re.findall(r" loss=([0-9.]+) ", text)]
+    log(f"[train] (e) python -m repro_torch.launch.train "
+        f"{' '.join(LAUNCH_TRAIN_ARGV)}: exit {rc}, {wall:.2f} s, losses "
+        f"{losses}, flash launches {launches['flash_attention']} forward, "
+        f"{launches['flash_attention_bwd']} backward; its lines: "
+        + " | ".join(text.splitlines()))
+    check(rc == 0 and len(losses) == 3 and losses[-1] < losses[0],
+          f"[train] launch/train.py: exit {rc}, losses {losses}:\n{text}")
+    check(launches["flash_attention_bwd"] > 0, "[train] launch/train.py "
+          f"made no flash backward launch: {launches}")
+    with tempfile.TemporaryDirectory(prefix="restarts_") as td:
+        before = fops.launches_bwd_sm90
+        clean, st_clean = _restart_run(False, f"{td}/clean")
+        failed, st_fail = _restart_run(True, f"{td}/failed")
+        torch.cuda.synchronize()
+        sm90 = fops.launches_bwd_sm90 - before
+    differ = [n for n, p in clean.items() if not torch.equal(p, failed[n])]
+    log(f"[train] (e) run_with_restarts on {RESTART_ARCH}'s smoke width "
+        f"(bf16): without failures {st_clean}; failures at steps "
+        f"{list(RESTART_FAILS)} {st_fail}; {len(clean) - len(differ)} of "
+        f"{len(clean)} parameters bit-equal; {sm90} tensor-core backward "
+        "launches")
+    check(st_fail["failures"] == 2 and st_fail["restores"] == 2
+          and st_clean["completed"] == st_fail["completed"] == RESTART_STEPS,
+          f"[train] run_with_restarts: {st_clean}, {st_fail}")
+    check(sm90 > 0, "[train] run_with_restarts ran no tensor-core backward")
+    check(not differ, f"[train] run_with_restarts: parameters {differ[:8]} "
+          "differ from the run without failures")
+    return {"launch_rc": rc, "launch_losses": losses, "launch_wall_s": wall,
+            "restarts": st_fail, "params": len(clean)}
+
+
 def phase_train() -> dict:
     """[train] (a) the backward kernels against their plain versions on
     the card (and timed), (b) one full-width step's gradients with the
     kernels against the plain versions, (c) timed full-width steps, (d)
-    the quickstart twin against the JAX package's lines."""
+    the quickstart twin against the JAX package's lines, (e) the
+    launch/train.py twin and restarts bit-equal to a run without
+    failures."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(7)
     keys = ("s", "h", "kv", "dk", "dv", "causal", "window")
@@ -3210,12 +3524,27 @@ def phase_train() -> dict:
             worst["ssd_scan_bwd"] = r["max_abs_err"]
     times = _bwd_times(gen)
     torch.cuda.empty_cache()
-    parity = [_train_parity(a, n) for a, n in TRAIN_PATHS]
+    parity = [_train_parity(a, r) for a, r in TRAIN_PATHS]
     torch.cuda.empty_cache()
-    timed = [_train_timed(a, n) for a, n in TRAIN_PATHS]
+    timed = [_train_timed(a, r) for a, r in TRAIN_PATHS]
     quick = _train_quickstart()
+    restarts = _train_restarts()
     return {"max_abs_err": worst, "times": times, "parity": parity,
-            "timed": timed, "quickstart": quick}
+            "timed": timed, "quickstart": quick, "restarts": restarts}
+
+
+def _family_bwd_times(train: dict) -> dict:
+    """family -> (arch, [train] (a)'s times of the tensor-core flash
+    backward at its training shape (FLASH_TRAIN_FAMILIES))."""
+    t = train["times"]
+    out = {}
+    for fam, (arch, shape) in FLASH_TRAIN_FAMILIES.items():
+        key = ("flash_attention_bwd_sm90" if shape is FLASH_TRAIN else
+               "flash_attention_bwd_sm90 (window)"
+               if shape is FLASH_TRAIN_WINDOW else
+               f"flash_attention_bwd_sm90 ({fam})")
+        out[fam] = (arch, t[key])
+    return out
 
 
 def gpu_name_power() -> str:
@@ -3427,6 +3756,15 @@ def main(argv=None) -> int:
             entry["window"] = {k: w[k] for k in (
                 "shape", "ms", "parts", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}
+            # every bf16 training step's launches, and the kernel at each
+            # family's training shape
+            entry["launches_by_arch"] = {
+                a: r["launches"]["flash_attention_bwd_sm90"]
+                for a, r in timed_runs.items()}
+            entry["families"] = {
+                fam: {"arch": arch, **{k: w[k] for k in (
+                    "shape", "ms", "library_ms", "bound_ms", "bound_by")}}
+                for fam, (arch, w) in _family_bwd_times(train).items()}
         kernels.append(entry)
     log("[report] training (bf16, f32 weights; card: " + card + "): "
         + "; ".join(
@@ -3436,6 +3774,19 @@ def main(argv=None) -> int:
             f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gb']:.2f} GB"
             for r in train["timed"])
         + f"; quickstart {train['quickstart']['wall_s']:.2f} s")
+    per_step = {a: r["launches"]["flash_attention_bwd_sm90"]
+                // TRAIN_TIMED_STEPS for a, r in timed_runs.items()}
+    log("[report] the flash backward (tensor-core route) at each family's "
+        "training shape (card: " + card + "): " + "; ".join(
+            f"{fam} ({arch}) {w['shape']}: {w['ms']:.4f} ms a launch "
+            f"({per_step[arch]} launches a step of {arch}, all its shapes), "
+            f"bound {w['bound_ms']:.4f} ms by {w['bound_by']}, SDPA's "
+            f"backward {w['library_ms']:.4f} ms"
+            for fam, (arch, w) in _family_bwd_times(train).items()))
+    rs = train["restarts"]
+    log(f"[report] launch/train.py twin: exit {rs['launch_rc']}, losses "
+        f"{rs['launch_losses']}; run_with_restarts {rs['restarts']}: "
+        f"{rs['params']} parameters bit-equal to the run without failures")
     log("[report] LM serving (bf16): " + "; ".join(
         f"{a} ({r['batch']} x {r['text'] + r['frontend']}) prefill "
         f"{r['prefill_tokens_per_s']:.1f} tokens/s (first "

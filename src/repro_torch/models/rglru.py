@@ -79,12 +79,13 @@ def linear_scan(log_a, b, h0, chunk):
     nc = (S + pad) // Q
     la_s, b_s = _scan_in_chunks(log_a.reshape(B, nc, Q, W),
                                 b.reshape(B, nc, Q, W))
-    hc = torch.empty_like(b_s)
-    h = h0
+    # each chunk's h a tensor of its own: the next chunk's product keeps
+    # this chunk's last row for autograd, so it is not written in place
+    hc, h = [], h0
     for c in range(nc):
-        hc[:, c] = b_s[:, c] + torch.exp(la_s[:, c]) * h[:, None, :]
-        h = hc[:, c, -1]
-    h_full = hc.reshape(B, S + pad, W)[:, :S]
+        hc.append(b_s[:, c] + torch.exp(la_s[:, c]) * h[:, None, :])
+        h = hc[-1][:, -1]
+    h_full = torch.stack(hc, dim=1).reshape(B, S + pad, W)[:, :S]
     h_last = h_full[:, -1]  # last REAL step (padding holds h constant)
     return h_full, h_last
 

@@ -69,6 +69,51 @@ SCHEDULER_DEVICE_LINES = [
      "\n"),
 ]
 
+#: runtime/coordinator.py is a copy but for the default checkpoint of
+#: ``run_with_restarts``: (the twin's lines, normalised, -> the port's).  A
+#: train state of the port holds a ``Transformer``, so the default save
+#: and restore write and read it in the JAX package's layout
+#: (``convert.train_state_{to,from}_jax``), which either package restores.
+COORDINATOR_CKPT_LINES = [
+    ('"""Fault tolerance & straggler mitigation for 1000+ node fleets.\n',
+     '"""Fault tolerance & straggler mitigation for 1000+ node fleets.\n\n'
+     "The counterpart of ``repro.runtime.coordinator``: a copy but for the\n"
+     "default checkpoint of :func:`run_with_restarts`, which writes a train\n"
+     "state of the port in the JAX package's layout (:func:`_tree`).\n"),
+    ("import numpy as np\n\nfrom repro_torch.ckpt import store\n",
+     "import numpy as np\nimport torch\n\nfrom repro_torch.ckpt import store"
+     "\nfrom repro_torch.models import convert\n\n\n"
+     "def _tree(state):\n"
+     '    """What a checkpoint holds of ``state``: a train state of the port\n'
+     '    (``{"params": Transformer, "opt", "step"}``) in the JAX package\'s\n'
+     "    layout (``convert.train_state_to_jax``), so either package restores"
+     "\n    the other's checkpoints; any other tree as it is.\"\"\"\n"
+     '    if isinstance(state, dict) and isinstance(state.get("params"),\n'
+     "                                              torch.nn.Module):\n"
+     "        return convert.train_state_to_jax(state)\n"
+     "    return state\n\n\n"
+     "def _untree(tree, state):\n"
+     '    """``state`` holding the restored ``tree`` (:func:`_tree`\'s '
+     "inverse:\n"
+     "    a port train state's weights are loaded into its model in place)."
+     '"""\n'
+     '    if isinstance(state, dict) and isinstance(state.get("params"),\n'
+     "                                              torch.nn.Module):\n"
+     "        return convert.train_state_from_jax(tree, state)\n"
+     "    return tree\n"),
+    ('        tree = {"state": state_ref["state"], "data": data.state_dict()}'
+     "\n",
+     '        tree = {"state": _tree(state_ref["state"]), '
+     '"data": data.state_dict()}\n'),
+    ('        like = {"state": state_ref["state"], "data": data.state_dict()}'
+     "\n",
+     '        like = {"state": _tree(state_ref["state"]), '
+     '"data": data.state_dict()}\n'),
+    ('        state_ref["state"] = tree["state"]\n',
+     '        state_ref["state"] = _untree(tree["state"], state_ref["state"])'
+     "\n"),
+]
+
 
 #: the port's entry points beside their twins (each a copy with --device)
 SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
@@ -84,7 +129,8 @@ SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
            "examples/torch_pim_arch_compare.py",
            "examples/torch_pim_async_pipeline.py",
            "examples/torch_pim_sample_sort.py",
-           "examples/torch_quickstart.py"]
+           "examples/torch_quickstart.py",
+           "examples/torch_pim_design_sweep.py"]
 #: how each study script of SCRIPTS starts with no device named: its
 #: main() with its defaults, or (no main) its first bench at a small scale
 STUDY_ENTRIES = {
@@ -172,6 +218,14 @@ def test_scheduler_matches_twin_but_for_its_device_lines():
         assert ref.count(twin) == 1, twin
         ref = ref.replace(twin, port)
     assert (PORT / "cluster/scheduler.py").read_text() == ref
+
+
+def test_coordinator_matches_twin_but_for_its_checkpoint_lines():
+    ref = _normalise((SRC / "repro/runtime/coordinator.py").read_text())
+    for twin, port in COORDINATOR_CKPT_LINES:
+        assert ref.count(twin) == 1, twin
+        ref = ref.replace(twin, port)
+    assert (PORT / "runtime/coordinator.py").read_text() == ref
 
 
 def test_default_device_raises_without_a_card():

@@ -15,25 +15,15 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
-from _torch_train import (GRAD_TOL, SEQ, BATCH, configs, jax_batch,  # noqa: E402,E501
-                          jax_loop, leaf_errors, loop, optimizers, states,
-                          train_state_to_jax)
+from _torch_train import (GRAD_TOL, configs, jax_batch,  # noqa: E402
+                          jax_loop, leaf_errors, loop, optimizers, pipeline,
+                          states, train_state_to_jax)
 from repro.ckpt import store as jax_store  # noqa: E402
-from repro.data.pipeline import DataConfig as JaxDataConfig  # noqa: E402
-from repro.data.pipeline import SyntheticLM as JaxSyntheticLM  # noqa: E402
 from repro_torch.ckpt import store  # noqa: E402
-from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models.convert import train_state_from_jax  # noqa: E402
 
 CASES = [("llama3-8b", {}), ("mamba2-130m", {}),
          ("llama3-8b", {"optimizer": "adafactor"})]
-
-
-def _data(cfg, jax_side):
-    cls, dc = ((JaxSyntheticLM, JaxDataConfig) if jax_side
-               else (SyntheticLM, DataConfig))
-    return cls(cfg, dc(seq_len=SEQ, global_batch=BATCH,
-                       vocab_size=cfg.vocab_size))
 
 
 def _same(state, jstate, jm, m):
@@ -53,7 +43,7 @@ def test_jax_checkpoint_restored_by_port(tmp_path, arch, replace):
     jopt, opt = optimizers(cfg)
     jstate, _ = states(jcfg, cfg)
     jstep = jax.jit(jax_loop.make_train_step(jcfg, jopt))
-    jds = _data(jcfg, True)
+    jds = pipeline(jcfg, True)
     for _ in range(2):
         jstate, _ = jstep(jstate, jax_batch(next(jds)))
     jax_store.save(str(tmp_path), 2, {"state": jstate,
@@ -61,7 +51,7 @@ def test_jax_checkpoint_restored_by_port(tmp_path, arch, replace):
 
     # a fresh port state (its own random weights) takes the checkpoint
     state = loop.init_train_state(cfg, opt, device="cpu")
-    ds = _data(cfg, False)
+    ds = pipeline(cfg, False)
     like = {"state": train_state_to_jax(state), "data": ds.state_dict()}
     restored, step = store.restore(str(tmp_path), like)
     assert step == 2
@@ -84,13 +74,13 @@ def test_port_checkpoint_restored_by_jax(tmp_path, arch, replace):
     jopt, opt = optimizers(cfg)
     jstate0, state = states(jcfg, cfg)
     step = loop.make_train_step(cfg, opt)
-    ds = _data(cfg, False)
+    ds = pipeline(cfg, False)
     for _ in range(2):
         state, _ = step(state, loop.to_device(next(ds), "cpu"))
     store.save(str(tmp_path), 2, {"state": train_state_to_jax(state),
                                   "data": ds.state_dict()})
 
-    jds = _data(jcfg, True)
+    jds = pipeline(jcfg, True)
     restored, _ = jax_store.restore(str(tmp_path), {"state": jstate0,
                                                     "data": jds.state_dict()})
     jstate = restored["state"]

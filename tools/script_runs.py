@@ -40,16 +40,25 @@ WALL_KEYS = {
     "trace_replay": ("t_live_s", "t_replay_s", "speedup"),
     "pim_figs": ("wall_s", "kips", "cycles_per_s"),
     "run": ("us_per_call",),
+    # the step lines' ms and tok/s, run_with_restarts' stragglers (its
+    # StepMonitor times the steps) and the median step
+    "launch_train": ("ms", "tok/s", "stragglers", "median step"),
+    # its StepMonitor times each unit, but prints nothing of it
+    "pim_design_sweep": (),
 }
 #: keys only the port's rows have, left out of a comparison with the
 #: reference's (torch_engine_perf.py's driver steps, and its wall-clock
 #: steps per second, K-step loop seconds and set-up share)
 PORT_KEYS = {"engine_perf": ("steps", "steps_per_s", "loop_s",
                              "outside_share")}
-#: wall-clock numbers in printed lines: script -> regex whose one group
-#: is masked (the rest of a script's printed lines is modeled)
+#: wall-clock numbers in printed lines: script -> regex whose groups are
+#: masked (the rest of a script's printed lines is modeled)
 WALL_TEXT = {"pim_arch_compare": r"records, ([0-9.]+)s wall",
-             "serve_lm": r"tokens\) in ([0-9.]+)s on"}
+             "serve_lm": r"tokens\) in ([0-9.]+)s on",
+             # every group is masked: WALL_KEYS["launch_train"] in order
+             "launch_train": r" ([0-9]+) ms \(([0-9,]+) tok/s\)$|"
+                             r"'stragglers': ([0-9]+)\}; median step "
+                             r"([0-9]+) ms$"}
 #: what a masked wall-clock value reads as
 MASK = "*"
 
@@ -66,7 +75,7 @@ SCRIPT_RUNS = {
     **{f"examples/{name}": (f"examples/{name}.py", [])
        for name in ("pim_characterize", "pim_comm_pathfind",
                     "pim_arch_compare", "pim_async_pipeline",
-                    "pim_sample_sort")},
+                    "pim_sample_sort", "pim_design_sweep")},
     "fault_tolerance": ("benchmarks/fault_tolerance.py",
                         ["--scale", "0.01", "--trials", "1"]),
     "fault_tolerance --smoke": ("benchmarks/fault_tolerance.py",
@@ -152,7 +161,10 @@ def masked_lines(text: str, script: str) -> list:
         elif name in WALL_TEXT:
             m = re.search(WALL_TEXT[name], line)
             if m:
-                line = line[:m.start(1)] + MASK + line[m.end(1):]
+                spans = [m.span(i) for i in range(1, len(m.groups()) + 1)
+                         if m.group(i) is not None]
+                for a, b in reversed(spans):
+                    line = line[:a] + MASK + line[b:]
         out.append(line)
     return out
 
