@@ -7,8 +7,9 @@ Prints ``name,us_per_call,derived`` CSV rows (one per figure/design point).
 ``--scale`` grows datasets toward the paper's Table II sizes; default runs
 the suite at CI scale in a few minutes.  ``--suite`` selects a family
 (``figs`` paper figures, ``comm`` interconnect/collectives, ``overlap``
-async-pipeline, ``lm`` serving roofline (not ported: it reads the mesh
-dry-run's reports, ROADMAP §1 item 4), ``faults`` fault-injection
+async-pipeline, ``lm`` serving roofline (the rows of the port's one-card
+dry-run, ``python -m repro_torch.launch.dryrun``, in ``--dryrun-dir``,
+read by benchmarks/lm_roofline.py), ``faults`` fault-injection
 availability/goodput, ``cluster`` multi-tenant cluster runtime,
 ``all``); ``--only`` further filters by substring — a filter matching
 nothing is an error listing the valid bench names, not a silent no-op.
@@ -24,7 +25,8 @@ trace/timeline consistency: every system's per-phase span sums must
 match its timeline busy totals, or the run exits nonzero.
 
     python benchmarks/torch_run.py [--scale 0.05] [--device cpu] \\
-        [--suite comm] [--only fig11] [--trace run.trace.json] [--check]
+        [--suite comm] [--only fig11] [--trace run.trace.json] [--check] \\
+        [--dryrun-dir reports/torch_dryrun]
 
 A bench that raises becomes an ``error`` row (as in the reference), so a
 caller that needs every bench to pass reads the rows for ``error``.
@@ -51,18 +53,24 @@ def _emit(name: str, wall_s: float, rows):
     print(f"{name},{wall_s * 1e6:.0f},{derived}")
 
 
-def lm_roofline_table():
-    """The reference's ``lm_roofline`` bench reads the mesh dry-run's
-    reports (``launch/dryrun.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        "lm_roofline is not ported yet (ROADMAP §1, still-to-port item 4: "
-        "launch/, parallel/, runtime/; it reads launch/dryrun.py's reports)")
+def lm_roofline_table(dryrun_dir: str) -> list:
+    """The rows of the port's dry-run in ``dryrun_dir``, through
+    benchmarks/lm_roofline.py (which imports neither package); raises
+    when there are none."""
+    from benchmarks import lm_roofline
+    rows = lm_roofline.table(dryrun_dir)
+    if "error" in rows[0]:
+        raise FileNotFoundError(
+            f"no dry-run rows in {dryrun_dir}; run python -m "
+            f"repro_torch.launch.dryrun --out {dryrun_dir}")
+    return rows
 
 
-def registry(scale: float, device=None) -> dict:
+def registry(scale: float, device=None,
+             dryrun_dir: str = "reports/torch_dryrun") -> dict:
     """bench name -> (suite, thunk, standalone caps): every bench of the
-    port at ``scale`` on ``device``; a thunk runs its bench and returns
-    its rows."""
+    port at ``scale`` on ``device``, the LM roofline read from
+    ``dryrun_dir``; a thunk runs its bench and returns its rows."""
     from benchmarks import torch_cluster_load as cluster_load
     from benchmarks import torch_comm_scaling as comm_scaling
     from benchmarks import torch_fault_tolerance as fault_tolerance
@@ -105,7 +113,7 @@ def registry(scale: float, device=None) -> dict:
         "fig15_cache": ("figs", lambda: pim_figs.fig15_cache_vs_scratchpad(scale, device), ()),
         "mmu_overhead": ("figs", lambda: pim_figs.mmu_overhead(scale, device), ()),
         "simulation_rate": ("figs", lambda: pim_figs.simulation_rate(scale, device), ()),
-        "lm_roofline": ("lm", lambda: lm_roofline_table(), ()),
+        "lm_roofline": ("lm", lambda: lm_roofline_table(dryrun_dir), ()),
         "fault_smoke": ("faults", lambda: [fault_tolerance.smoke(device=device)],
                         ("--smoke", "--check")),
         "fault_tolerance": ("faults", lambda: fault_tolerance.sweep(
@@ -155,6 +163,7 @@ def main(argv=None) -> None:
     ap.add_argument("--list", action="store_true",
                     help="print every registered bench (grouped by suite) "
                          "and exit without running anything")
+    ap.add_argument("--dryrun-dir", default="reports/torch_dryrun")
     ap.add_argument("--device", default=None,
                     help="torch device of every system (default: the CUDA "
                          "card; cpu asks for the CPU)")
@@ -178,7 +187,7 @@ def main(argv=None) -> None:
         # taken here, so the snapshot reports this run's delta
         profile = obs.RunProfile(name=f"bench:{args.suite}")
 
-    benches = registry(args.scale, device)
+    benches = registry(args.scale, device, args.dryrun_dir)
     bad = {k for k, (s, _, _) in benches.items() if s not in SUITE_NAMES}
     assert not bad, f"benches with unknown suite: {bad}"
     if args.list:

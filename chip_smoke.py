@@ -155,8 +155,8 @@ Phases (any failure exits non-zero and prints no result line):
              VA; cold, warm, KIPS, steps per second, set-up share); then
              in this process, each in an empty working directory of its
              own, every run of tools/script_runs.py's SCRIPT_RUNS (the
-             six examples, the design sweep among them,
-             torch_fault_tolerance.py with --smoke and
+             seven examples, the design sweep and the offload planner
+             among them, torch_fault_tolerance.py with --smoke and
              --check, torch_overlap_scaling.py, torch_rank_overlap.py,
              and torch_run.py's suites but lm under --trace, with --check
              but for the overload suite, whose check fails in the
@@ -204,7 +204,26 @@ Phases (any failure exits non-zero and prints no result line):
              python -m repro_torch.launch.train --smoke: exit 0, losses
              falling; run_with_restarts with two injected failures:
              every parameter bit-equal to the run without;
-13. report — the kernels line (launches, times, bounds; each step
+13. launch — (a) python -m repro_torch.launch.dryrun in a process of its
+             own: every arch x shape row OK or SKIP(policy) (counted on
+             the meta device at full width, priced on the H100), the PIM
+             cell (2,560 DPUs, one cycle_step launch) OK; its wall and each
+             row's compute, memory and bound ms; (b) llama3-8b's and
+             mamba2-130m's prefill_32k sequence cut to 2 layers and batch
+             1, bf16, run for real: each wall at least its row's
+             max(compute, memory) (a miscounted row fails here), one flash
+             or tensor-core SSD launch a layer, max_memory_allocated
+             beside the row's args + out + temp; (c)
+             repro_torch.parallel on a process group of one rank (NCCL and
+             gloo, a FileStore): quantize_int8 bitwise card vs CPU, each of
+             the reference's scenario_compressed_dp's 60 steps on the card
+             from the CPU run's state within 1e-6, the card's own run
+             through the scenario's gate, pipeline_apply at one stage equal
+             to the stage in sequence; (d) the offload planner's twin among
+             [scripts]' golden runs, benchmarks/torch_run.py --suite lm
+             reading (a)'s rows with no error row, the hillclimb twin
+             exit 0 with its cells equal to (a)'s;
+14. report — the kernels line (launches, times, bounds; each step
              kernel's routes; the backward kernels), the card's name and
              power limit, and the result line.
 
@@ -3547,6 +3566,309 @@ def _family_bwd_times(train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [launch]: the one-card dry-run, a counted cell run for real, the
+# parallel modules on a process group, the LM report scripts
+# ---------------------------------------------------------------------------
+
+#: (b): prefill_32k's sequence, cut to 2 layers and batch 1, of an
+#: attention and an SSD architecture: (arch, the kernel its layers launch)
+LAUNCH_CELLS = (("llama3-8b", "flash_attention"),
+                ("mamba2-130m", "ssd_scan_tc"))
+LAUNCH_CUT = dict(n_layers=2)
+LAUNCH_SEQ, LAUNCH_BATCH = 32768, 1
+#: (c): the reference's scenario_compressed_dp problem
+#: (tests/_dist_scenarios.py), its steps and tolerances
+DP_STEPS = 60
+DP_LOSS_TOL = 1e-6
+
+
+def _dryrun_rows(out_dir: Path) -> list:
+    return [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+
+
+def _launch_cell(pim_row: Path) -> dict:
+    """[launch] (b): each of :data:`LAUNCH_CELLS` counted on meta and
+    priced on the H100, then run for real on the card in bf16 (a warm-up
+    prefill, then a timed one): its wall at least its row's max(compute,
+    memory) (no card beats its roofline), its kernel launched once a
+    layer; max_memory_allocated beside the row's args + out + temp.  The
+    row's useful_ratio and roofline_fraction are left out: model_flops is
+    2 N a token with N counting the embedding and the lm_head, which the
+    port's prefill applies to the last position alone, so at a cut depth
+    they say nothing of the card.  Waits for (a)'s PIM row first, so that
+    the timed prefills share the card with nothing."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    while not pim_row.exists():
+        check(time.perf_counter() - t0 < 300, "[launch] (a) wrote no PIM "
+              "row in 300 s")
+        time.sleep(0.2)
+    shape = ShapeSpec("prefill_32k", "prefill", LAUNCH_SEQ, LAUNCH_BATCH)
+    cells = {}
+    for arch, kernel in LAUNCH_CELLS:
+        cfg, model = _lm_model(arch, **LAUNCH_CUT)
+        counts, kind, _, count_s = dryrun.count_cell(cfg, shape)
+        row = dryrun.report(arch, cfg, shape, counts, kind,
+                            "meta device, counted at its own depth").to_row()
+        for key in ("useful_ratio", "roofline_fraction"):
+            row.pop(key)
+        bound_s = max(row["compute_ms"], row["memory_ms"]) / 1e3
+        batch = _lm_inputs(cfg, LAUNCH_BATCH, LAUNCH_SEQ, 0, 5, "cuda")
+        model.prefill(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"[launch] (b) {arch} prefill logits not finite")
+        check(launches[kernel] == cfg.n_layers,
+              f"[launch] (b) {arch}: {launches[kernel]} {kernel} launches, "
+              f"not {cfg.n_layers}")
+        check(wall >= bound_s, f"[launch] (b) {arch}: the card took "
+              f"{wall:.4f} s, under its row's bound {bound_s:.4f} s: the row "
+              f"is miscounted {row}")
+        counted = counts.args + counts.out + counts.temp
+        cells[arch] = {"wall_s": wall, "bound_s": bound_s, "row": row,
+                       "flops": counts.flops, "bytes": counts.bytes,
+                       "count_s": count_s, "max_memory_allocated": peak,
+                       "args_out_temp": counted, "launches": launches}
+        log(f"[launch] (b) {arch} at {cfg.n_layers} layers, {LAUNCH_BATCH} "
+            f"x {LAUNCH_SEQ} tokens, bf16: the card {wall:.4f} s >= its "
+            f"row's bound {bound_s:.4f} s (compute {row['compute_ms']} ms, "
+            f"memory {row['memory_ms']} ms; {counts.flops:.4e} FLOPs, "
+            f"{counts.bytes:.4e} bytes; {wall / bound_s:.3f}x the bound); "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB beside args + out "
+            f"+ temp {counted / 2**30:.3f} GiB; {launches[kernel]} {kernel} "
+            "launches")
+        del model, logits, cache
+        torch.cuda.empty_cache()
+    return cells
+
+
+def _dp_problem(device):
+    """The reference's scenario_compressed_dp problem on ``device``: (X, y,
+    loss_fn)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=(16,)).astype(np.float32)
+    X = rng.normal(size=(64, 16)).astype(np.float32)
+    y = X @ w_true + 0.01 * rng.normal(size=64).astype(np.float32)
+
+    def loss_fn(p, batch):
+        xb, yb = batch
+        return ((xb @ p["w"] - yb) ** 2).mean()
+
+    return (torch.tensor(X, device=device),
+            torch.tensor(y.astype(np.float32), device=device), loss_fn)
+
+
+def _dp_steps(device, states=None) -> tuple:
+    """DP_STEPS steps of make_dp_compressed_step (AdamW at 0.05) on the
+    process group, on ``device``: its own run from zeros, or with
+    ``states`` each step from ``states[i]``.  Returns (the state before
+    each step, each step's loss): a state is {w, m, v, r} on the CPU."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.compress import make_dp_compressed_step
+    X, y, loss_fn = _dp_problem(device)
+    opt = adamw(lambda s: torch.tensor(0.05, device=device),
+                weight_decay=0.0)
+    step = make_dp_compressed_step(loss_fn, opt)
+    cur = {k: torch.zeros(16) for k in "wmvr"}
+    before, losses = [], []
+    for i in range(DP_STEPS):
+        if states is not None:
+            cur = states[i]
+        before.append(cur)
+        t = {k: v.to(device, copy=True) for k, v in cur.items()}
+        p, o, r, loss = step({"w": t["w"]}, {"m": {"w": t["m"]},
+                                             "v": {"w": t["v"]}},
+                             {"w": t["r"]}, (X, y), i)
+        cur = {"w": p["w"].cpu(), "m": o["m"]["w"].cpu(),
+               "v": o["v"]["w"].cpu(), "r": r["w"].cpu()}
+        losses.append(float(loss))
+    return before, losses
+
+
+def _quantize_inputs():
+    """Exact .5 ties (a block whose scale is exactly 1), a zero block,
+    seeded normals and a ragged last block."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    ties = np.array([127.0, -126.5, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5] * 32,
+                    np.float32)
+    return np.concatenate([ties, np.zeros(256, np.float32),
+                           rng.normal(size=256 * 40).astype(np.float32),
+                           (rng.normal(size=77) * 1e3).astype(np.float32)])
+
+
+def _launch_parallel() -> dict:
+    """[launch] (c): repro_torch.parallel on a process group of one rank
+    (NCCL for the card's tensors, gloo for the CPU's; a FileStore in a
+    temporary directory): quantize_int8 on the card bitwise the CPU's;
+    the compressed data-parallel step of the reference's
+    scenario_compressed_dp problem, each of its 60 steps on the card from
+    the CPU run's state before it (loss within DP_LOSS_TOL relative), the
+    card's own 60 steps through the reference scenario's gate (below 0.05,
+    within 0.05 of the CPU's); pipeline_apply at one stage equal to the
+    stage applied in sequence, outputs and gradients."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.compress import quantize_int8
+    from repro_torch.parallel.pipeline import pipeline_apply
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            x = torch.from_numpy(_quantize_inputs())
+            q_cpu, s_cpu = quantize_int8(x)
+            q, s = quantize_int8(x.cuda())
+            check(torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu),
+                  "[launch] (c) quantize_int8 on the card differs from the "
+                  "CPU's")
+            cpu_before, cpu_loss = _dp_steps("cpu")
+            _, card_loss = _dp_steps("cuda")
+            _, forced = _dp_steps("cuda", cpu_before)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(forced, cpu_loss))
+            check(rel <= DP_LOSS_TOL, f"[launch] (c) a step on the card from "
+                  f"the CPU's state: loss {rel:.3e} relative off the CPU's")
+            check(card_loss[-1] < 0.05
+                  and abs(card_loss[-1] - cpu_loss[-1]) < 0.05,
+                  f"[launch] (c) the card's run ended at {card_loss[-1]}, the "
+                  f"CPU's at {cpu_loss[-1]}")
+            gen = torch.Generator().manual_seed(11)
+            w = (torch.randn(16, 16, generator=gen) / 4).cuda()
+            xm = torch.randn(8, 4, 16, generator=gen).cuda()
+            w.requires_grad_(True)
+            got = pipeline_apply(lambda w_, x_: torch.tanh(x_ @ w_), w, xm)
+            (g_pipe,) = torch.autograd.grad((got ** 2).sum(), [w])
+            want = torch.tanh(xm @ w)
+            (g_seq,) = torch.autograd.grad((want ** 2).sum(), [w])
+            err = float((got - want).detach().abs().max())
+            gerr = float((g_pipe - g_seq).abs().max() / g_seq.abs().max())
+            check(err <= 1e-6 and gerr <= 1e-5, f"[launch] (c) pipeline_apply "
+                  f"at one stage: outputs {err:.3e} off, gradients {gerr:.3e}")
+        finally:
+            dist.destroy_process_group()
+    out = {"dp_step_loss_rel": rel, "card_last_loss": card_loss[-1],
+           "cpu_last_loss": cpu_loss[-1],
+           "free_rel": float(np.max(np.abs(np.subtract(card_loss, cpu_loss))
+                                    / np.abs(cpu_loss))),
+           "pipe_err": err, "pipe_grad_rel": gerr,
+           "seconds": time.perf_counter() - t0}
+    log(f"[launch] (c) NCCL and gloo, one rank: quantize_int8 bitwise; "
+        f"{DP_STEPS} compressed DP steps on the card from the CPU's states, "
+        f"losses within {rel:.3e} relative; the card's own run ended at "
+        f"{card_loss[-1]:.6f} (the CPU's {cpu_loss[-1]:.6f}; the free runs "
+        f"{out['free_rel']:.3e} apart at most); pipeline_apply at one stage "
+        f"{err:.3e} off in outputs, {gerr:.3e} in gradients; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def phase_launch(scripts_run: dict) -> dict:
+    """[launch] (a) the one-card dry-run in a process of its own (started
+    first: its meta counting runs beside (b) and (c)), (b) a counted cell
+    run for real, (c) the parallel modules on a process group, (d) the
+    report scripts: the offload planner's twin among [scripts]' golden
+    runs, torch_run.py --suite lm reading (a)'s rows, the hillclimb twin
+    re-counting its cells equal to them."""
+    import os
+    import tempfile
+    sr = _script_runs()
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_", dir=OUT_DIR))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+         str(out_dir)], env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        parallel = _launch_parallel()
+        cells = _launch_cell(out_dir / "pim-engine__fleet_sim__sp.json")
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    sweep_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[launch] (a) the dry-run exited "
+          f"{proc.returncode}:\n{stdout[-2000:]}{stderr[-3000:]}")
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    rows = _dryrun_rows(out_dir)
+    lm = [r for r in rows if r["arch"] in ARCH_IDS]
+    check(sorted((r["arch"], r["shape"]) for r in lm)
+          == sorted((a, s) for a in ARCH_IDS for s in SHAPES)
+          and all(r["status"] in ("OK", "SKIP(policy)") for r in lm),
+          f"[launch] (a) rows: {[(r['arch'], r.get('shape'), r['status']) for r in lm]}")
+    (pim,) = [r for r in rows if r["arch"] not in ARCH_IDS]
+    check(pim["status"] == "OK" and pim["cycle_step_launches"] == 1
+          and pim["bytes_per_device"]["temp"] is not None,
+          f"[launch] (a) the PIM cell: {pim}")
+    ok = [r for r in lm if r["status"] == "OK"]
+    log(f"[launch] (a) python -m repro_torch.launch.dryrun: {len(ok)} OK, "
+        f"{len(lm) - len(ok)} SKIP(policy), the PIM cell (state "
+        f"{pim['bytes_per_device']['args'] / 2**30:.3f} GiB, "
+        f"{pim['cycle_step_launches']} cycle_step launch, temp "
+        f"{pim['bytes_per_device']['temp'] / 2**20:.1f} MiB); its wall "
+        f"{sweep_s:.1f} s; its last line: {stdout.strip().splitlines()[-1]}")
+    # useful and roofline fraction are the reference's formulas, kept for
+    # parity: model_flops is 2 N a token with N counting the embedding
+    # and the lm_head, which prefill applies to the last position alone,
+    # so a small model's prefill rows read above 1
+    for r in ok:
+        log(f"[launch] (a) {r['arch']} x {r['shape']}: compute "
+            f"{r['compute_ms']} ms, memory {r['memory_ms']} ms, bound "
+            f"{max(r['compute_ms'], r['memory_ms'])} ms by {r['bottleneck']}"
+            f", useful {r['useful_ratio']}, roofline fraction "
+            f"{r['roofline_fraction']} (model_flops over the counted; not "
+            "a share of the card)")
+    # (d)
+    runs = {r["key"]: r for r in scripts_run["runs"]}
+    planner = runs.get("examples/pim_offload_planner")
+    check(planner is not None
+          and planner["launches"].get("cycle_step", 0) > 0,
+          f"[launch] (d) the offload planner's twin was not among [scripts]' "
+          f"golden runs, or launched no cycle_step: {planner}")
+    rc, text = sr.run_main(sr.load_script(ROOT, "benchmarks/run.py",
+                                          twin=True),
+                           ["--suite", "lm", "--dryrun-dir", str(out_dir)])
+    name, _, table = text.splitlines()[0].split(",", 2)
+    table = json.loads(table)
+    check(rc == 0 and name == "lm_roofline" and len(table) == len(rows)
+          and not any("error" in r for r in table),
+          f"[launch] (d) torch_run.py --suite lm: exit {rc}, {text[-2000:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, text = sr.run_main(
+            sr.load_script(ROOT, "benchmarks/lm_hillclimb.py", twin=True),
+            ["--dryrun-dir", str(out_dir), "--out", tmp])
+    diffs = [line.split(": ", 1)[1].split(" -> ")
+             for line in text.splitlines() if " -> " in line]
+    check(rc == 0 and len(diffs) == 15 and all(a == b for a, b in diffs),
+          f"[launch] (d) torch_lm_hillclimb.py: exit {rc}, {text[-2000:]}")
+    seconds = time.perf_counter() - t0
+    log(f"[launch] (d) the planner twin's golden run in [scripts] "
+        f"({planner['wall_s']:.3f} s, {planner['launches']}); torch_run.py "
+        f"--suite lm: {len(table)} rows, no error; torch_lm_hillclimb.py: "
+        f"exit 0, its 3 cells equal to the sweep's; phase {seconds:.1f} s")
+    return {"sweep_s": sweep_s, "rows": len(rows), "ok": len(ok),
+            "pim": pim, "cells": cells, "parallel": parallel,
+            "seconds": seconds}
+
+
 def gpu_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3610,6 +3932,7 @@ def main(argv=None) -> int:
         lm_run = timed(phase_lm_main)
         lm_times = timed(phase_lm_kernel_times)
         train = timed(phase_train)
+        launch = timed(phase_launch, scripts_run)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3642,6 +3965,8 @@ def main(argv=None) -> int:
         # [scripts]: the study twins in this process, engine_perf in its own
         "scripts_launches": scripts_run["launches"].get("cycle_step", 0)
         + scripts_run["engine_perf"]["launches"]["cycle_step"],
+        # [launch] (a): the dry-run's PIM cell, in the dry-run's process
+        "launch_launches": launch["pim"]["cycle_step_launches"],
     }, {
         # above the resident limit: the full-system path ([system]'s VA),
         # timed at VA's launch at 2,560 DPUs ([step]) beside stepwise
@@ -3703,6 +4028,13 @@ def main(argv=None) -> int:
     # decode_step, which reaches no flash kernel (prefill does)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["lease_launches"] = lease["launches"]["flash_attention"]
+    # [launch] (b): the counted cell run for real
+    cells = launch["cells"]
+    flash["launch_launches"] = cells["llama3-8b"]["launches"][
+        "flash_attention"]
+    ssd_tc = next(k for k in kernels if k["name"] == "ssd_scan_tc")
+    ssd_tc["launch_launches"] = cells["mamba2-130m"]["launches"][
+        "ssd_scan_tc"]
     flash["launches_by_arch"] = {
         a: r["launches"].get("flash_attention", 0) for a, r in lm.items()}
     # the same kernel at each other family's prefill shape: its launches
@@ -3808,6 +4140,19 @@ def main(argv=None) -> int:
                     for r in (step_run["us_per_step"][FULL_SYSTEM_DPUS],
                               carry))
         + f"; smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
+    par_run = launch["parallel"]
+    log(f"[report] launch (card: {card}): the dry-run {launch['rows']} rows "
+        f"({launch['ok']} OK) in {launch['sweep_s']:.1f} s; at "
+        f"{LAUNCH_CUT['n_layers']} layers, {LAUNCH_BATCH} x {LAUNCH_SEQ} "
+        "tokens: " + "; ".join(
+            f"{arch} {c['wall_s']:.4f} s on the card, its row's bound "
+            f"{c['bound_s']:.4f} s ({c['wall_s'] / c['bound_s']:.3f}x), "
+            f"max_memory_allocated {c['max_memory_allocated'] / 2**30:.3f} "
+            f"GiB, counted args + out + temp "
+            f"{c['args_out_temp'] / 2**30:.3f} GiB"
+            for arch, c in launch["cells"].items())
+        + f"; compressed DP steps {par_run['dp_step_loss_rel']:.3e} "
+        f"relative; phase {launch['seconds']:.1f} s")
     log(f"[report] phase walls (s): {json.dumps(walls)}")
     sva = system_run["va"]
     log(f"[report] system: VA on {FULL_SYSTEM_DPUS} DPUs (1 MiB, scale 1.0) "

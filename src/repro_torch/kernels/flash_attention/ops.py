@@ -35,6 +35,14 @@ tensor-core route):
 The plain backward is autograd of :func:`.ref.flash_attention_ref`
 (:func:`.ref.flash_attention_bwd_ref`).  A serving call passes no
 log-sum-exp and its output is unchanged.
+
+A meta tensor (shapes alone: the dry-run, ``repro_torch.launch``) goes to
+:func:`flash_attention_meta`, one custom op standing for the card's
+kernel, with :func:`flash_attention_bwd_meta` as its backward: so the
+dry-run's counters see one attention call a layer, reading q, k, v and
+writing o once, as the kernel does (``launch/cost.py`` prices it), and
+not the plain version's blockwise temporaries, which the card never
+makes.
 """
 from __future__ import annotations
 
@@ -89,6 +97,51 @@ def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
     return route(dtype, dk, dv)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int) -> torch.Tensor:
+    """The kernel's output on the meta device (shapes alone: its fake
+    implementation); it computes nothing anywhere else."""
+    raise ValueError(f"flash_attention_meta: {q.device} is not meta")
+
+
+@flash_attention_meta.register_fake
+def _(q, k, v, causal, window):
+    B, S, H, _ = q.shape
+    return q.new_empty((B, S, H, v.shape[3]))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_meta",
+                         mutates_args=())
+def flash_attention_bwd_meta(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        do: torch.Tensor, causal: bool, window: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' dq, dk, dv on the meta device."""
+    raise ValueError(f"flash_attention_bwd_meta: {q.device} is not meta")
+
+
+@flash_attention_bwd_meta.register_fake
+def _(q, k, v, o, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _meta_setup(ctx, inputs, output):
+    q, k, v, ctx.causal, ctx.window = inputs
+    ctx.save_for_backward(q, k, v, output)
+
+
+def _meta_backward(ctx, do):
+    q, k, v, o = ctx.saved_tensors
+    return (*flash_attention_bwd_meta(q, k, v, o, do, ctx.causal,
+                                      ctx.window), None, None)
+
+
+flash_attention_meta.register_autograd(_meta_backward,
+                                       setup_context=_meta_setup)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,S,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv) -> (B,S,H,Dv) in q's
@@ -98,6 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dev.type == "meta":
+        return flash_attention_meta(q, k, v, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -37,6 +37,13 @@ gradients of x, dt, A, Bm and Cm and takes one for the final state:
 The plain backward is autograd of :func:`.ref.ssd_scan_ref`
 (:func:`.ref.ssd_scan_bwd_ref`); :func:`.ref.ssd_scan_bwd_chunked`
 mirrors the tensor-core route's decomposition in plain torch.
+
+A meta tensor (shapes alone: the dry-run, ``repro_torch.launch``) goes to
+:func:`ssd_scan_meta`, one custom op standing for the card's kernels,
+with :func:`ssd_scan_bwd_meta` as its backward: so the dry-run's counters
+see one scan a layer, reading x, dt, A, B, C and writing y and the final
+state once (``launch/cost.py`` prices it), and not the plain version's
+per-chunk temporaries, which the card never makes.
 """
 from __future__ import annotations
 
@@ -89,6 +96,50 @@ def route_bwd(dtype: torch.dtype, n: int, p: int, chunk: int) -> str:
     return route(dtype, n, p, chunk)
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_meta", mutates_args=())
+def ssd_scan_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' y and final state on the meta device (shapes alone:
+    its fake implementation); it computes nothing anywhere else."""
+    raise ValueError(f"ssd_scan_meta: {x.device} is not meta")
+
+
+@ssd_scan_meta.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    B, _, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((B, H, Bm.shape[3], P), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd_meta", mutates_args=())
+def ssd_scan_bwd_meta(
+        x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, dy: torch.Tensor, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """The backward kernels' dx, ddt, dA, dB, dC on the meta device (the
+    final state's gradient is not read: training leaves it unused)."""
+    raise ValueError(f"ssd_scan_bwd_meta: {x.device} is not meta")
+
+
+@ssd_scan_bwd_meta.register_fake
+def _(x, dt, A, Bm, Cm, dy, chunk):
+    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
+
+
+def _meta_setup(ctx, inputs, output):
+    *tensors, ctx.chunk = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _meta_backward(ctx, dy, dstate):
+    return (*ssd_scan_bwd_meta(*ctx.saved_tensors, dy, ctx.chunk), None)
+
+
+ssd_scan_meta.register_autograd(_meta_backward, setup_context=_meta_setup)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     """x (B,S,H,P), dt (B,S,H) f32, A (H,) f32 negative, Bm/Cm (B,S,G,N)
     with G dividing H -> (y (B,S,H,P) in x's dtype, final state
@@ -96,6 +147,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    if dev.type == "meta":
+        return ssd_scan_meta(x, dt, A, Bm, Cm, chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
     if torch.is_grad_enabled() and any(

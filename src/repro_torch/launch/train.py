@@ -6,8 +6,9 @@
 The counterpart of ``repro.launch.train``: the same arguments, and
 ``--device`` (default: the CUDA card; ``cpu`` asks for the CPU).  It
 builds no mesh: on one device the reference's elastic mesh is
-``{'data': 1, 'model': 1}`` and every sharding an identity, so the twin
-prints that mesh as it is and runs the port's train step
+``{'data': 1, 'model': 1}`` (``launch.mesh.elastic_shape(1)``) and every
+sharding an identity, so the twin prints that mesh's shape and runs the
+port's train step
 (``repro_torch.train.loop``) under ``run_with_restarts``, whose
 checkpoints are in the JAX package's layout.  The step lines' ms and
 tok/s, the median step and ``stragglers`` are read off the wall clock.
@@ -23,12 +24,10 @@ import torch
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.core.carry import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import elastic_shape
 from repro_torch.optim import get_optimizer, warmup_cosine
 from repro_torch.runtime.coordinator import run_with_restarts
 from repro_torch.train import loop as train_loop
-
-#: the reference's ``make_elastic_mesh()`` on one device
-MESH = {"data": 1, "model": 1}
 
 
 def main(argv=None):
@@ -56,7 +55,8 @@ def main(argv=None):
         cfg = cfg.replace(dtype="float32")
     opt = get_optimizer(cfg.optimizer,
                         warmup_cosine(args.lr, warmup=10, total=args.steps))
-    print(f"mesh: {MESH}  arch: {cfg.name}")
+    # the reference's make_elastic_mesh() on one device
+    print(f"mesh: {elastic_shape(1)}  arch: {cfg.name}")
 
     state = train_loop.init_train_state(cfg, opt, device=device)
     step_fn = train_loop.make_train_step(cfg, opt,

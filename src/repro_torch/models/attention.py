@@ -5,7 +5,8 @@ The counterpart of ``repro.models.attention``.  :func:`blocked_attention`
 is where the flash-attention kernel runs: on a CUDA tensor it launches
 ``repro_torch.kernels.flash_attention`` (the kernel's own 64-row tiles
 replace ``q_chunk`` / ``kv_chunk``; in training its autograd Function,
-whose backward is the hand-written backward kernel); on the CPU it is the
+whose backward is the hand-written backward kernel; on a meta tensor, the
+dry-run's, the custom op that stands for the kernel); on the CPU it is the
 plain port of the JAX function, with its blocking and its casts, which
 autograd differentiates as ``jax.value_and_grad`` does the JAX one.  Every prefill variant
 (causal, windowed, bidirectional, cross-attention at equal lengths, MLA
@@ -44,7 +45,7 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
     qc = min(q_chunk, S)
     kc = min(kv_chunk, S)
     assert S % qc == 0 and S % kc == 0, (S, qc, kc)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
                                         window=window)

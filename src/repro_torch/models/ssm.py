@@ -101,7 +101,9 @@ def ssm_apply_train(p, x, cfg, return_state=False):
     y = layers.rms_norm(y * F.silu(z), p["gate_norm"]["scale"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)
     if return_state:
-        conv_tail = rest[:, -(cfg.ssm_conv - 1):, :]  # pre-conv inputs
+        # pre-conv inputs, copied: a view would keep the whole in_proj
+        # output alive in the cache
+        conv_tail = rest[:, -(cfg.ssm_conv - 1):, :].clone()
         return out, (state, conv_tail)
     return out
 

@@ -350,14 +350,17 @@ class Transformer(nn.Module):
     """An LM of any family with random weights drawn from ``generator``.
 
     ``device=None`` means the CUDA card (raises without one); pass
-    ``device="cpu"`` for the CPU.  ``generator`` (a ``torch.Generator`` on
-    that device) defaults to one seeded with 0."""
+    ``device="cpu"`` for the CPU, or ``"meta"`` for shapes alone (the
+    dry-run's).  ``generator`` (a ``torch.Generator`` on that device; on
+    meta, which has none, a CPU one) defaults to one seeded with 0."""
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = torch.Generator(
+                device="cpu" if device.type == "meta" else device
+            ).manual_seed(0)
         self.cfg = cfg
         gen = generator
         self.embed = ParamTree({"tok": layers.embed_param(
@@ -553,7 +556,10 @@ class Transformer(nn.Module):
                                                window=win, collect_kv=True)
                 groups.append((torch.stack([st0[0], st1[0]]),
                                torch.stack([st0[1].to(dt), st1[1].to(dt)]),
-                               k[:, -win:].to(dt), v[:, -win:].to(dt)))
+                               # copies: views would keep each group's
+                               # whole k and v alive
+                               k[:, -win:].to(dt).clone(),
+                               v[:, -win:].to(dt).clone()))
             put(("lru_h", "lru_conv", "attn_k", "attn_v"), groups)
             rems = []
             for p in self.rem_lru if "rem_lru" in self else ():

@@ -130,7 +130,9 @@ SCRIPTS = ["benchmarks/torch_cluster_load.py", "benchmarks/torch_overload.py",
            "examples/torch_pim_async_pipeline.py",
            "examples/torch_pim_sample_sort.py",
            "examples/torch_quickstart.py",
-           "examples/torch_pim_design_sweep.py"]
+           "examples/torch_pim_design_sweep.py",
+           "examples/torch_pim_offload_planner.py",
+           "benchmarks/torch_lm_hillclimb.py"]
 #: how each study script of SCRIPTS starts with no device named: its
 #: main() with its defaults, or (no main) its first bench at a small scale
 STUDY_ENTRIES = {
@@ -237,6 +239,7 @@ def test_default_device_raises_without_a_card():
     from repro_torch.core.config import DPUConfig
     from repro_torch.core.host import PIMSystem
     from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import dryrun
     from repro_torch.models import transformer
     from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.train import loop as train_loop
@@ -265,9 +268,35 @@ def test_default_device_raises_without_a_card():
                     for lm in lms),
                   # training: a fresh train state lives on the card
                   lambda: train_loop.init_train_state(
-                      lms[0], get_optimizer("adamw", warmup_cosine(1e-3)))):
+                      lms[0], get_optimizer("adamw", warmup_cosine(1e-3))),
+                  # the dry-run: its PIM cell runs on the card
+                  lambda: dryrun.main(["--arch", "llama3-8b", "--out",
+                                       "unused"]),
+                  lambda: dryrun.run_pim_cell(n_dpus=4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
+
+
+def test_parallel_entry_points_need_a_process_group():
+    """The data-parallel step and the meshes run on the ranks of a
+    process group (NCCL on the cards): without one they raise, before
+    they compute anything."""
+    from repro_torch.launch import mesh
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.compress import make_dp_compressed_step
+    from repro_torch.parallel.pipeline import pipeline_apply
+    step = make_dp_compressed_step(lambda p, b: (p["w"] * b).sum(),
+                                   adamw(lambda s: torch.tensor(0.1)))
+    w = {"w": torch.ones(4)}
+    for entry in (lambda: step(w, {}, w, torch.ones(4), 0),
+                  lambda: pipeline_apply(lambda p, x: x, None,
+                                         torch.ones(2, 3)),
+                  lambda: mesh.make_elastic_mesh(),
+                  lambda: mesh.make_production_mesh()):
+        with pytest.raises((RuntimeError, ValueError),
+                           match="process group"):
+            entry()
+    assert mesh.make_production_mesh.__kwdefaults__["device_type"] == "cuda"
 
 
 @pytest.mark.parametrize("script", SCRIPTS[5:])

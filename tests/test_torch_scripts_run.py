@@ -4,8 +4,10 @@ suites and caps; ``--only`` that matches nothing fails the same way; a
 small traced run (``--trace --check`` over repro_torch.obs) writes its
 trace and counters, passes its check, and prints the reference's rows
 with the wall-clock numbers masked (each row by the keys of the script
-its bench calls, read off the registry); an unported bench
-(``lm_roofline``) becomes an error row that names its ROADMAP item."""
+its bench calls, read off the registry); the ``lm`` suite reads the
+port's dry-run rows (``python -m repro_torch.launch.dryrun``) through
+benchmarks/lm_roofline.py, and an empty directory is an error row that
+names the command that writes them."""
 import json
 
 import pytest
@@ -73,8 +75,9 @@ def test_traced_suites_check_and_match(tmp_path, monkeypatch):
 
 def test_every_bench_names_the_script_behind_it():
     """The masks of run.py's rows come from the registry: each bench maps
-    to the twin whose function makes its rows (lm_roofline, unported, to
-    none), and every suite's benches together cover its scripts."""
+    to the twin whose function makes its rows (lm_roofline, which reads
+    the dry-run's rows, to none), and every suite's benches together cover
+    its scripts."""
     scripts = script_runs.bench_scripts()
     benches = load(RUN, twin=True).registry(0.0, "cpu")
     assert set(scripts) == set(benches)
@@ -88,12 +91,28 @@ def test_every_bench_names_the_script_behind_it():
     assert scripts["simulation_rate"] == "pim_figs"
 
 
-def test_unported_lm_roofline_is_an_error_row():
-    rc, text = script_runs.run_main(load(RUN, twin=True),
-                                    ["--suite", "lm", "--device", "cpu"])
+def test_lm_suite_reads_the_ports_dryrun_rows(tmp_path):
+    """One architecture's dry-run rows (full width, on meta) come back as
+    the suite's rows, equal to benchmarks/lm_roofline.py's table of them;
+    a directory with none gives an error row."""
+    from benchmarks import lm_roofline
+    from repro_torch.launch import dryrun
+    out = tmp_path / "dryrun"
+    assert dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
+                        "--out", str(out)]) == 0
+    run = load(RUN, twin=True)
+    rc, text = script_runs.run_main(
+        run, ["--suite", "lm", "--device", "cpu", "--dryrun-dir", str(out)])
     assert rc == 0
     name, _, rows = text.splitlines()[0].split(",", 2)
     assert name == "lm_roofline"
-    (row,) = json.loads(rows)
-    assert row["error"].startswith("NotImplementedError: lm_roofline is "
-                                   "not ported yet (ROADMAP §1")
+    rows = json.loads(rows)
+    assert rows == lm_roofline.table(str(out))
+    assert {r["status"] for r in rows} == {"OK", "SKIP(policy)"}
+    assert len(rows) == 4 and all(r["mesh"] == "1x1" for r in rows)
+    rc, text = script_runs.run_main(
+        run, ["--suite", "lm", "--device", "cpu",
+              "--dryrun-dir", str(tmp_path / "none")])
+    (row,) = json.loads(text.splitlines()[0].split(",", 2)[2])
+    assert row["error"].startswith("FileNotFoundError: no dry-run rows in ")
+    assert "python -m repro_torch.launch.dryrun" in row["error"]

@@ -3,9 +3,9 @@
 float32 on identical weights (``params_from_jax``) and the same batch of
 the data pipeline (a copy in both packages: vlm with its patch prefix,
 encdec with its frames); loss, xent and aux (the MoE load balance)
-within 1e-5.  Training of these families beyond the forward loss is
-ROADMAP §1's next item (the dense and ssm families' steps are held in
-test_torch_train.py)."""
+within 1e-5.  Their train steps are held in
+test_torch_train_{moe,hybrid,encdec_vlm}.py, the dense and ssm families'
+in test_torch_train.py."""
 import numpy as np
 import pytest
 

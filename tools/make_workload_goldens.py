@@ -23,14 +23,15 @@ machine has no JAX, so this runs on a CPU with JAX installed:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_workload_goldens.py
         [--only KEY ... | --only cluster | --only scripts |
-         --only quickstart]
+         --only quickstart | --script KEY ...]
 
 ``--only`` writes only those configurations (``cluster``: the cluster
 goldens; ``scripts``: the entry points'; ``quickstart``: the quickstart's
 lines and initial parameters; no remap scenario either way)
 into
 the existing file, under a lock, and leaves every other entry as it was:
-several ``--only`` runs may go at once.
+several ``--only`` runs may go at once.  ``--script`` writes only those
+runs of ``script_runs.SCRIPT_RUNS`` into the scripts entry.
 """
 from __future__ import annotations
 
@@ -124,14 +125,16 @@ def _script_task(kind: str, key: str) -> tuple:
     return entry, time.perf_counter() - t0
 
 
-def _scripts() -> dict:
+def _scripts(keys=None) -> dict:
     """The entry points' goldens, four runs at a time (each in a process
     of its own: the runs are independent, and the fault studies alone
-    take the JAX package minutes on the CPU)."""
+    take the JAX package minutes on the CPU); with ``keys``, only those
+    runs of ``script_runs.SCRIPT_RUNS``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    tasks = [("runs", k) for k in script_runs.SCRIPT_RUNS] \
-        + [("engine_perf", k) for k in script_runs.ENGINE_PERF]
+    tasks = [("runs", k) for k in keys or script_runs.SCRIPT_RUNS] \
+        + ([("engine_perf", k) for k in script_runs.ENGINE_PERF]
+           if keys is None else [])
     # the fault studies and the figs suite take longest: start them first
     tasks.sort(key=lambda t: not any(w in t[1] for w in ("fault", "figs")))
     out = {"runs": {}, "engine_perf": {}}
@@ -219,7 +222,19 @@ def main(argv=None) -> int:
                                                        "scripts",
                                                        "quickstart"],
                     help="write only these configurations")
+    ap.add_argument("--script", nargs="+", metavar="KEY",
+                    choices=sorted(script_runs.SCRIPT_RUNS),
+                    help="write only these runs of SCRIPT_RUNS")
     args = ap.parse_args(argv)
+    if args.script:
+        new = _scripts(args.script)["runs"]
+        with open(goldens.PATH.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            out = goldens.load()
+            out["scripts"]["runs"].update(new)
+            _write(out)
+        print(f"wrote {', '.join(args.script)} into {goldens.PATH}")
+        return 0
     if args.only:
         made = {"cluster": _cluster, "scripts": _scripts,
                 "quickstart": _quickstart}

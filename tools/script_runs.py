@@ -75,7 +75,8 @@ SCRIPT_RUNS = {
     **{f"examples/{name}": (f"examples/{name}.py", [])
        for name in ("pim_characterize", "pim_comm_pathfind",
                     "pim_arch_compare", "pim_async_pipeline",
-                    "pim_sample_sort", "pim_design_sweep")},
+                    "pim_sample_sort", "pim_design_sweep",
+                    "pim_offload_planner")},
     "fault_tolerance": ("benchmarks/fault_tolerance.py",
                         ["--scale", "0.01", "--trials", "1"]),
     "fault_tolerance --smoke": ("benchmarks/fault_tolerance.py",
