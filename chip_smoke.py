@@ -223,9 +223,28 @@ Phases (any failure exits non-zero and prints no result line):
              [scripts]' golden runs, benchmarks/torch_run.py --suite lm
              reading (a)'s rows with no error row, the hillclimb twin
              exit 0 with its cells equal to (a)'s;
-14. report — the kernels line (launches, times, bounds; each step
-             kernel's routes; the backward kernels), the card's name and
-             power limit, and the result line.
+14. mesh   — sharded training: four ranks sharing the card (processes
+             on gloo, a FileStore; started while this process takes the
+             reference step), on a (data 2, model 2) mesh, take one step
+             of qwen3-moe-30b-a3b at full width and 2 of its 48 layers
+             (bf16 on float32 weights from a seed, AdamW, its 4
+             microbatches, 8 x 1,024 tokens): each rank's parameters and
+             moments its blocks by param_shardings, its rows by
+             batch_sharding, its experts expert-parallel (gathered over
+             data, as the reference's); the loss, every gradient and
+             every update within 2e-2 of a one-process step on the card
+             with moe_ep_plain in the EP group's place (the experts'
+             choices replayed; an update less what the two gradients
+             put between AdamW's first steps); the
+             tensor-core flash forward and backward launched on every
+             rank, 16 and 8 times; the phase within 90 s; the state
+             saved from (2, 2) by rank 0 and restored onto
+             (4, 1) and as one rank, every block and leaf bitwise the
+             saved one; the step's wall, each rank's
+             max_memory_allocated and collectives (calls, bytes, seconds);
+15. report — the kernels line (launches, times, bounds; each step
+             kernel's routes; the backward kernels; [mesh]'s launches),
+             the card's name and power limit, and the result line.
 
 Imports neither JAX nor the JAX package: the card's machine has no JAX.
 """
@@ -234,6 +253,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3869,6 +3889,466 @@ def phase_launch(scripts_run: dict) -> dict:
             "seconds": seconds}
 
 
+MESH_ARCH = "qwen3-moe-30b-a3b"
+MESH_CUT = dict(n_layers=2)
+#: the (data, model) mesh of the sharded step's four ranks on the one
+#: card, and the one its checkpoint is restored onto
+MESH_AXES = {"data": 2, "model": 2}
+MESH_ELASTIC = {"data": 4, "model": 1}
+MESH_ROWS, MESH_SEQ = 8, 1024
+MESH_TOL = BWD_TOL["bfloat16"]
+MESH_LR = 1e-3
+MESH_SEED = 0
+#: the phase's share of the smoke's 1,200 s
+MESH_LIMIT_S = 90
+#: optim.adamw's eps
+ADAMW_EPS = 1e-8
+
+
+def _flat(tree, prefix="") -> dict:
+    """A nested dict's leaves keyed by their ``/``-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _mesh_replay(calls, axes, coord, device):
+    """``moe.top_k`` for the rank at ``coord`` of a mesh of ``axes`` that
+    returns what the one-process reference chose (``calls``: its top-k
+    indices, call by call): top-k is discontinuous, and bf16 noise between
+    a one-row and a two-row product could break a near tie the other way
+    and move a token's whole gradient.  Each MoE layer's calls there are
+    the router's, then one capacity selection for each (data slice, EP
+    peer); a rank's, the router's on its rows, then its own peer's on its
+    own slice."""
+    import itertools
+    dp, ep = axes["data"], axes["model"]
+    per = 1 + dp * ep
+    count = itertools.count()
+    calls = [c.to(device) for c in calls]
+
+    def top_k(probs, k):
+        layer, kind = divmod(next(count), 2)
+        idx = calls[layer * per + (0 if kind == 0 else
+                                   1 + coord["data"] * ep + coord["model"])]
+        if kind == 0:
+            rows = probs.shape[0]
+            idx = idx[coord["data"] * rows:(coord["data"] + 1) * rows]
+        return probs.gather(-1, idx), idx
+
+    return top_k
+
+
+def _mesh_rank(rank, world, tmp, refs, cfg, device):
+    """[mesh] rank ``rank`` of ``world`` (gloo, a FileStore in ``tmp``;
+    started while the parent takes the reference step, whose results it
+    then takes from the queue ``refs``, tensors mapped from the parent):
+    its blocks of the reference's initial weights on a MESH_AXES mesh, the
+    sharded step (counted and timed),
+    its gradients and updates against the reference's, the (2, 2)
+    save, the restore onto MESH_ELASTIC and as one rank, each bitwise
+    against the whole saved leaves; ``tmp/rank<r>.json``."""
+    # four ranks and the reference share the card: segments that grow in
+    # place leave less of it reserved but unused (set before CUDA starts)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import store
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import convert, moe
+    from repro_torch.models.layers import cdtype
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import loop
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    top_k = moe.top_k
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=world, rank=rank)
+    try:
+        out = {"rank": rank}
+        t0 = time.perf_counter()
+        mesh = make_elastic_mesh(model_parallel=MESH_AXES["model"],
+                                 device_type=device)
+        check(par.mesh_axes(mesh) == MESH_AXES, f"[mesh] {mesh}")
+        ranks = par.mesh_ranks(mesh)
+        # while the parent takes its step: the same step at the family's
+        # smoke width (a fresh process's first calls; a little memory)
+        small = get_smoke_config(MESH_ARCH).replace(
+            train_microbatches=cfg.train_microbatches)
+        warm = Transformer(small, device=device)
+        par.shard_module(warm, mesh, cdtype(small))
+        loop.grads_and_metrics(warm, par.batch_rows(loop.to_device(
+            SyntheticLM(small, DataConfig(64, 8, small.vocab_size))
+            .batch_at(0), device), mesh), small.train_microbatches)
+        del warm
+        out["warmup_s"] = time.perf_counter() - t0
+        ref = refs.get()
+        t0 = time.perf_counter()
+        # the reference's weights: the whole model from its seed, drawn
+        # on the card, kept as this rank's blocks
+        model = Transformer(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(MESH_SEED))
+        par.shard_module(model, mesh, cdtype(cfg))
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        params = dict(model.named_parameters())
+        opt = get_optimizer(cfg.optimizer, warmup_cosine(MESH_LR))
+        state = {"params": model, "step": 0, "opt": opt.init(params)}
+        rows = {k: v.to(device)
+                for k, v in par.batch_rows(ref["batch"], mesh).items()}
+        moe.top_k = _mesh_replay(ref["calls"], MESH_AXES, ranks.coord,
+                                 device)
+        # the initial blocks, on the host: each update is held against
+        # the reference's
+        init = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.items()}
+        out["setup_s"] = time.perf_counter() - t0
+        coll.reset_counts()
+        for attr in ("launches", "launches_sm90", "launches_bwd",
+                     "launches_bwd_sm90"):
+            setattr(fops, attr, 0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        metrics, grads = loop.grads_and_metrics(model, rows,
+                                                cfg.train_microbatches)
+        state, gnorm = loop.apply_gradients(state, grads, opt)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        out["step_s"] = time.perf_counter() - t0
+        out["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                       if device == "cuda" else 0)
+        out["launches"] = {a: getattr(fops, a) for a in (
+            "launches", "launches_sm90", "launches_bwd",
+            "launches_bwd_sm90")}
+        out["collectives"] = dict(coll.COUNTS)
+        out["loss"] = float(metrics["loss"])
+        out["grad_norm"] = float(gnorm)
+
+        def block(whole, n):
+            return par.shard(whole[n], model.shardings[n], mesh).to(
+                device).float()
+
+        def worst(mine, kind, slack=None):
+            """(max over leaves of max |block - its reference block| (less
+            ``slack``) over the reference leaf's largest |value|, that
+            leaf)."""
+            errs = {}
+            for n in mine:
+                want = block(ref[kind], n)
+                d = (mine[n].float() - want).abs()
+                if slack is not None:
+                    d = (d - slack(n)).clamp_min(0)
+                errs[n] = float(d.max()) / max(ref["max"][kind][n], 1e-30)
+            n = max(errs, key=errs.get)
+            return errs[n], n
+
+        # AdamW's first step moves an element by -lr (r(x) + wd p), r(x) =
+        # x / (|x| + eps), x its clipped gradient: by about lr against x's
+        # sign, and steeply in x where x is within a few eps of 0 (or where
+        # the two gradients' signs differ, both then within the gradient
+        # check's tolerance of 0).  So each update is held to the
+        # reference's, relative to its largest value (about lr), less what
+        # the two gradients themselves put between them, lr |r(x) -
+        # r(x_ref)|, and one unit in the last place of the updated weight
+        # (an update is read as the difference of two float32 weights: at
+        # an embedding's |p| ~ 2, 0.04 of lr); a missing or wrong update
+        # fails wherever the gradients agree
+        lr = float(warmup_cosine(MESH_LR)(1))
+        out["loose"] = 0
+
+        def ratio(g, gn):
+            x = g * min(1.0, 1.0 / max(gn, 1e-9))  # clip_by_global_norm's
+            return x / (x.abs() + ADAMW_EPS)
+
+        def ulp(p):
+            a = p.float().abs()
+            return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+        def slack(n):
+            room = lr * (ratio(grads[n].float(), float(gnorm))
+                         - ratio(block(ref["grads"], n),
+                                 ref["grad_norm"])).abs()
+            # elements the gradients leave beyond the tolerance
+            out["loose"] += int((room > MESH_TOL * ref["max"]["update"][n])
+                                .sum())
+            return room + ulp(params[n].detach())
+
+        out["grad_err"], out["grad_worst"] = worst(grads, "grads")
+        out["update_err"], out["update_worst"] = worst(
+            {n: p.detach() - init[n].to(device) for n, p in params.items()},
+            "update", slack=slack)
+        out["elements"] = sum(p.numel() for p in params.values())
+        del grads, state["opt"], init
+
+        ckpt = f"{tmp}/ckpt"
+        coll.reset_counts()
+        t0 = time.perf_counter()
+        blocks = convert.jax_tree(dict(params), host=False)
+        specs = convert.jax_specs(model)
+        store.save(ckpt, 1, {"params": blocks}, shardings={"params": specs},
+                   mesh=mesh)
+        out["save_s"] = time.perf_counter() - t0
+        out["save_collectives"] = dict(coll.COUNTS)
+        del model, params, state
+        like = {"params": convert.nest({
+            k: np.empty(tuple(t.shape), np.float32)
+            for k, t in _flat(convert.jax_like(
+                {n: torch.empty(s, device="meta")
+                 for n, s in ref["shapes"].items()})).items()})}
+        mesh_b = make_elastic_mesh(model_parallel=MESH_ELASTIC["model"],
+                                   device_type=device)
+        specs_b = par.param_shardings(like["params"], mesh_b)
+        t0 = time.perf_counter()
+        restored, _ = store.restore(ckpt, like, shardings={
+            "params": specs_b}, mesh=mesh_b, device=device)
+        out["restore_elastic_s"] = time.perf_counter() - t0
+        whole = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            whole, _ = store.restore(ckpt, like)
+            out["restore_one_s"] = time.perf_counter() - t0
+            whole = _flat(whole["params"])
+        # each rank's blocks of both meshes against the saved leaves'
+        # regions, rank 0's one-rank restore against the whole leaves (as
+        # the file maps them; the tests hold that reader to numpy's, both
+        # ways between the packages)
+        coord_b = par.coordinate(mesh_b)
+        specs, specs_b = _flat(specs), _flat(specs_b)
+        blocks, restored = _flat(blocks), _flat(restored["params"])
+        out["bitwise"] = {"mesh": 0, "elastic": 0, "one": 0, "leaves": 0}
+        t0 = time.perf_counter()
+        saved = store._members(str(Path(ckpt, "step_1", "shard_0.npz")))
+        for path in blocks:
+            w = saved[f"params/{path}"]
+            out["bitwise"]["leaves"] += 1
+            mine = blocks[path]() if callable(blocks[path]) else blocks[path]
+            out["bitwise"]["mesh"] += np.array_equal(
+                mine.cpu().numpy(), w[par.block_slices(
+                    w.shape, specs[path], MESH_AXES, ranks.coord)])
+            out["bitwise"]["elastic"] += np.array_equal(
+                restored[path].cpu().numpy(), w[par.block_slices(
+                    w.shape, specs_b[path], MESH_ELASTIC, coord_b)])
+            out["saved_bytes"] = out.get("saved_bytes", 0) + w.nbytes
+        out["bitwise"]["one"] = sum(
+            whole is None or np.array_equal(whole[path],
+                                            saved[f"params/{path}"])
+            for path in blocks)
+        out["compare_s"] = time.perf_counter() - t0
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        # let go of the parent's tensors (the replay holds its choices)
+        # before the process ends
+        moe.top_k = top_k
+        dist.destroy_process_group()
+
+
+def _mesh_run(cfg, device, rows, seq, world=4) -> dict:
+    """[mesh]'s run: ``world`` ranks of :func:`_mesh_rank` started (they
+    reach the card and join their group meanwhile), the one-process
+    reference step (``moe_ep_plain`` under ``mesh_context(MESH_AXES)``,
+    the experts' choices recorded), its results handed to the ranks (the
+    ranks map its tensors; they take the card once its step is done);
+    each rank's results, the reference's and the walls."""
+    import tempfile
+    import torch.multiprocessing as tmp_mp
+    t_phase = time.perf_counter()
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    refs = tmp_mp.get_context("spawn").SimpleQueue()
+    ranks_ctx = tmp_mp.start_processes(
+        _mesh_rank, args=(world, tmp, refs, cfg, device), nprocs=world,
+        join=False, start_method="spawn")
+    try:
+        # the reference's tensors stay alive until the ranks are done
+        run, ref = _mesh_reference(cfg, device, rows, seq, refs, world)
+        t0 = time.perf_counter()
+        while not ranks_ctx.join():
+            pass
+        del ref
+        run["ranks_s"] = time.perf_counter() - t0
+        run["ranks"] = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                        for r in range(world)]
+    except Exception as e:
+        raise SmokeError(f"[mesh] {type(e).__name__}: {e}") from e
+    finally:
+        for p in ranks_ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        tmpdir.cleanup()
+    run["seconds"] = time.perf_counter() - t_phase
+    return run
+
+
+def _mesh_reference(cfg, device, rows, seq, refs, world) -> dict:
+    """The one-process reference step of :func:`_mesh_run` (its results,
+    its tensors): the tensors put on ``refs`` once for each of the
+    ``world`` ranks."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.parallel import api as par
+    from repro_torch.train import loop
+    gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+    model = Transformer(cfg, device=device, generator=gen)
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(MESH_LR))
+    state = {"params": model, "step": 0,
+             "opt": opt.init(dict(model.named_parameters()))}
+    batch = loop.to_device(SyntheticLM(cfg, DataConfig(
+        seq, rows, cfg.vocab_size)).batch_at(0), device)
+    calls, top_k = [], moe.top_k
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def record(probs, k):
+        vals, idx = top_k(probs, k)
+        calls.append(idx.detach().clone())
+        return vals, idx
+
+    moe.top_k = record
+    t0 = time.perf_counter()
+    try:
+        with par.mesh_context(MESH_AXES):
+            metrics, grads = loop.grads_and_metrics(model, batch,
+                                                    cfg.train_microbatches)
+            state, gnorm = loop.apply_gradients(state, grads, opt)
+    finally:
+        moe.top_k = top_k
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    # the updates, the gradients (bf16: 2e-2 of the largest value is 2^11
+    # of its rounding), each leaf's largest |value|; the ranks map them
+    # from this process (CUDA IPC on the card)
+    update = {n: p.detach() - init.pop(n)
+              for n, p in model.named_parameters()}
+    ref = {"shapes": {n: tuple(u.shape) for n, u in update.items()},
+           "grads": {n: g.to(torch.bfloat16) for n, g in grads.items()},
+           "update": update, "batch": batch, "calls": calls,
+           # the scale of each check: the gradient's largest |value|, the
+           # update's
+           "max": {"grads": {n: float(g.abs().max())
+                             for n, g in grads.items()},
+                   "update": {n: float(u.abs().max())
+                              for n, u in update.items()}}}
+    ref["grad_norm"] = float(gnorm)
+    out = {"loss": float(metrics["loss"]), "grad_norm": float(gnorm),
+           "ref_s": ref_s}
+    del state, grads, model, metrics, gnorm
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for _ in range(world):
+        refs.put(ref)
+    return out, ref
+
+
+def phase_mesh() -> dict:
+    """[mesh] sharded training on the card: four ranks (processes sharing
+    the one card; gloo, which NCCL's one-rank-a-device rule leaves) on a
+    (data 2, model 2) mesh take one step of qwen3-moe-30b-a3b at full
+    width and 2 of its 48 layers (bf16 on float32 weights, AdamW, its 4
+    microbatches, 8 x 1,024 tokens; random weights from a seed), each
+    rank's parameters and moments its blocks by param_shardings, its
+    rows by batch_sharding, its experts expert-parallel: every gradient
+    and updated block, and the loss, within MESH_TOL of a one-process
+    step on the card with moe_ep_plain in the EP group's place (the
+    experts' choices replayed; each update against the reference's);
+    the tensor-core flash forward and backward launched on every rank,
+    as many times as the path runs them; the state saved from (2, 2) and
+    restored onto (4, 1) and as one rank, bitwise; the step's wall, each
+    rank's max_memory_allocated and collectives (count and bytes); the
+    phase within MESH_LIMIT_S."""
+    import torch
+    from repro_torch.configs.base import get_config
+    torch.cuda.empty_cache()
+    cfg = get_config(MESH_ARCH).replace(**MESH_CUT)
+    run = _mesh_run(cfg, "cuda", MESH_ROWS, MESH_SEQ)
+    # a forward a layer and microbatch, and its recomputation; a backward
+    fwd = cfg.n_layers * cfg.train_microbatches * (
+        2 if cfg.remat == "block" else 1)
+    bwd = cfg.n_layers * cfg.train_microbatches
+    for r in run["ranks"]:
+        rel = abs(r["loss"] - run["loss"]) / abs(run["loss"])
+        check(rel <= MESH_TOL and r["grad_err"] <= MESH_TOL
+              and r["update_err"] <= MESH_TOL,
+              f"[mesh] rank {r['rank']}: loss {r['loss']} against "
+              f"{run['loss']}, gradients {r['grad_err']:.3e} and updates "
+              f"{r['update_err']:.3e} of their leaf's largest value")
+        n = r["launches"]
+        check(n["launches"] == n["launches_sm90"] == fwd
+              and n["launches_bwd"] == n["launches_bwd_sm90"] == bwd,
+              f"[mesh] rank {r['rank']} launched {n}, not {fwd} sm90 "
+              f"forwards and {bwd} sm90 backwards")
+        b = r["bitwise"]
+        check(b["mesh"] == b["elastic"] == b["one"] == b["leaves"] > 0,
+              f"[mesh] rank {r['rank']}: of {b['leaves']} leaves "
+              f"{b['mesh']} of its (2, 2) blocks, {b['elastic']} of its "
+              f"(4, 1) blocks and {b['one']} leaves restored as one rank "
+              "bitwise the saved state's")
+    r0 = run["ranks"][0]
+    log(f"[mesh] {MESH_ARCH} at {MESH_CUT['n_layers']} layers, "
+        f"{MESH_ROWS} x {MESH_SEQ} tokens, {cfg.train_microbatches} "
+        f"microbatches, 4 ranks on one card, mesh {MESH_AXES}: loss "
+        + ", ".join(f"{r['loss']:.6f}" for r in run["ranks"])
+        + f" (one process: {run['loss']:.6f}); gradients within "
+        + ", ".join(f"{r['grad_err']:.3e}" for r in run["ranks"])
+        + f" (the worst leaf {r0['grad_worst']}), updates within "
+        + ", ".join(f"{r['update_err']:.3e}" for r in run["ranks"])
+        + f" (the worst leaf {r0['update_worst']}) of their reference "
+        f"leaf's largest value (tolerance {MESH_TOL}, less one ulp of the "
+        "updated weight and lr |r(x) - r(x_ref)|, r(x) = x / (|x| + eps) "
+        "of the two clipped gradients; that term beyond the tolerance at "
+        + ", ".join(f"{r['loose']} of {r['elements']}"
+                    for r in run["ranks"]) + " elements)")
+    log("[mesh] launches a rank (flash forward all / sm90, backward all / "
+        "sm90): " + "; ".join(
+            "rank {rank}: {launches} / {launches_sm90}, {launches_bwd} / "
+            "{launches_bwd_sm90}".format(rank=r["rank"], **r["launches"])
+            for r in run["ranks"]))
+    log("[mesh] the step's wall " + ", ".join(
+        f"{r['step_s']:.3f}" for r in run["ranks"]) + " s; "
+        "max_memory_allocated " + ", ".join(
+        f"{r['max_memory_allocated'] / 2**30:.2f}" for r in run["ranks"])
+        + " GiB; collectives of rank 0 (calls, MB handed to gloo, which "
+        "stages CUDA tensors through host memory, host s in them): "
+        + ", ".join(f"{k} {c} ({b / 1e6:.1f} MB, {t:.2f} s)"
+                    for k, (c, b, t) in r0["collectives"].items())
+        + "; the save's: " + ", ".join(
+            f"{k} {c} ({b / 1e6:.1f} MB, {t:.2f} s)"
+            for k, (c, b, t) in r0["save_collectives"].items()))
+    log(f"[mesh] saved from (2, 2) ({r0['saved_bytes'] / 1e9:.2f} GB, "
+        f"{r0['save_s']:.1f} s), restored onto (4, 1) "
+        f"({r0['restore_elastic_s']:.1f} s) and as one rank by rank 0 "
+        f"({r0['restore_one_s']:.1f} s): {r0['bitwise']['leaves']} leaves, "
+        "every rank's blocks of both meshes and the one-rank restore bitwise "
+        "the saved leaves (numpy's reader, "
+        f"{r0['compare_s']:.1f} s); rank set-up {r0['setup_s']:.1f} s, "
+        f"reference step {run['ref_s']:.1f} s, ranks {run['ranks_s']:.1f} "
+        f"s, phase {run['seconds']:.1f} s (limit {MESH_LIMIT_S} s)")
+    check(run["seconds"] <= MESH_LIMIT_S,
+          f"[mesh] took {run['seconds']:.1f} s, over its {MESH_LIMIT_S} s")
+    return run
+
+
 def gpu_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3933,6 +4413,7 @@ def main(argv=None) -> int:
         lm_times = timed(phase_lm_kernel_times)
         train = timed(phase_train)
         launch = timed(phase_launch, scripts_run)
+        mesh = timed(phase_mesh)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4037,6 +4518,8 @@ def main(argv=None) -> int:
         "ssd_scan_tc"]
     flash["launches_by_arch"] = {
         a: r["launches"].get("flash_attention", 0) for a, r in lm.items()}
+    # [mesh]: the sharded qwen3-moe step's launches on each rank
+    mesh_launches = [r["launches"] for r in mesh["ranks"]]
     # the same kernel at each other family's prefill shape: its launches
     # are those of that family's run
     src, csrc = replaces["flash_attention"]
@@ -4051,6 +4534,9 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "arch": arch, "shape": shape})
+        if arch == MESH_ARCH:
+            kernels[-1]["mesh_launches"] = [
+                m["launches_sm90"] for m in mesh_launches]
     # the backward kernels: no Pallas kernel; they stand for jax.grad of
     # the jnp functions the forward kernels compute.  Launches: the
     # tensor-core routes', [train] (c)'s timed bf16 steps (llama3-8b's for
@@ -4097,6 +4583,8 @@ def main(argv=None) -> int:
                 fam: {"arch": arch, **{k: w[k] for k in (
                     "shape", "ms", "library_ms", "bound_ms", "bound_by")}}
                 for fam, (arch, w) in _family_bwd_times(train).items()}
+            entry["mesh_launches"] = [m["launches_bwd_sm90"]
+                                      for m in mesh_launches]
         kernels.append(entry)
     log("[report] training (bf16, f32 weights; card: " + card + "): "
         + "; ".join(

@@ -18,11 +18,19 @@ does), the sequence-chunked loss (``_xent_sums``, ``lm_loss_from_hidden``,
 (the loss also as functions of it).  Parameters are float32 in the JAX
 package's layout, one :class:`~repro_torch.models.layers.ParamTree` per
 block in an ``nn.ModuleList`` (the JAX package stacks them along a leading
-layer axis and scans; here the layer scan is a Python loop).  Two pieces
-of the JAX module are not carried over, because they do nothing on one
-card:
-``scan_util`` (its unrolled mode only serves XLA's cost analysis) and
-``_x_constraint`` (sharding annotations for a device mesh).
+layer axis and scans; here the layer scan is a Python loop).
+
+Sharded training (``parallel.api.shard_module``, ``train.loop``): each
+parameter is kept as this rank's block of a ``DeviceMesh``, each block's
+weights are gathered whole just before use and dropped after (inside the
+recomputed region under ``remat``; the top-level trees' once for a
+step's microbatches, ``hoisted``), and the loss's sums and token count
+are summed over the data-parallel ranks before the division, as the
+reference takes them over the global batch.  Serving a sharded model is
+not ported (``prefill`` and ``decode_step`` raise).
+Two pieces of the JAX module are not carried over: ``scan_util`` (its
+unrolled mode only serves XLA's cost analysis) and ``_x_constraint``
+(sharding annotations: placement here is explicit).
 
 Caches hold the JAX package's leaves, stacked over layers, with ``pos`` a
 Python int.  ``decode_step`` writes the step into the cache's tensors in
@@ -31,6 +39,8 @@ JAX one that donates its cache, never reuses the old one.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict
 
 import torch
@@ -41,6 +51,7 @@ from repro_torch.core.carry import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import ParamTree, cdtype
+from repro_torch.parallel import api as par
 
 Cache = Dict[str, Any]
 
@@ -333,7 +344,18 @@ def lm_loss_from_hidden(params, hidden, labels, cfg, chunk=1024):
         logits = layers.logits_apply(params, hidden[:, c0:c0 + C], cfg)
         s, k = _xent_sums(logits, labels[:, c0:c0 + C])
         tot, n = tot + s, n + k
+    tot, n = par.dp_sum(tot), par.dp_sum(n)
     return tot / n.clamp_min(1)
+
+
+def _in_context(fn, context, plans, p, *args, **kw):
+    """``fn`` under the mesh context ``context`` (``parallel.api
+    .active()``: the one the block's forward ran under, again when it is
+    recomputed), on the gathered weights of ``p`` when sharded (``plans``:
+    its ``gather_plans``)."""
+    with par.reentered(context):
+        return fn(p if plans is None else par.gathered(p, plans), *args,
+                  **kw)
 
 
 def _moe_cache_keys(cfg):
@@ -374,6 +396,11 @@ class Transformer(nn.Module):
                 ParamTree(block_init(gen, cfg, device)) for _ in range(n)))
         if cfg.family == "encdec":
             self.enc_norm = ParamTree(layers.norm_init(cfg.d_model, device))
+        # set by parallel.api.shard_module: the DeviceMesh whose ranks hold
+        # the parameters as blocks; set by train.loop for a step's
+        # microbatches: the top-level trees' leaves gathered once
+        self.mesh = None
+        self.hoisted = None
 
     # the JAX package's top-level keys, for layers.logits_apply
     def __getitem__(self, key):
@@ -399,19 +426,49 @@ class Transformer(nn.Module):
 
     def _inputs(self, tokens, patches=None):
         """Token embeddings, after the patch embeddings for vlm."""
-        x = layers.embed_apply(self.embed["tok"], tokens, self.cfg)
+        x = layers.embed_apply(self._top("embed")["tok"], tokens, self.cfg)
         if self.cfg.family == "vlm":
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
 
-    def _block(self, fn, *args, **kw):
-        """``fn(*args, **kw)``, a block of a layer stack; with ``cfg.remat
-        == "block"`` and autograd recording, under activation
-        checkpointing (``jax.checkpoint``'s counterpart: the block's
-        forward runs again in the backward pass; no number changes)."""
+    def _block(self, fn, p, *args, **kw):
+        """``fn(p, *args, **kw)``, a block of a layer stack (sharded:
+        ``fn`` of ``p``'s gathered weights), under the mesh context it was
+        called in; with ``cfg.remat == "block"`` and autograd recording,
+        under activation checkpointing (``jax.checkpoint``'s counterpart:
+        the block's forward, its gathers too, runs again in the backward
+        pass; no number changes)."""
+        plans = None if self.mesh is None else self.gather_plans
+        fn = functools.partial(_in_context, fn, par.active(), plans)
         if self.cfg.remat == "block" and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
-        return fn(*args, **kw)
+            return checkpoint(fn, p, *args, use_reentrant=False, **kw)
+        return fn(p, *args, **kw)
+
+    def _top(self, key):
+        """The top-level tree ``key`` (``embed``, ``final_norm``, ...),
+        gathered when sharded (or taken from ``hoisted``)."""
+        if self.mesh is None:
+            return self[key]
+        return par.gathered(self[key], self.gather_plans, self.hoisted)
+
+    def _head(self):
+        """What ``layers.logits_apply`` reads: the model, or (sharded) its
+        final norm and LM head gathered once for every sequence chunk."""
+        if self.mesh is None:
+            return self
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return {k: self._top(k) for k in ("final_norm", key)}
+
+    def _on_mesh(self):
+        """The sharded model's mesh as the active one (its ranks run the
+        EP branch and the data-parallel sums); nothing in one process."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return par.mesh_context(self.mesh)
+
+    def _unsharded(self, what: str):
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} of a sharded model")
 
     def _encode(self, frames):
         """Encoder over precomputed frame embeddings (frontend stub)."""
@@ -421,7 +478,8 @@ class Transformer(nn.Module):
         for p in self.enc_blocks:
             x = self._block(_dense_block_apply, p, x, positions, cfg,
                             causal=False)
-        return layers.rms_norm(x, self.enc_norm["scale"], cfg.norm_eps)
+        return layers.rms_norm(x, self._top("enc_norm")["scale"],
+                               cfg.norm_eps)
 
     def forward_hidden(self, tokens, patches=None, frames=None,
                        tgt_tokens=None):
@@ -430,12 +488,17 @@ class Transformer(nn.Module):
         ``tokens``; encdec takes ``frames`` (B,Ssrc,D) and ``tgt_tokens``
         (B,S) of the same length (the blocked cross-attention's).
         Autograd records it unless the caller turns it off."""
+        with self._on_mesh():
+            return self._forward_hidden(tokens, patches, frames, tgt_tokens)
+
+    def _forward_hidden(self, tokens, patches, frames, tgt_tokens):
         cfg = self.cfg
         fam = cfg.family
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if fam == "encdec":
             enc = self._encode(frames)
-            x = layers.embed_apply(self.embed["tok"], tgt_tokens, cfg)
+            x = layers.embed_apply(self._top("embed")["tok"], tgt_tokens,
+                                   cfg)
             positions = self._positions(x)
             for p in self.dec_blocks:
                 x = self._block(_encdec_block_apply, p, x, enc, positions,
@@ -468,7 +531,13 @@ class Transformer(nn.Module):
     def loss_and_metrics(self, batch):
         """batch: the family's dict of tensors (``tokens`` and ``labels``;
         vlm also ``patches``; encdec ``frames``, ``tokens`` and ``labels``)
-        -> (loss, {"loss", "xent", "aux"}), float32 scalars."""
+        -> (loss, {"loss", "xent", "aux"}), float32 scalars.  Sharded,
+        each rank passes its rows and every rank gets the global batch's
+        loss."""
+        with self._on_mesh():
+            return self._loss_and_metrics(batch)
+
+    def _loss_and_metrics(self, batch):
         fam = self.cfg.family
         if fam == "encdec":
             hidden, aux = self.forward_hidden(None, frames=batch["frames"],
@@ -480,7 +549,8 @@ class Transformer(nn.Module):
             hidden = hidden[:, batch["patches"].shape[1]:]
         else:
             hidden, aux = self.forward_hidden(batch["tokens"])
-        xent = lm_loss_from_hidden(self, hidden, batch["labels"], self.cfg)
+        xent = lm_loss_from_hidden(self._head(), hidden, batch["labels"],
+                                   self.cfg)
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
 
@@ -489,6 +559,7 @@ class Transformer(nn.Module):
         """Process the prompt (``batch["tokens"]`` (B,S); vlm also
         ``batch["patches"]``; encdec ``batch["frames"]`` alone, then one
         BOS decode step); returns (last-position logits (B,V), cache)."""
+        self._unsharded("prefill")
         cfg = self.cfg
         fam = cfg.family
         dt = cdtype(cfg)
@@ -581,6 +652,7 @@ class Transformer(nn.Module):
         tensors.  A caller that needs the old cache afterwards (a branch,
         a retry) clones it first.  The JAX package's ``decode_step`` is
         functional instead."""
+        self._unsharded("decode_step")
         cfg = self.cfg
         fam = cfg.family
         pos = int(cache["pos"])

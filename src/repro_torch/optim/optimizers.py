@@ -24,6 +24,15 @@ does, keeps its state in JAX's stacked layout keyed by the leaf's path,
 and splits the update back.  The schedule's arithmetic is float32 as
 jnp's (``b1 ** step`` of a float32 step, the learning rate of
 ``step + 1``).
+
+Sharded (``shardings``: {parameter name: spec} and ``mesh``, a
+``DeviceMesh``; ``train.loop``), each rank holds its block of each
+tensor: AdamW works on the blocks element by element; the global norm
+and Adafactor's row, column and RMS statistics span the whole leaf,
+each element counted once (a block replicated over an axis only by the
+ranks at coordinate 0 of it), summed over the mesh; Adafactor's state
+stays whole on every rank, as the reference's ``param_shardings``
+replicates it.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch.models.convert import leaf_groups, leaf_key
+from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
 
 f32 = torch.float32
 
@@ -71,13 +82,65 @@ def _stacked(tensors: Dict[str, torch.Tensor], names: List[str]):
     return torch.stack([tensors[n] for n in names])
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+class _Blocks:
+    """Where a leaf's blocks lie on the mesh: sums of partial statistics
+    over the ranks, each element of the leaf counted once."""
+
+    def __init__(self, shardings, mesh, names):
+        self.ranks = par.mesh_ranks(mesh)
+        spec = shardings[names[0]]
+        # the stacked leaf's spec: its layer axis unsplit
+        self.spec = spec if leaf_key(names[0])[1] < 0 else (None,) + spec
+        self.counted = self.ranks.first_replica(self.spec)
+
+    def total(self, part):
+        """The sum over the mesh of each rank's ``part`` (float32)."""
+        part = part if self.counted else torch.zeros_like(part)
+        return coll.sum_over(part.float(), self.ranks.group(
+            self.ranks.names))
+
+    def shape(self, block_shape):
+        """The whole leaf's shape of a block's."""
+        return tuple(b * par.block_index(e, self.ranks.axes,
+                                         self.ranks.coord)[1]
+                     for b, e in zip(block_shape, self.spec))
+
+    def where(self, shape, drop=None):
+        """This rank's block's slices in a leaf of ``shape``, without
+        dimension ``drop`` (a statistic reduced over it)."""
+        spec = [e for i, e in enumerate(self.spec)
+                if drop is None or i != drop % len(self.spec)]
+        return par.block_slices(shape, spec, self.ranks.axes,
+                                self.ranks.coord)
+
+    def whole(self, part, shape, drop=None):
+        """The statistic of ``shape`` whose block here is ``part`` (summed
+        over the blocks that share its place: the ones split along the
+        reduced dimension ``drop``)."""
+        full = torch.zeros(shape, dtype=f32, device=part.device)
+        full[self.where(shape, drop)] = part
+        return self.total(full)
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        shardings=None, mesh=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before clipping): the squares summed per JAX leaf, then over the
-    leaves in the tree's order, in float32."""
-    total = 0
+    leaves in the tree's order, in float32 (sharded: each leaf's over its
+    blocks, one sum over the mesh)."""
+    parts = []
     for names in leaf_groups(grads).values():
         s = sum(grads[n].float().square().sum() for n in names)
+        if mesh is not None and not _Blocks(shardings, mesh,
+                                            names).counted:
+            s = torch.zeros_like(s)
+        parts.append(s)
+    if mesh is not None:
+        ranks = par.mesh_ranks(mesh)
+        parts = coll.sum_over(torch.stack(parts),
+                              ranks.group(ranks.names)).unbind(0)
+    total = 0
+    for s in parts:
         total = total + s
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
@@ -91,7 +154,7 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
                 "v": {k: torch.zeros_like(p, dtype=f32)
                       for k, p in params.items()}}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shardings=None, mesh=None):
         dev = next(iter(params.values())).device
         step = _f32(step + 1, dev)
         lr = lr_fn(step)
@@ -115,7 +178,8 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_threshold=1.0,
               weight_decay=0.0):
     """Factored Adafactor (no first moment) — O(rows+cols) state for
     matrices instead of O(rows*cols).  State: JAX leaf path -> ``{"vr",
-    "vc"}`` (factored) or ``{"v"}``, in the JAX leaf's stacked shape."""
+    "vc"}`` (factored) or ``{"v"}``, in the JAX leaf's stacked shape
+    (whole on every rank when sharded)."""
 
     def init(params):
         state = {}
@@ -131,7 +195,7 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_threshold=1.0,
                 state[path] = {"v": torch.zeros_like(p, dtype=f32)}
         return state
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shardings=None, mesh=None):
         dev = next(iter(params.values())).device
         step = _f32(step + 1, dev)
         lr = lr_fn(step)
@@ -141,18 +205,40 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_threshold=1.0,
             s = state[path]
             g = _stacked(grads, names).float()
             g2 = g.square() + eps
+            at = None if mesh is None else _Blocks(shardings, mesh, names)
+
+            def mean(t, dim):
+                """``t.mean(dim)`` over the whole leaf."""
+                if at is None:
+                    return t.mean(dim)
+                shape = list(at.shape(t.shape))
+                n = shape.pop(dim)
+                return at.whole(t.sum(dim), shape, dim) / n
+
             if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, -1)
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, -2)
                 r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+                if at is not None:
+                    r = r[at.where(r.shape, -1)]
+                    vc_ = vc[at.where(vc.shape, -2)]
+                else:
+                    vc_ = vc
                 u = g * torch.rsqrt(r)[..., None] \
-                    * torch.rsqrt(vc)[..., None, :]
+                    * torch.rsqrt(vc_)[..., None, :]
                 new_state[path] = {"vr": vr, "vc": vc}
             else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g * torch.rsqrt(v)
+                g2_ = g2 if at is None else at.whole(
+                    g2, at.shape(g2.shape))
+                v = beta * s["v"] + (1 - beta) * g2_
+                u = g * torch.rsqrt(v if at is None else v[at.where(
+                    v.shape)])
                 new_state[path] = {"v": v}
-            rms = torch.sqrt(u.square().mean() + 1e-12)
+            if at is None:
+                rms = torch.sqrt(u.square().mean() + 1e-12)
+            else:
+                rms = torch.sqrt(at.total(u.square().sum())
+                                 / math.prod(at.shape(u.shape)) + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 u = u + weight_decay * _stacked(params, names).detach().float()

@@ -16,13 +16,28 @@ divide the corresponding array dimension is dropped (e.g. 8 KV heads on a
 The port's parameters are one tensor per layer, where the reference
 stacks a layer stack's tensors along a leading axis; a per-layer tensor's
 spec is the reference's spec of its stacked leaf without that leading
-entry (:func:`param_spec`).  The port's models carry no sharding
-constraints (one card runs a layer loop), so :func:`shard_activation`
+entry (:func:`param_spec`).
+
+Placement on the ranks of a process group (a ``DeviceMesh`` over the
+default group, ``launch.mesh``): :func:`shard` gives a rank its block of
+a leaf for a spec, each entry's axes splitting the dimension in
+mesh-coordinate order, first axis major, as ``jax.device_put`` does with a
+``NamedSharding``; :func:`unshard` is its inverse, a gather over the axes
+the spec names; :func:`batch_rows` gives a rank its rows of a batch by
+:func:`batch_sharding`; :func:`shard_module` keeps a module's parameters
+as this rank's blocks.  :class:`MeshRanks` holds a rank's coordinate and
+a process group for every set of the mesh's axes.  Placement is explicit,
+so the models carry no sharding constraints: :func:`shard_activation`
 checks its spec against the active mesh and returns its input as it is;
-outside a :func:`mesh_context` it is a no-op, as in the reference.
+outside a :func:`mesh_context` it is a no-op, as in the reference.  A
+:func:`mesh_context` of a ``DeviceMesh`` runs a sharded model on its
+ranks (:func:`current_ranks`); one of a mapping of axis sizes makes a
+model in one process compute what such a mesh computes (the MoE layer's
+expert-parallel capacity, ``models.moe.moe_ep_plain``).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import re
 import threading
@@ -30,8 +45,9 @@ from contextlib import contextmanager
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.convert import leaf_key
+from repro_torch.parallel import collectives as coll
 
 _state = threading.local()
 
@@ -50,10 +66,13 @@ LOGICAL_AXES = {
 
 
 def mesh_axes(mesh) -> Dict[str, int]:
-    """``{axis name: size}`` of ``mesh``: a mapping as it is, or a
-    ``DeviceMesh`` by its dimension names."""
+    """``{axis name: size}`` of ``mesh``: a mapping as it is, a
+    :class:`MeshRanks`' axes, or a ``DeviceMesh`` by its dimension
+    names."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
+    if isinstance(mesh, MeshRanks):
+        return dict(mesh.axes)
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
@@ -61,14 +80,59 @@ def current_mesh() -> Optional[Dict[str, int]]:
     return getattr(_state, "mesh", None)
 
 
+def current_ranks() -> Optional["MeshRanks"]:
+    """The ranks of the active :func:`mesh_context`'s ``DeviceMesh``
+    (None in one process)."""
+    return getattr(_state, "ranks", None)
+
+
 @contextmanager
 def mesh_context(mesh):
-    prev = getattr(_state, "mesh", None)
+    """The active mesh: a mapping of axis sizes, or a ``DeviceMesh`` (or
+    its :class:`MeshRanks`), whose ranks then run the sharded model
+    together (every rank enters the context)."""
+    prev = (getattr(_state, "mesh", None), getattr(_state, "ranks", None))
     _state.mesh = mesh_axes(mesh)
+    _state.ranks = None if isinstance(mesh, Mapping) else mesh_ranks(mesh)
     try:
         yield mesh
     finally:
-        _state.mesh = prev
+        _state.mesh, _state.ranks = prev
+
+
+def active():
+    """The active mesh context, to enter again (:func:`reentered`) where
+    code runs later, as a recomputed block in the backward pass does."""
+    return (current_mesh(), current_ranks())
+
+
+@contextmanager
+def reentered(saved):
+    prev = (current_mesh(), current_ranks())
+    _state.mesh, _state.ranks = saved
+    try:
+        yield
+    finally:
+        _state.mesh, _state.ranks = prev
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over (``dp``'s)."""
+    return tuple(a for a in LOGICAL_AXES["dp"] if a in mesh_axes(mesh))
+
+
+def dp_size(mesh) -> int:
+    axes = mesh_axes(mesh)
+    return math.prod(axes[a] for a in dp_axes(axes))
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data-parallel ranks of the active mesh
+    (:func:`collectives.all_reduce`); ``x`` itself in one process."""
+    ranks = current_ranks()
+    if ranks is None:
+        return x
+    return coll.all_reduce(x, ranks.group(dp_axes(ranks)))
 
 
 def _physical(logical, axes: Mapping[str, int]):
@@ -172,6 +236,13 @@ def param_logical_axes(path: str, ndim: int) -> Tuple:
     return (None,) * ndim
 
 
+def leaf_key(name: str):
+    """``models.convert.leaf_key`` (imported where it is called: that
+    module imports the model, whose MoE layer imports this one)."""
+    from repro_torch.models.convert import leaf_key as key
+    return key(name)
+
+
 def param_spec(name: str, shape, mesh, prefix: str = "") -> Spec:
     """The spec of the port's parameter ``name`` (``blocks.3.attn.wq``)
     of ``shape``: its JAX leaf path's (``blocks/attn/wq``, after
@@ -189,8 +260,9 @@ def param_shardings(tree, mesh, prefix: str = ""):
     gives ``{parameter name: spec}`` (:func:`param_spec`); a dict is
     walked, its keys joined into the path with ``/`` (a key that names a
     parameter, as an optimizer state's moments do, is read as
-    :func:`param_spec` reads it); other leaves (a step count) give
-    ``()``."""
+    :func:`param_spec` reads it); an array (a tensor, or a numpy array of
+    the JAX package's layout) by its path; other leaves (a step count)
+    give ``()``."""
     if isinstance(tree, torch.nn.Module):
         return {n: param_spec(n, p.shape, mesh, prefix)
                 for n, p in tree.named_parameters()}
@@ -199,7 +271,7 @@ def param_shardings(tree, mesh, prefix: str = ""):
                     if isinstance(v, torch.Tensor) and "." in k
                     else param_shardings(v, mesh, f"{prefix}{k}/"))
                 for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, torch.Tensor) or hasattr(tree, "ndim"):
         path = prefix.rstrip("/")
         return resolve_spec(param_logical_axes(path, tree.ndim), tree.shape,
                             mesh)
@@ -240,3 +312,256 @@ def cache_sharding(cache_tree, mesh):
         return resolve_spec(tuple(axes), shape, mesh)
 
     return {k: one(v) for k, v in cache_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Placement on the ranks of a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` names, in its order."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def block_index(entry, axes: Mapping[str, int], coord: Mapping[str, int],
+                only=None) -> Tuple[int, int]:
+    """(index, count) of the block at ``coord`` of a dimension split over
+    ``entry``'s axes (those in ``only``, when given), the first major."""
+    idx, n = 0, 1
+    for a in _entry_axes(entry):
+        if only is None or a in only:
+            idx, n = idx * axes[a] + coord[a], n * axes[a]
+    return idx, n
+
+
+def block_slices(shape, spec: Spec, axes: Mapping[str, int],
+                 coord: Mapping[str, int], only=None) -> Tuple[slice, ...]:
+    """The slices of the block at ``coord`` of a leaf of ``shape``."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        i, n = block_index(entry, axes, coord, only)
+        size = dim // n
+        out.append(slice(i * size, (i + 1) * size))
+    return tuple(out)
+
+
+class MeshRanks:
+    """A rank's place on a ``DeviceMesh`` that spans the default process
+    group: its coordinate (``coord``), every rank's (``coord_of``), and a
+    process group for every set of the mesh's axes, whose members (the
+    ranks that differ from this one on those axes alone) are in rank order,
+    which is mesh-coordinate order.  Building one creates those groups, so
+    every rank builds it at once (:func:`mesh_ranks`)."""
+
+    def __init__(self, mesh):
+        layout = mesh.mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        self.axes = dict(zip(self.names, layout.shape))
+        self.world = layout.numel()
+        if not dist.is_initialized() or dist.get_world_size() != self.world:
+            raise RuntimeError(f"a {self.axes} mesh needs a process group "
+                               f"of {self.world} ranks")
+        self.rank = dist.get_rank()
+        self.coord_of = {
+            int(layout[idx]): dict(zip(self.names, idx))
+            for idx in itertools.product(*(range(n) for n in layout.shape))}
+        self.coord = self.coord_of[self.rank]
+        self._groups = {}
+        for r in range(1, len(self.names) + 1):
+            for sub in itertools.combinations(self.names, r):
+                rest = [a for a in self.names if a not in sub]
+                for fixed in itertools.product(
+                        *(range(self.axes[a]) for a in rest)):
+                    members = sorted(
+                        k for k, c in self.coord_of.items()
+                        if all(c[a] == v for a, v in zip(rest, fixed)))
+                    g = dist.new_group(members) if len(members) > 1 else None
+                    if self.rank in members:
+                        self._groups[sub] = (g, members)
+
+    def _key(self, axes) -> Tuple[str, ...]:
+        return tuple(a for a in self.names if a in tuple(axes))
+
+    def group(self, axes):
+        """The process group of this rank and those that differ from it
+        on ``axes`` alone (None: this rank alone)."""
+        key = self._key(axes)
+        return self._groups[key][0] if key else None
+
+    def members(self, axes):
+        key = self._key(axes)
+        return self._groups[key][1] if key else [self.rank]
+
+    def first_replica(self, spec: Spec) -> bool:
+        """Whether this rank is at coordinate 0 on every axis ``spec``
+        leaves replicated (one rank of each set of equal blocks)."""
+        named = spec_axes(spec)
+        return all(self.coord[a] == 0 for a in self.names if a not in named)
+
+    def plan(self, spec: Spec, block_shape, keep=()):
+        """(the shape, each member's place in it, the gathering group, the
+        summing group) of the gather of a leaf whose block here is of
+        ``block_shape``: over the axes ``spec`` names but those in
+        ``keep`` (whose block each rank keeps), its gradient then summed
+        over the axes ``spec`` does not name."""
+        gather = tuple(a for a in spec_axes(spec) if a not in keep)
+        for e in spec:
+            ax = _entry_axes(e)
+            if any(a in keep for a in ax) and any(a in gather for a in ax):
+                raise ValueError(f"entry {e} is partly kept: {spec}")
+        shape = tuple(b * block_index(e, self.axes, self.coord, gather)[1]
+                      for b, e in zip(block_shape, spec))
+        places = [block_slices(shape, spec, self.axes, self.coord_of[m],
+                               gather) for m in self.members(gather)]
+        rest = [a for a in self.names if a not in spec_axes(spec)]
+        return shape, places, self.group(gather), self.group(rest)
+
+
+_RANKS: Dict[int, Tuple[object, MeshRanks]] = {}
+
+
+def mesh_ranks(mesh) -> MeshRanks:
+    """The :class:`MeshRanks` of a ``DeviceMesh`` (built on first use, by
+    every rank at once)."""
+    if isinstance(mesh, MeshRanks):
+        return mesh
+    hit = _RANKS.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        hit = (mesh, MeshRanks(mesh))
+        _RANKS[id(mesh)] = hit
+    return hit[1]
+
+
+def coordinate(mesh) -> Dict[str, int]:
+    """This rank's coordinate on ``mesh`` (a ``DeviceMesh``)."""
+    return dict(mesh_ranks(mesh).coord)
+
+
+def shard(x: torch.Tensor, spec: Spec, mesh, coord=None) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` (a copy): the block at
+    ``coord`` (default: this rank's on the ``DeviceMesh`` ``mesh``; with
+    a mapping of axis sizes, ``coord`` is required)."""
+    axes = mesh_axes(mesh)
+    coord = coordinate(mesh) if coord is None else coord
+    return x[block_slices(x.shape, spec, axes, coord)].clone()
+
+
+def unshard(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """:func:`shard`'s inverse: the leaf of which ``block`` is this rank's
+    block, gathered over the axes ``spec`` names.  Its gradient is summed
+    into each rank's block over those axes and then over the axes ``spec``
+    does not name: the transpose of a sharded input's gather, as
+    ``jax.grad`` takes it."""
+    return coll.unshard(block, *mesh_ranks(mesh).plan(spec, block.shape))
+
+
+def unshard_to(block: torch.Tensor, spec: Spec, mesh, dst: int = 0
+               ) -> Optional[torch.Tensor]:
+    """The leaf of which ``block`` is this rank's block, whole on the host
+    of global rank ``dst`` (None on the other ranks): gathered there over
+    the axes ``spec`` names from the ranks that hold the blocks ``dst``
+    holds copies of (the others take no part)."""
+    ranks = mesh_ranks(mesh)
+    shape, places, group, _ = ranks.plan(spec, block.shape)
+    if dst not in ranks.members(spec_axes(spec)):
+        return None
+    got = coll.gather_to_host(block, group, dst)
+    if got is None:
+        return None
+    out = torch.empty(shape, dtype=block.dtype)
+    for place, b in zip(places, got):
+        out[place] = b
+    return out
+
+
+def batch_rows(batch, mesh):
+    """This rank's rows of a batch (a tensor or a dict of them): each
+    leaf's block for :func:`batch_sharding`."""
+    specs = batch_sharding(batch, mesh)
+    if isinstance(batch, dict):
+        return {k: shard(v, specs[k], mesh) for k, v in batch.items()}
+    return shard(batch, specs, mesh)
+
+
+#: expert leaves: when their experts are split over the ``model`` axis,
+#: each rank runs its own experts, gathered over the other axes alone
+#: (``models.moe``'s expert-parallel branch; the reference's ``shard_map``
+#: takes them by ``P(ep)``)
+EXPERT_LEAF = re.compile(r"moe/(wi|wg|wo)$")
+#: the embedding table: its rows are looked up before they are cast, so it
+#: is gathered in float32 (its gradient sums a frequent token's rows in
+#: float32, as the reference's does)
+LOOKED_UP = re.compile(r"embed/tok$")
+
+
+def shard_module(module: torch.nn.Module, mesh, compute_dtype=None):
+    """Keep each parameter of ``module`` (whole on every rank) as this
+    rank's block for :func:`param_spec` on the ``DeviceMesh`` ``mesh``.
+    Sets ``module.mesh`` and ``module.shardings`` ({name: spec}), and
+    ``module.gather_plans`` ({parameter: (:meth:`MeshRanks.plan`, the
+    dtype it is gathered in)}): an expert leaf split over the ``model``
+    axis keeps its block of the experts and is gathered over the other
+    axes (:data:`EXPERT_LEAF`); a leaf of two or more dimensions
+    (each used as ``compute_dtype``) but the embedding table is cast to it
+    before the gather, as XLA casts a sharded operand before gathering
+    it."""
+    ranks = mesh_ranks(mesh)
+    module.mesh, module.shardings, module.gather_plans = mesh, {}, {}
+    for name, p in list(module.named_parameters()):
+        spec = param_spec(name, p.shape, mesh)
+        owner, _, leaf = name.rpartition(".")
+        p = torch.nn.Parameter(shard(p.detach(), spec, mesh),
+                               requires_grad=p.requires_grad)
+        module.get_submodule(owner)._parameters[leaf] = p
+        path = leaf_key(name)[0]
+        keep = (("model",) if EXPERT_LEAF.search(path)
+                and spec[0] == "model" else ())
+        dtype = (compute_dtype if compute_dtype and p.ndim >= 2
+                 and not LOOKED_UP.search(path) else p.dtype)
+        module.shardings[name] = spec
+        module.gather_plans[p] = (ranks.plan(spec, p.shape, keep), dtype)
+    return module
+
+
+def gathered(tree: torch.nn.Module, plans, hoisted=None) -> Dict:
+    """A parameter tree (``models.layers.ParamTree``) of a sharded module
+    as a nested dict of its gathered leaves (``gather_plans``); a
+    parameter in ``hoisted`` ({parameter: its gathered leaf}) is taken from
+    there."""
+    out = {k: gathered(m, plans, hoisted) for k, m in tree._modules.items()}
+    for k, p in tree._parameters.items():
+        if hoisted and p in hoisted:
+            out[k] = hoisted[p]
+            continue
+        (shape, places, group, rest), dtype = plans[p]
+        out[k] = coll.unshard(p, shape, places, group, rest, dtype)
+    return out
+
+
+def hoist(module: torch.nn.Module, names) -> Dict:
+    """{parameter: its gathered leaf, a tensor of its own that takes a
+    gradient} for ``names`` of a sharded module: gathered once for
+    several uses (a step's microbatches), its gradient summed over them
+    and then reduced into the block (:func:`reduce_hoisted`)."""
+    params = dict(module.named_parameters())
+    out = {}
+    for n in names:
+        p = params[n]
+        (shape, places, group, rest), dtype = module.gather_plans[p]
+        with torch.no_grad():
+            full = coll.unshard(p, shape, places, group, rest, dtype)
+        out[p] = full.requires_grad_(True)
+    return out
+
+
+def reduce_hoisted(module: torch.nn.Module, p, grad) -> torch.Tensor:
+    """The block's gradient of a hoisted leaf's gradient ``grad``."""
+    (_, places, group, rest), _ = module.gather_plans[p]
+    return coll.reduce_block(grad, places, group, rest, p.dtype)

@@ -2,7 +2,13 @@
 
 The counterpart of ``repro.runtime.coordinator``: a copy but for the
 default checkpoint of :func:`run_with_restarts`, which writes a train
-state of the port in the JAX package's layout (:func:`_tree`).
+state of the port in the JAX package's layout (:func:`_tree`), and for
+its ranks: under a process group of several ranks (a sharded state,
+``train.loop``) every rank takes the same action, so a failure on any
+rank restores every rank (:func:`_on_every_rank`) and the monitor reads
+rank 0's wall clock on each (:func:`_rank0`); each rank hands the store
+its blocks, which rank 0 gathers and writes, and restores its own blocks
+(``ckpt.store``).
 
 Three cooperating pieces, each unit-tested with injected faults:
 
@@ -25,20 +31,66 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import store
 from repro_torch.models import convert
 
 
-def _tree(state):
-    """What a checkpoint holds of ``state``: a train state of the port
-    (``{"params": Transformer, "opt", "step"}``) in the JAX package's
-    layout (``convert.train_state_to_jax``), so either package restores
-    the other's checkpoints; any other tree as it is."""
+def _group() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _flag(value, dtype) -> torch.Tensor:
+    """A one-element tensor where the group's backend takes it."""
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return torch.tensor([value], dtype=dtype, device=dev)
+
+
+def _on_every_rank(step_fn, step):
+    """``step_fn(step)``, raising :class:`WorkerFailure` on every rank
+    when it raised on any (one flag summed over the ranks)."""
+    failed = False
+    try:
+        step_fn(step)
+    except WorkerFailure:
+        failed = True
+    if _group():
+        flag = _flag(int(failed), torch.int64)
+        dist.all_reduce(flag)
+        failed = bool(flag.item())
+    if failed:
+        raise WorkerFailure(f"a rank failed at step {step}")
+
+
+def _rank0(seconds: float) -> float:
+    """Rank 0's ``seconds`` on every rank (each rank's own clock would
+    flag a straggler on some ranks and not others)."""
+    if not _group():
+        return seconds
+    t = _flag(seconds, torch.float64)
+    dist.broadcast(t, 0)
+    return float(t.item())
+
+
+def _tree(state, like: bool = False):
+    """What a checkpoint holds of ``state`` and the store's keywords that
+    place it: a train state of the port (``{"params": Transformer, "opt",
+    "step"}``) in the JAX package's layout (``convert.train_state_to_jax``),
+    so either package restores the other's checkpoints; sharded, as this
+    rank's blocks with their specs, which the store gathers to rank 0 to
+    write and restores as each rank's blocks; any other tree as it is."""
     if isinstance(state, dict) and isinstance(state.get("params"),
                                               torch.nn.Module):
-        return convert.train_state_to_jax(state)
-    return state
+        model = state["params"]
+        kw = {}
+        if model.mesh is not None:
+            kw = {"shardings": {"state": convert.train_state_specs(state)},
+                  "mesh": model.mesh}
+            if like:
+                kw["device"] = model.device
+        return convert.train_state_to_jax(state, like), kw
+    return state, {}
 
 
 def _untree(tree, state):
@@ -89,12 +141,14 @@ def run_with_restarts(step_fn: Callable[[int], Dict], *, state_ref: Dict,
     failures = restores = 0
 
     def _save(step):
-        tree = {"state": _tree(state_ref["state"]), "data": data.state_dict()}
-        store.save(ckpt_dir, step, tree)
+        state, kw = _tree(state_ref["state"])
+        tree = {"state": state, "data": data.state_dict()}
+        store.save(ckpt_dir, step, tree, **kw)
 
     def _restore():
-        like = {"state": _tree(state_ref["state"]), "data": data.state_dict()}
-        tree, step = store.restore(ckpt_dir, like)
+        state, kw = _tree(state_ref["state"], like=True)
+        like = {"state": state, "data": data.state_dict()}
+        tree, step = store.restore(ckpt_dir, like, **kw)
         state_ref["state"] = _untree(tree["state"], state_ref["state"])
         data.load_state_dict(tree["data"])
         return step
@@ -107,7 +161,7 @@ def run_with_restarts(step_fn: Callable[[int], Dict], *, state_ref: Dict,
     while step < n_steps:
         t0 = time.perf_counter()
         try:
-            step_fn(step)
+            _on_every_rank(step_fn, step)
         except WorkerFailure:
             failures += 1
             if failures > max_failures:
@@ -115,7 +169,7 @@ def run_with_restarts(step_fn: Callable[[int], Dict], *, state_ref: Dict,
             step = restore_fn()
             restores += 1
             continue
-        monitor.observe(time.perf_counter() - t0)
+        monitor.observe(_rank0(time.perf_counter() - t0))
         step += 1
         if step % ckpt_every == 0:
             save_fn(step)

@@ -19,6 +19,36 @@ packages, each writing what it computed to an npz.
 The inputs are drawn with numpy from fixed seeds (:func:`inputs`), so
 both packages see the same numbers.  Importing this module imports
 neither JAX nor the JAX package.
+
+The sharded-training scenarios of tests/test_torch_mesh.py, on a
+(data 2, model 4) mesh (:data:`MESH`), float32, at the smoke widths:
+
+* ``python tests/_torch_dist.py mesh DIR`` (and ``deep DIR`` beside it,
+  deepseek-v3-smoke's sharded step with Adafactor, ``DIR/jax_deep.npz``):
+  writes ``DIR/jax_mesh.npz``,
+  the JAX package on 8 host devices: the gradient-carrying collectives
+  (``all_gather``, ``psum_scatter``, ``psum`` in ``shard_map``, each
+  forward and ``jax.grad``); llama3-smoke's train step, unsharded and
+  sharded (the reference's ``scenario_sharded_train_matches``: its
+  initial state, the placed state's ``addressable_shards``, the loss and
+  the updated state); qwen3-moe-smoke's loss dense and expert-parallel
+  with ``jax.grad`` of the latter (``scenario_moe_ep_matches_dense``) and
+  its sharded train step with 2 microbatches; and llama3-smoke's
+  parameters saved from the (2, 4) mesh (``DIR/jax_ckpt``,
+  ``scenario_elastic_restore``).
+* :func:`torch_mesh_worker`: rank ``rank`` of the port's run of the same
+  on 8 gloo ranks (``DIR/mesh_rank<r>.npz``): each rank's outputs,
+  gradients and blocks; deepseek-v3-smoke's step (Adafactor) sharded and
+  in one process; the JAX checkpoint restored onto (4, 2); the port's own
+  (2, 4) save (``DIR/port_ckpt``) and its restore onto (4, 2).
+* ``python tests/_torch_dist.py mesh-check DIR``: the JAX package
+  restores the port's checkpoint onto (4, 2) and (1, 1)
+  (``DIR/jax_restored.npz``).
+
+The training CLI on 4 ranks (tests/test_torch_scripts_launch_train_mesh.py):
+``python tests/_torch_dist.py cli DIR ARGS...`` runs the reference's on 4
+host devices (:func:`jax_cli_main`), :func:`torch_cli_worker` the port's
+on 4 gloo ranks from the reference's initial state.
 """
 import os
 import sys
@@ -222,5 +252,468 @@ def jax_main(out_dir: str):
     np.savez(Path(out_dir) / "jax.npz", **out)
 
 
+# ---------------------------------------------------------------------------
+# Sharded training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh of the sharded scenarios, and the one of the elastic restore
+MESH, MESH_B = {"data": 2, "model": 4}, {"data": 4, "model": 2}
+MESH_WORLD = 8
+#: the reference scenarios' batch: 8 rows of 32 tokens
+ROWS, SEQ = 8, 32
+#: the collectives' per-rank block
+BLOCK = (4, 6)
+CKPT_STEP = 3
+#: steps of the run_with_restarts scenario
+RESTART_STEPS = 2
+
+
+def collective_inputs() -> dict:
+    """x and the loss weights of each collective, as global arrays
+    whose (data, model) blocks are the ranks' (a rank's block of the
+    all-gather's weights is its block of the gathered shape)."""
+    r = np.random.default_rng(7)
+    rows, cols = MESH["data"] * BLOCK[0], MESH["model"] * BLOCK[1]
+    return {"x": r.normal(size=(rows, cols)).astype(np.float32),
+            "c_ag": r.normal(size=(rows, cols * MESH["model"])).astype(
+                np.float32),
+            "c_rs": r.normal(size=(rows // MESH["data"], cols)).astype(
+                np.float32),
+            "c_ar": r.normal(size=(rows, cols)).astype(np.float32)}
+
+
+def mesh_block(a: np.ndarray, coord) -> np.ndarray:
+    """The (data, model) block of a 2-D global array at ``coord``."""
+    r, c = a.shape[0] // MESH["data"], a.shape[1] // MESH["model"]
+    d, m = coord
+    return a[d * r:(d + 1) * r, m * c:(m + 1) * c]
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as {prefix + "a/b": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def nested(npz, prefix: str) -> dict:
+    """:func:`flat_tree`'s inverse for the keys under ``prefix``."""
+    tree = {}
+    for key in npz:
+        if not key.startswith(prefix):
+            continue
+        node = tree
+        *head, last = key[len(prefix):].split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = npz[key]
+    return tree
+
+
+def jax_mesh_main(out_dir: str, part: str = "mesh"):
+    """The JAX package's side of the sharded scenarios (see the module
+    docstring): ``part`` "mesh" all but deepseek-v3-smoke's step, "deep"
+    that step alone (``DIR/jax_deep.npz``), so that the two can run at
+    once."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={MESH_WORLD}"
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.ckpt import store
+    from repro.configs.base import get_smoke_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models import transformer as T
+    from repro.optim import get_optimizer, warmup_cosine
+    from repro.parallel import api as par
+    from repro.train import loop as train_loop
+
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    mesh = jax.make_mesh(tuple(MESH.values()), tuple(MESH),
+                         axis_types=auto)
+    out = {}
+
+    def shards(tree, prefix):
+        """Every leaf's addressable shards, stacked by device id."""
+        for path, leaf in par._flatten_with_paths(tree)[0]:
+            got = sorted(leaf.addressable_shards, key=lambda s: s.device.id)
+            out[f"{prefix}{path}"] = np.stack([np.asarray(s.data)
+                                               for s in got])
+
+    def batch_of(cfg):
+        ds = SyntheticLM(cfg, DataConfig(SEQ, ROWS, cfg.vocab_size))
+        return {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}
+
+    def sharded_step(cfg, name, microbatches, unsharded=True):
+        opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3))
+        state = train_loop.init_train_state(cfg, opt, jax.random.PRNGKey(0))
+        step = train_loop.make_train_step(cfg, opt,
+                                          microbatches=microbatches)
+        batch = batch_of(cfg)
+        out.update(flat_tree(jax.tree.map(np.asarray, state),
+                             f"{name}/init/"))
+        if unsharded:
+            _, m_ref = jax.jit(step)(jax.tree.map(jnp.copy, state), batch)
+            out[f"{name}/m_ref/loss"] = np.asarray(m_ref["loss"])
+        with par.mesh_context(mesh):
+            st = jax.device_put(state, par.param_shardings(
+                jax.eval_shape(lambda: state), mesh))
+            shards(st["params"], f"{name}/shards/")
+            b = jax.device_put(batch, par.batch_sharding(
+                jax.eval_shape(lambda: batch), mesh))
+            new, m = jax.jit(step)(st, b)
+        out.update(flat_tree(jax.tree.map(np.asarray, new), f"{name}/new/"))
+        for k, v in m.items():
+            out[f"{name}/m/{k}"] = np.asarray(v)
+        return state
+
+    if part == "deep":
+        deep = get_smoke_config("deepseek-v3-671b").replace(dtype="float32")
+        sharded_step(deep, "deep", 1, unsharded=False)
+        np.savez(Path(out_dir) / "jax_deep.npz", **out)
+        return
+
+    # the collectives: each rank's output and jax.grad's block of x
+    ci = collective_inputs()
+    xy = P("data", "model")
+    bodies = {
+        "ag": lambda x: jax.lax.all_gather(x, "model", axis=1, tiled=True),
+        "rs": lambda x: jax.lax.psum_scatter(x, "data", scatter_dimension=0,
+                                             tiled=True),
+        "ar": lambda x: jax.lax.psum(x, "model")}
+    for kind, body in bodies.items():
+        def f(x, c, body=body):
+            def inner(x, c):
+                y = body(x)
+                return jax.lax.psum(jnp.sum(y * c), ("data", "model")), y
+            return jax.shard_map(inner, mesh=mesh, in_specs=(xy, xy),
+                                 out_specs=(P(), xy), check_vma=False)(x, c)
+        x, c = jnp.asarray(ci["x"]), jnp.asarray(ci[f"c_{kind}"])
+        loss, y = jax.jit(f)(x, c)
+        out[f"coll/{kind}/loss"] = np.asarray(loss)
+        out[f"coll/{kind}/y"] = np.asarray(y)
+        out[f"coll/{kind}/grad"] = np.asarray(jax.jit(jax.grad(
+            lambda x, c: f(x, c)[0]))(x, c))
+
+    llama = get_smoke_config("llama3-8b").replace(dtype="float32")
+    state = sharded_step(llama, "llama", 1)
+    qwen = get_smoke_config("qwen3-moe-30b-a3b").replace(dtype="float32")
+    sharded_step(qwen, "qwen_step", 2)
+    # qwen3-moe's loss: dense, and expert-parallel with its gradient
+    params = T.init_params(qwen, jax.random.PRNGKey(0))
+    batch = batch_of(qwen)
+    out.update(flat_tree(jax.tree.map(np.asarray, params), "qwen/init/"))
+    out["qwen/dense_loss"] = np.asarray(T.loss_and_metrics(params, batch,
+                                                           qwen)[0])
+    with par.mesh_context(mesh):
+        p_sh = jax.device_put(params, par.param_shardings(
+            jax.eval_shape(lambda: params), mesh))
+        b_sh = jax.device_put(batch, par.batch_sharding(
+            jax.eval_shape(lambda: batch), mesh))
+        (loss, metrics), g = jax.jit(jax.value_and_grad(
+            lambda p, b: T.loss_and_metrics(p, b, qwen), has_aux=True))(
+                p_sh, b_sh)
+    out["qwen/ep_loss"] = np.asarray(loss)
+    for k, v in metrics.items():
+        out[f"qwen/ep_m/{k}"] = np.asarray(v)
+    out.update(flat_tree(jax.tree.map(np.asarray, g), "qwen/grad/"))
+
+    # llama3-smoke's parameters saved from the (2, 4) mesh
+    p_a = jax.device_put(state["params"], par.param_shardings(
+        jax.eval_shape(lambda: state["params"]), mesh))
+    store.save(str(Path(out_dir) / "jax_ckpt"), CKPT_STEP, {"params": p_a})
+    np.savez(Path(out_dir) / "jax_mesh.npz", **out)
+
+
+def jax_mesh_check(out_dir: str):
+    """The JAX package restores the port's (2, 4) checkpoint onto (4, 2)
+    and (1, 1): ``DIR/jax_restored.npz`` holds both, flattened."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={MESH_WORLD}"
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+
+    from repro.ckpt import store
+    from repro.parallel import api as par
+
+    ref = np.load(Path(out_dir) / "jax_mesh.npz")
+    like = {"params": nested(ref, "llama/init/params/")}
+    mesh_b = jax.make_mesh(tuple(MESH_B.values()), tuple(MESH_B),
+                           axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    d = str(Path(out_dir) / "port_ckpt")
+    out = {}
+    for name, kw in (("b", {"shardings": {"params": par.param_shardings(
+            jax.eval_shape(lambda: like["params"]), mesh_b)}}),
+                     ("one", {})):
+        restored, step = store.restore(d, like, **kw)
+        assert step == CKPT_STEP
+        out.update(flat_tree(jax.tree.map(np.asarray, restored["params"]),
+                             f"{name}/"))
+    # the sharded run_with_restarts' last checkpoint, whole
+    r0 = np.load(Path(out_dir) / "mesh_rank0.npz")
+    like = {"state": nested(r0, "restart/1/"), "data": {"step": 0}}
+    restored, step = store.restore(str(Path(out_dir) / "restart_1"), like)
+    assert step == RESTART_STEPS and restored["data"]["step"] == step
+    out.update(flat_tree(jax.tree.map(np.asarray, restored["state"]),
+                         "restart/"))
+    np.savez(Path(out_dir) / "jax_restored.npz", **out)
+
+
+def torch_mesh_worker(rank: int, world: int, init_file: str, out_dir: str):
+    """Rank ``rank`` of the port's sharded scenarios (see the module
+    docstring)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import store
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import convert
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import loop
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", tuple(MESH.values()),
+                                mesh_dim_names=tuple(MESH))
+        ranks = par.mesh_ranks(mesh)
+        coord = (ranks.coord["data"], ranks.coord["model"])
+        ref = {**np.load(Path(out_dir) / "jax_mesh.npz"),
+               **np.load(Path(out_dir) / "jax_deep.npz")}
+        out = {}
+
+        ci = collective_inputs()
+        world_group = ranks.group(ranks.names)
+        for kind, body in (
+                ("ag", lambda x: coll.all_gather(x, 1,
+                                                 ranks.group(["model"]))),
+                ("rs", lambda x: coll.reduce_scatter(x, 0,
+                                                     ranks.group(["data"]))),
+                ("ar", lambda x: coll.all_reduce(x, ranks.group(["model"])))):
+            x = torch.tensor(mesh_block(ci["x"], coord), requires_grad=True)
+            c = torch.tensor(mesh_block(ci[f"c_{kind}"], coord))
+            y = body(x)
+            loss = coll.all_reduce((y * c).sum(), world_group)
+            loss.backward(torch.tensor(1.0 / world))
+            out[f"coll/{kind}/loss"] = loss.detach().numpy()
+            out[f"coll/{kind}/y"] = y.detach().numpy()
+            out[f"coll/{kind}/grad"] = x.grad.numpy()
+
+        def batch_of(cfg):
+            ds = SyntheticLM(cfg, DataConfig(SEQ, ROWS, cfg.vocab_size))
+            return loop.to_device(ds.batch_at(0), "cpu")
+
+        def restarted_run(cfg, fail):
+            from repro_torch.runtime.coordinator import (WorkerFailure,
+                                                         run_with_restarts)
+            opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3))
+            sref = {"state": loop.shard_train_state(
+                from_jax(cfg, "llama", opt), mesh)}
+            step = loop.make_train_step(cfg, opt)
+            data = SyntheticLM(cfg, DataConfig(SEQ, ROWS, cfg.vocab_size))
+            failed = []
+
+            def one_step(i):
+                sref["state"], _ = step(sref["state"], par.batch_rows(
+                    loop.to_device(data.batch_at(i), "cpu"), mesh))
+                data.step = i + 1
+                if fail and i == 1 and rank == 3 and not failed:
+                    failed.append(i)
+                    raise WorkerFailure("rank 3 lost")
+
+            stats = run_with_restarts(
+                one_step, state_ref=sref, data=data, n_steps=RESTART_STEPS,
+                ckpt_dir=str(Path(out_dir) / f"restart_{int(fail)}"),
+                ckpt_every=1)
+            return stats, sref["state"]
+
+        def whole(model, tensors):
+            """Blocks keyed by parameter name, gathered, as the JAX
+            tree."""
+            return convert.jax_tree({n: par.unshard(
+                t.detach(), model.shardings[n], mesh)
+                for n, t in tensors.items()})
+
+        def gathered(state):
+            """A sharded train state whole, in the JAX layout (numpy)."""
+            model, opt = state["params"], state["opt"]
+            return {"params": whole(model, dict(model.named_parameters())),
+                    "opt": ({k: whole(model, opt[k]) for k in ("m", "v")}
+                            if set(opt) == {"m", "v"}
+                            else convert.opt_state_to_jax(opt)),
+                    "step": np.asarray(state["step"], np.int32)}
+
+        def from_jax(cfg, name, opt):
+            return convert.train_state_from_jax(
+                nested(ref, f"{name}/init/"),
+                loop.init_train_state(cfg, opt, device="cpu"))
+
+        def sharded_step(cfg, name, microbatches):
+            opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3))
+            state = loop.shard_train_state(from_jax(cfg, name, opt), mesh)
+            model = state["params"]
+            for n, p in model.named_parameters():
+                out[f"{name}/block/{n}"] = p.detach().numpy().copy()
+            step = loop.make_train_step(cfg, opt, microbatches=microbatches)
+            state, m = step(state, par.batch_rows(batch_of(cfg), mesh))
+            for k, v in m.items():
+                out[f"{name}/m/{k}"] = v.numpy()
+            out.update(flat_tree(gathered(state), f"{name}/new/"))
+
+        llama = get_smoke_config("llama3-8b").replace(dtype="float32")
+        sharded_step(llama, "llama", 1)
+        qwen = get_smoke_config("qwen3-moe-30b-a3b").replace(dtype="float32")
+        sharded_step(qwen, "qwen_step", 2)
+
+        # deepseek-v3-smoke (MLA, a dense layer, EP, Adafactor: its
+        # statistics over whole leaves) from the reference's state, sharded
+        # and in one process under mesh_context (moe_ep_plain)
+        deep = get_smoke_config("deepseek-v3-671b").replace(dtype="float32")
+        sharded_step(deep, "deep", 1)
+        opt = get_optimizer(deep.optimizer, warmup_cosine(1e-3))
+        step = loop.make_train_step(deep, opt)
+        with par.mesh_context(MESH):
+            one, m_one = step(from_jax(deep, "deep", opt), batch_of(deep))
+        out["deep/one/loss"] = m_one["loss"].numpy()
+        out["deep/one/grad_norm"] = m_one["grad_norm"].numpy()
+        out.update(flat_tree(convert.train_state_to_jax(one), "deep/one/"))
+
+        # run_with_restarts on the ranks: llama3-smoke's sharded state
+        # checkpointed every step, run clean and with rank 3 failing once
+        # after step 1 (its collectives done), so that every rank restores
+        # step 1's checkpoint (each its blocks) and takes step 1 again
+        for fail in (False, True):
+            stats, st = restarted_run(llama, fail)
+            out[f"restart_stats/{int(fail)}"] = np.asarray(
+                [stats[k] for k in ("completed", "failures", "restores")])
+            out.update(flat_tree(gathered(st), f"restart/{int(fail)}/"))
+
+        q = convert.params_from_jax(nested(ref, "qwen/init/"), qwen, "cpu")
+        par.shard_module(q, mesh, torch.float32)
+        metrics, grads = loop.grads_and_metrics(
+            q, par.batch_rows(batch_of(qwen), mesh))
+        for k, v in metrics.items():
+            out[f"qwen/ep_m/{k}"] = v.numpy()
+        out.update(flat_tree(whole(q, grads), "qwen/grad/"))
+
+        # the elastic restore: the reference's (2, 4) save onto (4, 2)
+        # here; the port's own (2, 4) save, and it onto (4, 2)
+        mesh_b = init_device_mesh("cpu", tuple(MESH_B.values()),
+                                  mesh_dim_names=tuple(MESH_B))
+        params = nested(ref, "llama/init/params/")
+        specs_b = par.param_shardings(params, mesh_b)
+        model = convert.params_from_jax(params, llama, "cpu")
+        par.shard_module(model, mesh, torch.float32)
+        store.save(str(Path(out_dir) / "port_ckpt"), CKPT_STEP,
+                   {"params": convert.jax_tree(
+                       dict(model.named_parameters()), host=False)},
+                   shardings={"params": convert.jax_specs(model)}, mesh=mesh)
+        for src in ("jax_ckpt", "port_ckpt"):
+            restored, step = store.restore(
+                str(Path(out_dir) / src), {"params": params},
+                shardings={"params": specs_b}, mesh=mesh_b)
+            assert step == CKPT_STEP
+            out.update(flat_tree(restored["params"], f"restored_b/{src}/"))
+        np.savez(Path(out_dir) / f"mesh_rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The training CLI on several ranks
+# ---------------------------------------------------------------------------
+
+#: ranks (host devices) of the CLI runs: make_elastic_mesh gives (1, 4)
+CLI_WORLD = 4
+
+
+def _cli_arch(argv) -> str:
+    return argv[argv.index("--arch") + 1] if "--arch" in argv \
+        else "llama3-8b"
+
+
+def jax_cli_main(out_dir: str, argv):
+    """``python -m repro.launch.train`` on ``CLI_WORLD`` host devices:
+    ``DIR/cli_jax.txt`` its output, ``DIR/cli_init.npz`` its initial
+    train state (``init_train_state`` at ``PRNGKey(0)``)."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={CLI_WORLD}"
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))
+    import jax
+
+    import script_runs
+    from repro.configs.base import get_smoke_config
+    from repro.launch import train
+    from repro.optim import get_optimizer, warmup_cosine
+    from repro.train import loop
+
+    cfg = get_smoke_config(_cli_arch(argv)).replace(dtype="float32")
+    steps = int(argv[argv.index("--steps") + 1])
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-3, warmup=10,
+                                                     total=steps))
+    state = loop.init_train_state(cfg, opt, jax.random.PRNGKey(0))
+    np.savez(Path(out_dir) / "cli_init.npz",
+             **flat_tree(jax.tree.map(np.asarray, state)))
+    rc, text = script_runs.run_main(train, list(argv) + [
+        "--ckpt-dir", str(Path(out_dir) / "ckpt_jax")])
+    assert rc == 0, text
+    (Path(out_dir) / "cli_jax.txt").write_text(text)
+
+
+def torch_cli_worker(rank: int, world: int, init_file: str, out_dir: str,
+                     argv):
+    """Rank ``rank`` of ``python -m repro_torch.launch.train --device
+    cpu`` on a gloo group of ``world`` ranks, its fresh train state given
+    the reference's (``DIR/cli_init.npz``); rank 0's output to
+    ``DIR/cli_torch.txt``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch
+    import torch.distributed as dist
+
+    import script_runs
+    from repro_torch.launch import train
+    from repro_torch.models.convert import train_state_from_jax
+    from repro_torch.train import loop
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        init = nested(np.load(Path(out_dir) / "cli_init.npz"), "")
+        fresh = loop.init_train_state
+        loop.init_train_state = lambda cfg, opt, device=None: \
+            train_state_from_jax(init, fresh(cfg, opt, device=device))
+        rc, text = script_runs.run_main(train, list(argv) + [
+            "--device", "cpu", "--ckpt-dir", str(Path(out_dir) / "ckpt_pt")])
+        assert rc == 0, text
+        if rank == 0:
+            (Path(out_dir) / "cli_torch.txt").write_text(text)
+        else:
+            assert text == "", text
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    jax_main(sys.argv[1])
+    if sys.argv[1] == "cli":
+        jax_cli_main(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1] in ("mesh", "deep"):
+        jax_mesh_main(sys.argv[2], sys.argv[1])
+    elif sys.argv[1] == "mesh-check":
+        jax_mesh_check(sys.argv[2])
+    else:
+        jax_main(sys.argv[1])

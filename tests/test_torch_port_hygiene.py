@@ -70,48 +70,117 @@ SCHEDULER_DEVICE_LINES = [
 ]
 
 #: runtime/coordinator.py is a copy but for the default checkpoint of
-#: ``run_with_restarts``: (the twin's lines, normalised, -> the port's).  A
-#: train state of the port holds a ``Transformer``, so the default save
-#: and restore write and read it in the JAX package's layout
-#: (``convert.train_state_{to,from}_jax``), which either package restores.
+#: ``run_with_restarts`` and its ranks: (the twin's lines, normalised, ->
+#: the port's).  A train state of the port holds a ``Transformer``, so the
+#: default save and restore write and read it in the JAX package's layout
+#: (``convert.train_state_{to,from}_jax``), which either package restores;
+#: sharded, each rank hands the store its blocks and their specs
+#: (``convert.train_state_specs``) and restores its own blocks; under
+#: several ranks each step's outcome is agreed (a failure on any rank
+#: restores every rank) and the monitor reads rank 0's wall clock.
 COORDINATOR_CKPT_LINES = [
     ('"""Fault tolerance & straggler mitigation for 1000+ node fleets.\n',
-     '"""Fault tolerance & straggler mitigation for 1000+ node fleets.\n\n'
-     "The counterpart of ``repro.runtime.coordinator``: a copy but for the\n"
-     "default checkpoint of :func:`run_with_restarts`, which writes a train\n"
-     "state of the port in the JAX package's layout (:func:`_tree`).\n"),
-    ("import numpy as np\n\nfrom repro_torch.ckpt import store\n",
-     "import numpy as np\nimport torch\n\nfrom repro_torch.ckpt import store"
-     "\nfrom repro_torch.models import convert\n\n\n"
-     "def _tree(state):\n"
-     '    """What a checkpoint holds of ``state``: a train state of the port\n'
-     '    (``{"params": Transformer, "opt", "step"}``) in the JAX package\'s\n'
-     "    layout (``convert.train_state_to_jax``), so either package restores"
-     "\n    the other's checkpoints; any other tree as it is.\"\"\"\n"
+     '"""Fault tolerance & straggler mitigation for 1000+ node fleets.\n'
+     '\n'
+     'The counterpart of ``repro.runtime.coordinator``: a copy but for the\n'
+     'default checkpoint of :func:`run_with_restarts`, which writes a train\n'
+     "state of the port in the JAX package's layout (:func:`_tree`), and for\n"
+     'its ranks: under a process group of several ranks (a sharded state,\n'
+     '``train.loop``) every rank takes the same action, so a failure on any\n'
+     'rank restores every rank (:func:`_on_every_rank`) and the monitor reads\n'
+     "rank 0's wall clock on each (:func:`_rank0`); each rank hands the store\n"
+     'its blocks, which rank 0 gathers and writes, and restores its own blocks\n'
+     '(``ckpt.store``).\n'),
+    ('import numpy as np\n'
+     '\n'
+     'from repro_torch.ckpt import store\n',
+     'import numpy as np\n'
+     'import torch\n'
+     'import torch.distributed as dist\n'
+     '\n'
+     'from repro_torch.ckpt import store\n'
+     'from repro_torch.models import convert\n'
+     '\n'
+     '\n'
+     'def _group() -> bool:\n'
+     '    return dist.is_initialized() and dist.get_world_size() > 1\n'
+     '\n'
+     '\n'
+     'def _flag(value, dtype) -> torch.Tensor:\n'
+     '    """A one-element tensor where the group\'s backend takes it."""\n'
+     '    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"\n'
+     '    return torch.tensor([value], dtype=dtype, device=dev)\n'
+     '\n'
+     '\n'
+     'def _on_every_rank(step_fn, step):\n'
+     '    """``step_fn(step)``, raising :class:`WorkerFailure` on every rank\n'
+     '    when it raised on any (one flag summed over the ranks)."""\n'
+     '    failed = False\n'
+     '    try:\n'
+     '        step_fn(step)\n'
+     '    except WorkerFailure:\n'
+     '        failed = True\n'
+     '    if _group():\n'
+     '        flag = _flag(int(failed), torch.int64)\n'
+     '        dist.all_reduce(flag)\n'
+     '        failed = bool(flag.item())\n'
+     '    if failed:\n'
+     '        raise WorkerFailure(f"a rank failed at step {step}")\n'
+     '\n'
+     '\n'
+     'def _rank0(seconds: float) -> float:\n'
+     '    """Rank 0\'s ``seconds`` on every rank (each rank\'s own clock would\n'
+     '    flag a straggler on some ranks and not others)."""\n'
+     '    if not _group():\n'
+     '        return seconds\n'
+     '    t = _flag(seconds, torch.float64)\n'
+     '    dist.broadcast(t, 0)\n'
+     '    return float(t.item())\n'
+     '\n'
+     '\n'
+     'def _tree(state, like: bool = False):\n'
+     '    """What a checkpoint holds of ``state`` and the store\'s keywords that\n'
+     '    place it: a train state of the port (``{"params": Transformer, "opt",\n'
+     '    "step"}``) in the JAX package\'s layout (``convert.train_state_to_jax``),\n'
+     "    so either package restores the other's checkpoints; sharded, as this\n"
+     "    rank's blocks with their specs, which the store gathers to rank 0 to\n"
+     '    write and restores as each rank\'s blocks; any other tree as it is."""\n'
      '    if isinstance(state, dict) and isinstance(state.get("params"),\n'
-     "                                              torch.nn.Module):\n"
-     "        return convert.train_state_to_jax(state)\n"
-     "    return state\n\n\n"
-     "def _untree(tree, state):\n"
-     '    """``state`` holding the restored ``tree`` (:func:`_tree`\'s '
-     "inverse:\n"
-     "    a port train state's weights are loaded into its model in place)."
-     '"""\n'
+     '                                              torch.nn.Module):\n'
+     '        model = state["params"]\n'
+     '        kw = {}\n'
+     '        if model.mesh is not None:\n'
+     '            kw = {"shardings": {"state": convert.train_state_specs(state)},\n'
+     '                  "mesh": model.mesh}\n'
+     '            if like:\n'
+     '                kw["device"] = model.device\n'
+     '        return convert.train_state_to_jax(state, like), kw\n'
+     '    return state, {}\n'
+     '\n'
+     '\n'
+     'def _untree(tree, state):\n'
+     '    """``state`` holding the restored ``tree`` (:func:`_tree`\'s inverse:\n'
+     '    a port train state\'s weights are loaded into its model in place)."""\n'
      '    if isinstance(state, dict) and isinstance(state.get("params"),\n'
-     "                                              torch.nn.Module):\n"
-     "        return convert.train_state_from_jax(tree, state)\n"
-     "    return tree\n"),
-    ('        tree = {"state": state_ref["state"], "data": data.state_dict()}'
-     "\n",
-     '        tree = {"state": _tree(state_ref["state"]), '
-     '"data": data.state_dict()}\n'),
-    ('        like = {"state": state_ref["state"], "data": data.state_dict()}'
-     "\n",
-     '        like = {"state": _tree(state_ref["state"]), '
-     '"data": data.state_dict()}\n'),
+     '                                              torch.nn.Module):\n'
+     '        return convert.train_state_from_jax(tree, state)\n'
+     '    return tree\n'),
+    ('        tree = {"state": state_ref["state"], "data": data.state_dict()}\n'
+     '        store.save(ckpt_dir, step, tree)\n',
+     '        state, kw = _tree(state_ref["state"])\n'
+     '        tree = {"state": state, "data": data.state_dict()}\n'
+     '        store.save(ckpt_dir, step, tree, **kw)\n'),
+    ('        like = {"state": state_ref["state"], "data": data.state_dict()}\n'
+     '        tree, step = store.restore(ckpt_dir, like)\n',
+     '        state, kw = _tree(state_ref["state"], like=True)\n'
+     '        like = {"state": state, "data": data.state_dict()}\n'
+     '        tree, step = store.restore(ckpt_dir, like, **kw)\n'),
     ('        state_ref["state"] = tree["state"]\n',
-     '        state_ref["state"] = _untree(tree["state"], state_ref["state"])'
-     "\n"),
+     '        state_ref["state"] = _untree(tree["state"], state_ref["state"])\n'),
+    ('            step_fn(step)\n',
+     '            _on_every_rank(step_fn, step)\n'),
+    ('        monitor.observe(time.perf_counter() - t0)\n',
+     '        monitor.observe(_rank0(time.perf_counter() - t0))\n'),
 ]
 
 
