@@ -4,8 +4,8 @@ diff against the baseline dry-run rows.
 On the PyTorch/CUDA port (benchmarks/lm_hillclimb.py's run on
 ``repro_torch``): each cell is counted on the meta device and priced on
 one H100 (``repro_torch.launch.dryrun.run_cell``), and the baseline is the
-port's sweep in ``--dryrun-dir`` (``python -m repro_torch.launch.dryrun``
-writes it).  ``--device`` is the device the run is for (default: the CUDA
+port's one-card sweep in ``--dryrun-dir`` (``python -m
+repro_torch.launch.dryrun --mesh 1x1`` writes its ``__1x1`` rows).  ``--device`` is the device the run is for (default: the CUDA
 card, raising without one; cpu asks for the CPU); the counts do not
 depend on it.
 
@@ -43,7 +43,7 @@ def main(argv=None):
         row = run_cell(arch, shape)
         with open(os.path.join(args.out, f"{arch}__{shape}.json"), "w") as f:
             json.dump(row, f, indent=1)
-        base_p = os.path.join(args.dryrun_dir, f"{arch}__{shape}__sp.json")
+        base_p = os.path.join(args.dryrun_dir, f"{arch}__{shape}__1x1.json")
         if os.path.exists(base_p):
             with open(base_p) as f:
                 base = json.load(f)

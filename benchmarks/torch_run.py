@@ -8,8 +8,10 @@ Prints ``name,us_per_call,derived`` CSV rows (one per figure/design point).
 the suite at CI scale in a few minutes.  ``--suite`` selects a family
 (``figs`` paper figures, ``comm`` interconnect/collectives, ``overlap``
 async-pipeline, ``lm`` serving roofline (the rows of the port's one-card
-dry-run, ``python -m repro_torch.launch.dryrun``, in ``--dryrun-dir``,
-read by benchmarks/lm_roofline.py), ``faults`` fault-injection
+dry-run, ``python -m repro_torch.launch.dryrun --mesh 1x1``, in
+``--dryrun-dir``, read by benchmarks/lm_roofline.py, which reads every row
+there: the production meshes' rows go to a directory of their own),
+``faults`` fault-injection
 availability/goodput, ``cluster`` multi-tenant cluster runtime,
 ``all``); ``--only`` further filters by substring — a filter matching
 nothing is an error listing the valid bench names, not a silent no-op.
@@ -62,7 +64,7 @@ def lm_roofline_table(dryrun_dir: str) -> list:
     if "error" in rows[0]:
         raise FileNotFoundError(
             f"no dry-run rows in {dryrun_dir}; run python -m "
-            f"repro_torch.launch.dryrun --out {dryrun_dir}")
+            f"repro_torch.launch.dryrun --mesh 1x1 --out {dryrun_dir}")
     return rows
 
 

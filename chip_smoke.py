@@ -204,11 +204,30 @@ Phases (any failure exits non-zero and prints no result line):
              python -m repro_torch.launch.train --smoke: exit 0, losses
              falling; run_with_restarts with two injected failures:
              every parameter bit-equal to the run without;
-13. launch — (a) python -m repro_torch.launch.dryrun in a process of its
-             own: every arch x shape row OK or SKIP(policy) (counted on
-             the meta device at full width, priced on the H100), the PIM
-             cell (2,560 DPUs, one cycle_step launch) OK; its wall and each
-             row's compute, memory and bound ms; (b) llama3-8b's and
+13. launch — (a) python -m repro_torch.launch.dryrun in processes of
+             their own (started before [train] at the lowest CPU
+             priority, collected here): the 16x16 mesh's every arch x
+             shape and the
+             2x16x16 mesh's for llama3-8b, mamba2-130m and qwen3-moe
+             (the port's sharded program as ranks all-0 and all-last of a
+             fake group, priced on H100s, each collective over its
+             group's slowest link), each row OK or SKIP(policy), named for
+             its mesh, collective_ms >= 0, the PIM cell on each mesh (its
+             DPUs over the ranks, one vote a K-block); the one-card rows
+             of the hillclimb's architectures and the PIM cell (2,560
+             DPUs, one cycle_step launch); each row's compute, memory,
+             collective ms and GiB a device; (e) the 2,560-DPU VA launch
+             split over four ranks sharing the card (gloo, 640 DPUs a
+             rank on cycle_step's resident route, one vote a K-block;
+             the ranks' CUDA contexts wait without spinning):
+             every rank's block bitwise [system]'s one-process run (its
+             digests), cycle_step launched on every rank, the votes, their
+             bytes, each rank's wall and set-up share; (f) llama3-8b and
+             mamba2-130m at full width, 2 layers, bf16, sharded on a
+             (data 2, model 2) mesh of four ranks: a prefill of 2 x 1,024
+             and 8 decode steps, logits within 2e-2 of a one-process run,
+             the sm90 flash or the tensor-core SSD scan launched once a
+             layer on every rank; the phase within 150 s; (b) llama3-8b's and
              mamba2-130m's prefill_32k sequence cut to 2 layers and batch
              1, bf16, run for real: each wall at least its row's
              max(compute, memory) (a miscounted row fails here), one flash
@@ -221,8 +240,8 @@ Phases (any failure exits non-zero and prints no result line):
              through the scenario's gate, pipeline_apply at one stage equal
              to the stage in sequence; (d) the offload planner's twin among
              [scripts]' golden runs, benchmarks/torch_run.py --suite lm
-             reading (a)'s rows with no error row, the hillclimb twin
-             exit 0 with its cells equal to (a)'s;
+             reading (a)'s one-card rows with no error row, the hillclimb
+             twin exit 0 with its cells equal to (a)'s;
 14. mesh   — sharded training: four ranks sharing the card (processes
              on gloo, a FileStore; started while this process takes the
              reference step), on a (data 2, model 2) mesh, take one step
@@ -562,8 +581,11 @@ def phase_step() -> dict:
     cfg = cases.launch("cross_dpu", 1)[0]
     smem_limit = step_ops.smem_dpus(4, cfg.wram_words,
                                     card_limits(4), cfg.atomic_bits)
+    # cross_pair's program is cross_dpu's, sized by DPU pair for [launch]
+    # (e), which holds its sharded runs to one-process card runs
     runs = [(name, None, STEP_ROUTES, None)
-            for name in sorted(cases.CASES) + ["cache_va"]]
+            for name in sorted(cases.CASES) + ["cache_va"]
+            if not name.startswith("cross_pair")]
     runs += [("cross_dpu", smem_limit, ("resident_smem",), smem_limit),
              ("cross_dpu", limit + 1, ABOVE, None),
              ("cross_dpu", FULL_SYSTEM_DPUS, ABOVE, None),
@@ -916,12 +938,58 @@ def _golden_runs(gold, recordings: dict) -> int:
     return runs + 1
 
 
-def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
+def _run_digests(st, rep=None, timeline=None) -> dict:
+    """sha256 digests of a run, to hold another process's run to it bit
+    for bit: ``state`` {leaf: its bytes, dtype and shape}, and where given
+    the ``KernelReport``'s fields and the ``Timeline``'s (as
+    :func:`_same_report` and :func:`_same_timeline` compare them)."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+
+    def sha(b) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def plain(x):
+        if isinstance(x, np.ndarray):
+            return [str(x.dtype), x.shape, x.tolist()]
+        return np.asarray(x).tolist() if isinstance(x, np.generic) else x
+
+    def leaf(v) -> str:
+        v = np.ascontiguousarray(v)
+        h = hashlib.sha256(v.reshape(-1).view(np.uint8))
+        h.update(repr((v.dtype.str, v.shape)).encode())
+        return h.hexdigest()
+
+    out = {"state": {k: leaf(v) for k, v in st.items()}}
+    if rep is not None:
+        out["report"] = sha(json.dumps(
+            {f.name: plain(getattr(rep, f.name))
+             for f in dataclasses.fields(rep)}, default=plain).encode())
+    if timeline is not None:
+        out["timeline"] = sha(json.dumps(
+            {n: getattr(timeline, n) for n in (
+                "h2d", "kernel", "d2h", "inter_dpu", "retry", "shed",
+                "events", "elapsed", "total")}, default=plain).encode())
+    return out
+
+
+def _digest_diff(got: dict, want: dict) -> list:
+    """What differs between two :func:`_run_digests`."""
+    bad = sorted(k for k in set(got["state"]) | set(want["state"])
+                 if got["state"].get(k) != want["state"].get(k))
+    return bad + [k for k in ("report", "timeline")
+                  if k in want and got.get(k) != want[k]]
+
+
+def _timed_run(cfg, name: str, scale: float, kernel: str,
+               digests: bool = False) -> dict:
     """Workload ``name`` on a card system of ``cfg``, its numpy oracle
     inside ``run()``: the wall, the simulation rate, the launches of the
     ``kernel`` counter, the driver's launches, and the share of the wall
     spent outside the driver's K-step loops (set-up: the state and MRAM
-    image to the card and back, the host's work)."""
+    image to the card and back, the host's work); ``digests``: the final
+    state's, the report's and the timeline's (:func:`_run_digests`)."""
     import torch
     import repro_torch.workloads as wl
     from repro_torch.core import compile_cache
@@ -931,7 +999,7 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
     l0, i0 = getattr(mod, attr), mod.idle_launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, rep = wl.get(name).run(system, 16, scale=scale, seed=0)
+    st, rep = wl.get(name).run(system, 16, scale=scale, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     s1 = compile_cache.stats()
@@ -945,6 +1013,8 @@ def _timed_run(cfg, name: str, scale: float, kernel: str) -> dict:
            f"{kernel}_idle_launches": mod.idle_launches - i0,
            "sim_launches": s1["launches"] - s0["launches"],
            "outside_share": 1.0 - (s1["loop_s"] - s0["loop_s"]) / wall}
+    if digests:
+        res["digests"] = _run_digests(st, rep, system.timeline)
     ran = res[f"{kernel}_launches"] - res[f"{kernel}_idle_launches"]
     check(ran > 0, f"{name} launched no {kernel}")
     check(res[f"{kernel}_idle_launches"] <= res["sim_launches"],
@@ -1473,7 +1543,7 @@ def phase_system() -> dict:
                     mram_bytes=SYSTEM_MRAM)
     reset_launches()
     va, routes = _routes_launched(step_ops.LIB, lambda: _timed_run(
-        cfg, "VA", 1.0, "cycle_step"))
+        cfg, "VA", 1.0, "cycle_step", digests=True))
     launches = read_launches()
     check(routes == {"resident_carry"}, f"the full-system VA launched on "
           f"{routes}, not resident_carry")
@@ -1485,7 +1555,7 @@ def phase_system() -> dict:
     va["idle_launches"] = read_idle()["cycle_step"]
     log(f"[system] VA on {FULL_SYSTEM_DPUS} DPUs x 16 tasklets, 1 MiB MRAM, "
         "scale 1.0 (the reference's full-system cell), oracle ok: "
-        + json.dumps(va))
+        + json.dumps({k: v for k, v in va.items() if k != "digests"}))
     small = _timed_run(cfg.replace(n_dpus=64), "VA", 1.0, "cycle_step")
     va["cycles_64_dpus"] = small["cycles"]
     va["cycles_equal_64"] = small["cycles"] == va["cycles"]
@@ -3603,8 +3673,366 @@ DP_STEPS = 60
 DP_LOSS_TOL = 1e-6
 
 
+#: processes the smoke started in the background, stopped when it ends
+BACKGROUND = []
+#: (a): the dry-runs' processes, on the upper half of the host's cores
+#: (DRYRUN_CORES) beside [train]; 2x16x16 is counted for MP_ARCHS (the
+#: whole of it does not fit beside [train]), the one-card rows for every
+#: architecture, which (d) reads
+DRYRUN_JOBS = {"sp": 3, "mp": 1, "1x1": 1}
+MP_ARCHS = ("llama3-8b", "mamba2-130m", "qwen3-moe-30b-a3b")
+#: [launch] as a whole, checked
+LAUNCH_LIMIT_S = 150.0
+#: (e) and (f): ranks sharing the card (gloo, a FileStore)
+LAUNCH_RANKS = 4
+#: (f): sharded serving on a (data 2, model 2) mesh: each architecture cut
+#: to 2 layers at full width, bf16, a prefill of SERVE_ROWS x SERVE_SEQ
+#: tokens and SERVE_STEPS decode steps, its logits within SERVE_TOL (of
+#: the largest |logit|) of a one-process run on the card
+SERVE_AXES = {"data": 2, "model": 2}
+SERVE_ARCHS = (("llama3-8b", "flash_attention"),
+               ("mamba2-130m", "ssd_scan_tc"))
+SERVE_ROWS, SERVE_SEQ, SERVE_STEPS = 2, 1024, 8
+SERVE_TOL = 2e-2
+SERVE_SEED = 7
+#: (e): cycle_step's cases of a run split over the ranks, on 8 DPUs (2 a
+#: rank), each bitwise a one-process run on the card: the tail-clip DMA,
+#: cross_pair (ranks 0 and 2 replay with the system's DMA windows) and
+#: cross_pair stopped at max_cycles (ranks whose DPUs stopped catch up)
+SHARD_CASES = ("dma_tail_clip", "cross_pair", "cross_pair_max_cycles")
+SHARD_CASE_DPUS = 8
+
+
 def _dryrun_rows(out_dir: Path) -> list:
     return [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+
+
+def _blocking_sync():
+    """This process's CUDA context yields its host core while it waits for
+    the card (``CU_CTX_SCHED_BLOCKING_SYNC`` on device 0's primary
+    context, set before torch makes it): four ranks sharing the card on 8
+    host cores would otherwise spin a core each in every wait."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    dev = ctypes.c_int()
+    set_flags = getattr(cuda, "cuDevicePrimaryCtxSetFlags_v2",
+                        cuda.cuDevicePrimaryCtxSetFlags)
+    rc = cuda.cuInit(0) or cuda.cuDeviceGet(ctypes.byref(dev), 0) \
+        or set_flags(dev, 0x4)
+    check(rc == 0, f"cuDevicePrimaryCtxSetFlags(blocking sync): CUresult "
+          f"{rc}")
+
+
+def _serve_inputs(cfg, device):
+    """(f)'s prompt (SERVE_ROWS x SERVE_SEQ tokens) and decode tokens
+    (SERVE_STEPS x SERVE_ROWS), drawn from SERVE_SEED."""
+    import torch
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_ROWS, SERVE_SEQ),
+                           generator=gen)
+    steps = torch.randint(0, cfg.vocab_size, (SERVE_STEPS, SERVE_ROWS),
+                          generator=gen)
+    return tokens.to(device), steps.to(device)
+
+
+def _serve_model(arch, device):
+    """(f)'s model: ``arch`` at full width and 2 layers, bf16, its random
+    weights drawn on the card from SERVE_SEED."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config(arch).replace(n_layers=2)
+    return cfg, Transformer(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SERVE_SEED))
+
+
+def _serve(model, cfg, rows) -> tuple:
+    """A prefill into a cache with room for SERVE_STEPS more positions
+    and SERVE_STEPS decode steps (``rows``: a tensor's rows this process
+    serves); (the logits of each, float32 on the host, the wall, the
+    cache's position after them, and for a K/V cache the positions this
+    process holds and how many of them hold something)."""
+    import torch
+    tokens, steps = _serve_inputs(cfg, "cuda")
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": rows(tokens)},
+                                  global_batch=SERVE_ROWS,
+                                  capacity=SERVE_SEQ + SERVE_STEPS)
+    out = [logits.float().cpu()]
+    for tok in steps:
+        logits, cache = model.decode_step(cache, rows(tok))
+        out.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kv = {}
+    if "k" in cache:
+        held = cache["k"].float().abs().amax(dim=(0, 1, 3, 4))
+        kv = {"positions": held.numel(), "filled": int((held > 0).sum())}
+    return out, wall, int(cache["pos"]), kv
+
+
+def _serve_reference(tmp) -> dict:
+    """(f)'s one-process runs on the card: each architecture's logits
+    written to ``tmp/serve_<arch>.pt`` for the ranks; the walls."""
+    import torch
+    walls = {}
+    for arch, _ in SERVE_ARCHS:
+        cfg, model = _serve_model(arch, "cuda")
+        logits, walls[arch], pos, kv = _serve(model, cfg, lambda t: t)
+        want = SERVE_SEQ + SERVE_STEPS
+        check(pos == want and kv.get("filled", want) == want,
+              f"[launch] (f) {arch} in one process: position {pos}, K/V "
+              f"written at {kv} positions, not {want}: the decode steps "
+              "did not write past the prompt")
+        torch.save(logits, Path(tmp, f"serve_{arch}.pt"))
+        del model
+        torch.cuda.empty_cache()
+    return walls
+
+
+def _shard_case_digests() -> dict:
+    """(e)'s SHARD_CASES run in this one process on the card: {case: its
+    final state's digests}."""
+    from repro_torch.core import compile_cache
+    from repro_torch.kernels.cycle_step import cases
+    out = {}
+    for name in SHARD_CASES:
+        cfg, binary, wram, mram, T = cases.launch(name, SHARD_CASE_DPUS)
+        out[name] = _run_digests(compile_cache.run(
+            cfg, binary, wram, mram, n_threads=T, device="cuda"))
+    return out
+
+
+def _launch_rank(rank, world, tmp):
+    """[launch] (e) and (f), rank ``rank`` of ``world`` (gloo, a FileStore
+    in ``tmp``; ``tmp/rank<r>.json``), started before and held until the
+    parent's own work on the card is done (``tmp/go``; what to hold the
+    runs to in ``tmp/want.json``).  (e): each of SHARD_CASES with its DPUs
+    split over the ranks (``compile_cache.run_sharded``), its whole final
+    state bitwise the one-process card run's; then the full-system VA
+    through ``PIMSystem(cfg, group=...)``, its 2,560 DPUs 640 a rank (one
+    cycle_step launch a K-block on the resident route, an all-reduce a
+    K-block, the blocks gathered), the whole final state, KernelReport
+    and Timeline bitwise [system]'s one-process run, under its oracle.
+    (f): each of SERVE_ARCHS sharded on a SERVE_AXES mesh, its prefill
+    and decode steps' logits (this rank's rows) against the one-process
+    run's (``tmp/serve_<arch>.pt``), each kernel's launches."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(SRC))
+    _blocking_sync()
+    import torch
+    import torch.distributed as dist
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+    from repro_torch.kernels.cycle_step import cases
+    from repro_torch.kernels.cycle_step import ops as step_ops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models.layers import cdtype
+    from repro_torch.parallel import api as par
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            world_size=world, rank=rank)
+    try:
+        t1 = time.perf_counter()
+        while not Path(tmp, "go").exists():
+            check(time.perf_counter() - t1 < 300, "[launch] (e) the parent "
+                  "did not let the ranks start in 300 s")
+            time.sleep(0.1)
+        torch.cuda.set_device(0)
+        want = json.loads(Path(tmp, "want.json").read_text())
+        group = dist.group.WORLD
+        out = {"rank": rank, "cases": {}}
+
+        def counted(fn):
+            """fn's result, and the sharded runs' counts over it."""
+            s0, l0 = compile_cache.stats(), step_ops.launches
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s1 = compile_cache.stats()
+            n = {k: s1[k] - s0[k] for k in ("votes", "replays",
+                                            "catch_ups", "loop_s")}
+            n.update(launches=step_ops.launches - l0, wall_s=wall)
+            return res, n
+
+        for name in SHARD_CASES:
+            cfg, binary, wram, mram, T = cases.launch(name, SHARD_CASE_DPUS)
+            st, n = counted(lambda: compile_cache.run_sharded(
+                cfg, binary, wram, mram, group, n_threads=T, device="cuda"))
+            n["bad"] = _digest_diff(_run_digests(st), want["cases"][name])
+            out["cases"][name] = n
+        cfg = DPUConfig(n_dpus=FULL_SYSTEM_DPUS, n_tasklets=16,
+                        mram_bytes=SYSTEM_MRAM)
+        system = PIMSystem(cfg, device="cuda", group=group)
+        (st, rep), n = counted(lambda: wl.get("VA").run(
+            system, 16, scale=1.0, seed=0))
+        n["bad"] = _digest_diff(_run_digests(st, rep, system.timeline),
+                                want["va"])
+        n.update(dpus=list(compile_cache.dpu_block(FULL_SYSTEM_DPUS, world,
+                                                   rank)),
+                 vote_bytes=4 * (2 + compile_cache.STEPS_PER_CHECK
+                                 * cfg.superscalar),
+                 setup_share=1.0 - n["loop_s"] / n["wall_s"])
+        out["pim"] = n
+        del st, rep, system
+        torch.cuda.empty_cache()
+        mesh = make_elastic_mesh(model_parallel=SERVE_AXES["model"],
+                                 device_type="cuda")
+        check(par.mesh_axes(mesh) == SERVE_AXES, f"[launch] (f) {mesh}")
+        out["serve"] = {}
+        for arch, kernel in SERVE_ARCHS:
+            cfg, model = _serve_model(arch, "cuda")
+            par.shard_module(model, mesh, cdtype(cfg))
+            torch.cuda.empty_cache()
+            counters = (fops.launches, fops.launches_sm90, sops.launches,
+                        sops.launches_tc)
+            logits, secs, pos, kv = _serve(
+                model, cfg, lambda t: par.batch_rows(t, mesh))
+            launched = [b - a for a, b in zip(counters, (
+                fops.launches, fops.launches_sm90, sops.launches,
+                sops.launches_tc))]
+            ref = [par.batch_rows(w, mesh) for w in torch.load(
+                Path(tmp, f"serve_{arch}.pt"), weights_only=True)]
+            err = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(logits, ref))
+            out["serve"][arch] = {
+                "wall_s": secs, "err": err, "kernel": kernel, "pos": pos,
+                "kv": kv,
+                "launches": dict(zip(("flash_attention", "flash_sm90",
+                                      "ssd_scan", "ssd_scan_tc"), launched)),
+                "finite": all(bool(torch.isfinite(g).all()) for g in logits),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            del model
+            torch.cuda.empty_cache()
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_ranks():
+    """[launch] (e) and (f)'s LAUNCH_RANKS ranks of :func:`_launch_rank`
+    started (a FileStore in a temporary directory), to wait for
+    :func:`_let_ranks_go`: (the temporary directory, the processes'
+    context)."""
+    import tempfile
+    import torch.multiprocessing as tmp_mp
+    tmpdir = tempfile.TemporaryDirectory()
+    ctx = tmp_mp.start_processes(
+        _launch_rank, args=(LAUNCH_RANKS, tmpdir.name),
+        nprocs=LAUNCH_RANKS, join=False, start_method="spawn")
+    return tmpdir, ctx
+
+
+def _let_ranks_go(tmpdir, want: dict):
+    """The ranks of :func:`_start_ranks` started on the card, holding
+    their runs to ``want``."""
+    Path(tmpdir.name, "want.json").write_text(json.dumps(want))
+    Path(tmpdir.name, "go").touch()
+
+
+def _finish_ranks(tmpdir, ctx, system_va: dict, ref_walls: dict) -> dict:
+    """The ranks of :func:`_start_ranks` joined and their results
+    checked: (e) each sharded case's whole state bitwise the one-process
+    card run's, cycle_step launched on every rank, ranks 0 and 2 replaying
+    cross_pair, catch-ups taken in both cross_pair cases; VA's whole
+    state, KernelReport and Timeline bitwise [system]'s run, cycle_step
+    launched on every rank; (f) logits within SERVE_TOL, the decode steps
+    past the prompt, each kernel launched a layer on every rank."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join():
+            pass
+        ranks = [json.loads(Path(tmpdir.name, f"rank{r}.json").read_text())
+                 for r in range(LAUNCH_RANKS)]
+    except Exception as e:
+        raise SmokeError(f"[launch] (e)/(f) {type(e).__name__}: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        tmpdir.cleanup()
+    for name in SHARD_CASES:
+        got = [r["cases"][name] for r in ranks]
+        check(all(not g["bad"] and g["launches"] > 0 for g in got),
+              f"[launch] (e) {name} over {LAUNCH_RANKS} ranks: leaves "
+              f"{[g['bad'] for g in got]} differ from the one-process card "
+              f"run; cycle_step launches {[g['launches'] for g in got]}")
+        if name.startswith("cross_pair"):
+            check(sum(g["catch_ups"] for g in got) > 0, f"[launch] (e) "
+                  f"{name}: no rank caught up {got}")
+    replays = [r["cases"]["cross_pair"]["replays"] for r in ranks]
+    check(replays[0] > 0 and replays[2] > 0, f"[launch] (e) cross_pair: "
+          f"replays {replays}, not on ranks 0 and 2")
+    for r in ranks:
+        e = r["pim"]
+        check(not e["bad"] and e["launches"] > 0 and e["votes"] > 0,
+              f"[launch] (e) VA rank {r['rank']} (DPUs {e['dpus']}): "
+              f"{e['bad']} differ from [system]'s run; {e['launches']} "
+              f"cycle_step launches, {e['votes']} votes")
+        for arch, kernel in SERVE_ARCHS:
+            f = r["serve"][arch]
+            layers = get_config(arch).replace(n_layers=2).n_layers
+            n = f["launches"]
+            want = ({"flash_attention": layers, "flash_sm90": layers,
+                     "ssd_scan": 0, "ssd_scan_tc": 0}
+                    if kernel == "flash_attention" else
+                    {"flash_attention": 0, "flash_sm90": 0,
+                     "ssd_scan": layers, "ssd_scan_tc": layers})
+            room = (SERVE_SEQ + SERVE_STEPS) // SERVE_AXES["model"]
+            check(f["finite"] and f["err"] <= SERVE_TOL and n == want
+                  and f["pos"] == SERVE_SEQ + SERVE_STEPS
+                  and f["kv"].get("positions", room) == room
+                  and f["kv"].get("filled", room) == room,
+                  f"[launch] (f) rank {r['rank']} {arch}: logits "
+                  f"{f['err']:.3e} of the largest off the one-process "
+                  f"run's (finite: {f['finite']}); launches {n}, not "
+                  f"{want}; position {f['pos']}, K/V {f['kv']}")
+    log(f"[launch] (e) {LAUNCH_RANKS} ranks sharing the card (gloo), "
+        f"{SHARD_CASE_DPUS} DPUs: "
+        + "; ".join(f"{name} bitwise the one-process card run, launches "
+                    f"{[r['cases'][name]['launches'] for r in ranks]}, "
+                    f"votes {[r['cases'][name]['votes'] for r in ranks]}, "
+                    f"replays {[r['cases'][name]['replays'] for r in ranks]}"
+                    f", catch-ups "
+                    f"{[r['cases'][name]['catch_ups'] for r in ranks]}"
+                    for name in SHARD_CASES))
+    log(f"[launch] (e) VA on {FULL_SYSTEM_DPUS} DPUs, scale 1.0, through "
+        f"PIMSystem(cfg, group=...) over {LAUNCH_RANKS} ranks sharing the "
+        "card (gloo): on every rank the whole final state, KernelReport "
+        "and Timeline bitwise [system]'s one-process run, oracle ok; "
+        + "; ".join(
+            f"rank {r['rank']} (DPUs {p['dpus'][0]}-{p['dpus'][1] - 1}): "
+            f"{p['launches']} cycle_step launches, {p['votes']} votes of "
+            f"{p['vote_bytes']} bytes, {p['replays']} replays, "
+            f"{p['catch_ups']} catch-ups, wall {p['wall_s']:.3f} s, K-block "
+            f"loop {p['loop_s']:.3f} s, set-up share {p['setup_share']:.3f}"
+            for r, p in ((r, r["pim"]) for r in ranks))
+        + f" (the one-process run: wall {system_va['wall_s']:.3f} s, "
+        f"set-up share {system_va['outside_share']:.3f})")
+    for arch, kernel in SERVE_ARCHS:
+        fs = [r["serve"][arch] for r in ranks]
+        log(f"[launch] (f) {arch} at 2 layers, full width, bf16, sharded "
+            f"on {SERVE_AXES} ({LAUNCH_RANKS} ranks sharing the card): a "
+            f"prefill of {SERVE_ROWS} x {SERVE_SEQ} into a cache of "
+            f"{SERVE_SEQ + SERVE_STEPS} positions and {SERVE_STEPS} decode "
+            f"steps writing positions {SERVE_SEQ}-"
+            f"{SERVE_SEQ + SERVE_STEPS - 1}, logits within "
+            f"{max(f['err'] for f in fs):.3e} of the one-process run's "
+            f"largest (tolerance {SERVE_TOL}); {kernel} launched "
+            f"{[f['launches'] for f in fs]} a rank; K/V positions a rank "
+            f"{[f['kv'] for f in fs]}; walls "
+            f"{[round(f['wall_s'], 3) for f in fs]} s (one process "
+            f"{ref_walls[arch]:.3f} s); max_memory_allocated "
+            f"{[round(f['max_memory_allocated'] / 2**30, 2) for f in fs]} "
+            "GiB")
+    return {"ranks": ranks, "serve_ref_s": ref_walls,
+            "join_s": time.perf_counter() - t0}
 
 
 def _launch_cell(pim_row: Path) -> dict:
@@ -3740,7 +4168,10 @@ def _launch_parallel() -> dict:
     the CPU run's state before it (loss within DP_LOSS_TOL relative), the
     card's own 60 steps through the reference scenario's gate (below 0.05,
     within 0.05 of the CPU's); pipeline_apply at one stage equal to the
-    stage applied in sequence, outputs and gradients."""
+    stage applied in sequence, outputs and gradients; VA on 64 DPUs
+    through ``PIMSystem(cfg, group=...)`` on the NCCL group (its vote and
+    its gather of the blocks on the card) bitwise a run without the group:
+    state, KernelReport and Timeline."""
     import tempfile
     import numpy as np
     import torch
@@ -3781,82 +4212,113 @@ def _launch_parallel() -> dict:
             gerr = float((g_pipe - g_seq).abs().max() / g_seq.abs().max())
             check(err <= 1e-6 and gerr <= 1e-5, f"[launch] (c) pipeline_apply "
                   f"at one stage: outputs {err:.3e} off, gradients {gerr:.3e}")
+            from repro_torch.core import compile_cache
+            from repro_torch.core.host import PIMSystem
+            alone = _system(_full_cfg(), "cuda")
+            st, rep = _va(alone, 16, 0.02)
+            one = _run_digests(st, rep, alone.timeline)
+            grouped = PIMSystem(_full_cfg(), device="cuda",
+                                group=dist.group.WORLD)
+            v0 = compile_cache.stats()["votes"]
+            st, rep = _va(grouped, 16, 0.02)
+            votes = compile_cache.stats()["votes"] - v0
+            bad = _digest_diff(_run_digests(st, rep, grouped.timeline), one)
+            check(not bad and votes > 0, f"[launch] (c) VA through "
+                  f"PIMSystem(group=) on the NCCL group: {bad} differ from "
+                  f"the run without it ({votes} votes)")
         finally:
             dist.destroy_process_group()
     out = {"dp_step_loss_rel": rel, "card_last_loss": card_loss[-1],
            "cpu_last_loss": cpu_loss[-1],
            "free_rel": float(np.max(np.abs(np.subtract(card_loss, cpu_loss))
                                     / np.abs(cpu_loss))),
-           "pipe_err": err, "pipe_grad_rel": gerr,
+           "pipe_err": err, "pipe_grad_rel": gerr, "nccl_votes": votes,
            "seconds": time.perf_counter() - t0}
     log(f"[launch] (c) NCCL and gloo, one rank: quantize_int8 bitwise; "
         f"{DP_STEPS} compressed DP steps on the card from the CPU's states, "
         f"losses within {rel:.3e} relative; the card's own run ended at "
         f"{card_loss[-1]:.6f} (the CPU's {cpu_loss[-1]:.6f}; the free runs "
         f"{out['free_rel']:.3e} apart at most); pipeline_apply at one stage "
-        f"{err:.3e} off in outputs, {gerr:.3e} in gradients; "
+        f"{err:.3e} off in outputs, {gerr:.3e} in gradients; VA on 64 "
+        f"DPUs through PIMSystem(group=) on NCCL ({votes} votes on the "
+        "card) bitwise without it (state, KernelReport, Timeline); "
         f"{out['seconds']:.1f} s")
     return out
 
 
-def phase_launch(scripts_run: dict) -> dict:
-    """[launch] (a) the one-card dry-run in a process of its own (started
-    first: its meta counting runs beside (b) and (c)), (b) a counted cell
-    run for real, (c) the parallel modules on a process group, (d) the
-    report scripts: the offload planner's twin among [scripts]' golden
-    runs, torch_run.py --suite lm reading (a)'s rows, the hillclimb twin
-    re-counting its cells equal to them."""
-    import os
+def _dryrun_cores() -> set:
+    """The host cores (a) pins its dry-runs to: the upper half of this
+    process's, so that [train], which runs beside them, keeps the lower
+    half to itself."""
+    cores = sorted(os.sched_getaffinity(0))
+    return set(cores[len(cores) // 2:])
+
+
+def start_dryruns() -> dict:
+    """[launch] (a)'s dry-runs, each in a process of its own at the lowest
+    CPU priority and pinned to :func:`_dryrun_cores`, started before
+    [train] and collected by [launch]: the 16x16 mesh (every cell and the
+    PIM cell), the 2x16x16 mesh for MP_ARCHS and its PIM cell, and the
+    one-card rows (d) reads (every architecture and the PIM cell on the
+    card); {name: (process, its directory)}, their start time under
+    ``"t0"``."""
+    import tempfile
+    OUT_DIR.mkdir(exist_ok=True)
+    cores = _dryrun_cores()
+
+    def lowly():
+        os.nice(19)
+        os.sched_setaffinity(0, cores)
+
+    out = Path(tempfile.mkdtemp(prefix="dryrun_", dir=OUT_DIR))
+    procs = {"t0": time.perf_counter()}
+    for name, flags in (
+            ("sp", ["--single-pod", "--device", "cpu"]),
+            ("mp", ["--multi-pod", "--with-pim", "--device", "cpu"]
+             + [a for arch in MP_ARCHS for a in ("--arch", arch)]),
+            ("1x1", ["--mesh", "1x1"])):
+        d = out / name
+        with open(out / f"{name}.out", "w") as so, \
+                open(out / f"{name}.err", "w") as se:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                 str(d), "--jobs", str(DRYRUN_JOBS[name])] + flags,
+                env=dict(os.environ, PYTHONPATH=str(SRC)),
+                preexec_fn=lowly, stdout=so, stderr=se), d)
+        BACKGROUND.append(procs[name][0])
+    return procs
+
+
+def _check_mesh_rows(rows: list, mesh: str, archs) -> tuple:
+    """(a)'s rows of ``mesh``: every (arch, shape) of ``archs`` OK or
+    SKIP(policy), named for its mesh, collective_ms >= 0, the PIM cell's
+    consensus priced; (the LM rows OK, the PIM row)."""
+    from repro_torch.configs.base import SHAPES
+    lm = [r for r in rows if r["arch"] in archs]
+    check(sorted((r["arch"], r["shape"]) for r in lm)
+          == sorted((a, sh) for a in archs for sh in SHAPES)
+          and all(r["status"] in ("OK", "SKIP(policy)")
+                  and r["mesh"] == mesh for r in lm),
+          f"[launch] (a) {mesh} rows: "
+          f"{[(r['arch'], r.get('shape'), r['status']) for r in lm]}")
+    ok = [r for r in lm if r["status"] == "OK"]
+    check(all(r["collective_ms"] >= 0 and "bytes_per_device" in r
+              for r in ok), f"[launch] (a) {mesh}: a row without its "
+          "collective or memory terms")
+    (pim,) = [r for r in rows if r["arch"] not in archs]
+    check(pim["status"] == "OK" and pim["mesh"] == mesh
+          and pim["collective_bytes_per_cycle"].get("all-reduce", 0) > 0,
+          f"[launch] (a) the {mesh} PIM cell: {pim}")
+    return ok, pim
+
+
+def _launch_reports(scripts_run: dict, rows: list, one_card: Path) -> str:
+    """[launch] (d) (once (a)'s one-card rows are written): the offload
+    planner's twin among [scripts]' golden runs, torch_run.py --suite lm
+    reading the rows with no error row, the hillclimb twin equal to them;
+    its log line."""
     import tempfile
     sr = _script_runs()
-    t0 = time.perf_counter()
-    OUT_DIR.mkdir(exist_ok=True)
-    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_", dir=OUT_DIR))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
-         str(out_dir)], env=dict(os.environ, PYTHONPATH=str(SRC)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        parallel = _launch_parallel()
-        cells = _launch_cell(out_dir / "pim-engine__fleet_sim__sp.json")
-        stdout, stderr = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    sweep_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"[launch] (a) the dry-run exited "
-          f"{proc.returncode}:\n{stdout[-2000:]}{stderr[-3000:]}")
-    from repro_torch.configs.base import ARCH_IDS, SHAPES
-    rows = _dryrun_rows(out_dir)
-    lm = [r for r in rows if r["arch"] in ARCH_IDS]
-    check(sorted((r["arch"], r["shape"]) for r in lm)
-          == sorted((a, s) for a in ARCH_IDS for s in SHAPES)
-          and all(r["status"] in ("OK", "SKIP(policy)") for r in lm),
-          f"[launch] (a) rows: {[(r['arch'], r.get('shape'), r['status']) for r in lm]}")
-    (pim,) = [r for r in rows if r["arch"] not in ARCH_IDS]
-    check(pim["status"] == "OK" and pim["cycle_step_launches"] == 1
-          and pim["bytes_per_device"]["temp"] is not None,
-          f"[launch] (a) the PIM cell: {pim}")
-    ok = [r for r in lm if r["status"] == "OK"]
-    log(f"[launch] (a) python -m repro_torch.launch.dryrun: {len(ok)} OK, "
-        f"{len(lm) - len(ok)} SKIP(policy), the PIM cell (state "
-        f"{pim['bytes_per_device']['args'] / 2**30:.3f} GiB, "
-        f"{pim['cycle_step_launches']} cycle_step launch, temp "
-        f"{pim['bytes_per_device']['temp'] / 2**20:.1f} MiB); its wall "
-        f"{sweep_s:.1f} s; its last line: {stdout.strip().splitlines()[-1]}")
-    # useful and roofline fraction are the reference's formulas, kept for
-    # parity: model_flops is 2 N a token with N counting the embedding
-    # and the lm_head, which prefill applies to the last position alone,
-    # so a small model's prefill rows read above 1
-    for r in ok:
-        log(f"[launch] (a) {r['arch']} x {r['shape']}: compute "
-            f"{r['compute_ms']} ms, memory {r['memory_ms']} ms, bound "
-            f"{max(r['compute_ms'], r['memory_ms'])} ms by {r['bottleneck']}"
-            f", useful {r['useful_ratio']}, roofline fraction "
-            f"{r['roofline_fraction']} (model_flops over the counted; not "
-            "a share of the card)")
-    # (d)
     runs = {r["key"]: r for r in scripts_run["runs"]}
     planner = runs.get("examples/pim_offload_planner")
     check(planner is not None
@@ -3865,7 +4327,7 @@ def phase_launch(scripts_run: dict) -> dict:
           f"golden runs, or launched no cycle_step: {planner}")
     rc, text = sr.run_main(sr.load_script(ROOT, "benchmarks/run.py",
                                           twin=True),
-                           ["--suite", "lm", "--dryrun-dir", str(out_dir)])
+                           ["--suite", "lm", "--dryrun-dir", str(one_card)])
     name, _, table = text.splitlines()[0].split(",", 2)
     table = json.loads(table)
     check(rc == 0 and name == "lm_roofline" and len(table) == len(rows)
@@ -3874,18 +4336,119 @@ def phase_launch(scripts_run: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         rc, text = sr.run_main(
             sr.load_script(ROOT, "benchmarks/lm_hillclimb.py", twin=True),
-            ["--dryrun-dir", str(out_dir), "--out", tmp])
+            ["--dryrun-dir", str(one_card), "--out", tmp])
     diffs = [line.split(": ", 1)[1].split(" -> ")
              for line in text.splitlines() if " -> " in line]
     check(rc == 0 and len(diffs) == 15 and all(a == b for a, b in diffs),
           f"[launch] (d) torch_lm_hillclimb.py: exit {rc}, {text[-2000:]}")
+    return (f"[launch] (d) the planner twin's golden run in [scripts] "
+            f"({planner['wall_s']:.3f} s, {planner['launches']}); "
+            f"torch_run.py --suite lm: {len(table)} rows, no error; "
+            "torch_lm_hillclimb.py: exit 0, its 3 cells equal to the "
+            "sweep's")
+
+
+def phase_launch(scripts_run: dict, system_run: dict, procs: dict) -> dict:
+    """[launch] (a) the dry-runs of :func:`start_dryruns` (``procs``,
+    started before [train]) collected: the production meshes' sweep
+    (16x16 whole, 2x16x16 for MP_ARCHS, each with its PIM cell) and the
+    one-card rows (d) reads; (e) cycle_step's sharded cases and the
+    full-system PIM cell through ``PIMSystem(group=)`` with their DPUs
+    split over four ranks sharing the card, bitwise one-process runs, and
+    (f) sharded serving on four ranks, both in the ranks' processes,
+    started first and held until this process is done with the card: (c)
+    the parallel modules on a process group, (b) a counted cell run for
+    real (the card its own), (e)'s one-process case runs and (f)'s; then,
+    while the ranks run, (d) the report scripts once the one-card rows
+    are written: the offload planner's twin among [scripts]' golden runs,
+    torch_run.py --suite lm reading the one-card rows, the hillclimb twin
+    re-counting its cells equal to them.  The phase within
+    LAUNCH_LIMIT_S."""
+    from repro_torch.configs.base import ARCH_IDS
+    t0 = time.perf_counter()
+    one_card = procs["1x1"][1]
+    tmpdir, ctx = _start_ranks()
+    try:
+        parallel = _launch_parallel()
+        cells = _launch_cell(one_card / "pim-engine__fleet_sim__1x1.json")
+        case_digests = _shard_case_digests()
+        ref_walls = _serve_reference(tmpdir.name)
+        _let_ranks_go(tmpdir, {"cases": case_digests,
+                               "va": system_run["va"]["digests"]})
+        done = {}
+        for name in ("1x1", "sp", "mp"):
+            proc, d = procs[name]
+            proc.wait(timeout=max(1.0, LAUNCH_LIMIT_S
+                                  - (time.perf_counter() - t0)))
+            stdout = d.with_suffix(".out").read_text()
+            stderr = d.with_suffix(".err").read_text()
+            check(proc.returncode == 0, f"[launch] (a) the {name} dry-run "
+                  f"exited {proc.returncode}:\n{stdout[-2000:]}"
+                  f"{stderr[-3000:]}")
+            done[name] = (_dryrun_rows(d), stdout.strip().splitlines()[-1],
+                          time.perf_counter() - procs["t0"])
+            if name == "1x1":
+                report = _launch_reports(scripts_run, done[name][0],
+                                         one_card)
+        ranks = _finish_ranks(tmpdir, ctx, system_run["va"], ref_walls)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeError(f"[launch] (a) a dry-run outlasted the phase's "
+                         f"{LAUNCH_LIMIT_S} s: {e}") from e
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    rows, last, one_s = done["1x1"]
+    lm = [r for r in rows if r["arch"] in ARCH_IDS]
+    ok = [r for r in lm if r["status"] == "OK"]
+    check(len(lm) == len(ARCH_IDS) * 4 and all(
+        r["status"] in ("OK", "SKIP(policy)") and r["mesh"] == "1x1"
+        for r in lm), f"[launch] (a) one-card rows: "
+          f"{[(r['arch'], r.get('shape'), r['status']) for r in lm]}")
+    (pim,) = [r for r in rows if r["arch"] not in ARCH_IDS]
+    check(pim["status"] == "OK" and pim["cycle_step_launches"] == 1
+          and pim["bytes_per_device"]["temp"] is not None,
+          f"[launch] (a) the one-card PIM cell: {pim}")
+    log(f"[launch] (a) python -m repro_torch.launch.dryrun --mesh 1x1 "
+        f"(every architecture): {len(ok)} OK, "
+        f"{len(lm) - len(ok)} SKIP(policy), the PIM cell "
+        f"(state {pim['bytes_per_device']['args'] / 2**30:.3f} GiB, "
+        f"{pim['cycle_step_launches']} cycle_step launch, temp "
+        f"{pim['bytes_per_device']['temp'] / 2**20:.1f} MiB); collected "
+        f"{one_s:.1f} s after its start (before [train]); its last line: "
+        f"{last}")
+    meshes = {}
+    for name, mesh, archs in (("sp", "16x16", ARCH_IDS),
+                              ("mp", "2x16x16", MP_ARCHS)):
+        mrows, mlast, secs = done[name]
+        mok, mpim = _check_mesh_rows(mrows, mesh, archs)
+        meshes[mesh] = {"rows": mok, "pim": mpim, "done_s": secs}
+        log(f"[launch] (a) python -m repro_torch.launch.dryrun "
+            f"--{'multi' if name == 'mp' else 'single'}-pod: {len(mok)} OK "
+            f"of {len(archs)} architectures x 4 shapes (the rest "
+            f"SKIP(policy)), the PIM cell ({mpim['dpus_per_device']} DPUs a "
+            f"rank, state {mpim['bytes_per_device']['args'] / 2**20:.2f} "
+            f"MiB, {mpim['collective_bytes_per_cycle']} collective bytes a "
+            f"cycle); collected {secs:.1f} s after its start; its last "
+            f"line: {mlast}")
+        for r in mok:
+            gib = sum(r["bytes_per_device"].values()) / 2**30
+            log(f"[launch] (a) {mesh} {r['arch']} x {r['shape']}: compute "
+                f"{r['compute_ms']} ms, memory {r['memory_ms']} ms, "
+                f"collective {r['collective_ms']} ms {r['coll']}, "
+                f"bottleneck {r['bottleneck']}, {gib:.2f} GiB a device, "
+                f"useful {r['useful_ratio']}")
     seconds = time.perf_counter() - t0
-    log(f"[launch] (d) the planner twin's golden run in [scripts] "
-        f"({planner['wall_s']:.3f} s, {planner['launches']}); torch_run.py "
-        f"--suite lm: {len(table)} rows, no error; torch_lm_hillclimb.py: "
-        f"exit 0, its 3 cells equal to the sweep's; phase {seconds:.1f} s")
-    return {"sweep_s": sweep_s, "rows": len(rows), "ok": len(ok),
-            "pim": pim, "cells": cells, "parallel": parallel,
+    log(report + f"; phase {seconds:.1f} s")
+    check(seconds <= LAUNCH_LIMIT_S, f"[launch] took {seconds:.1f} s, over "
+          f"its {LAUNCH_LIMIT_S} s")
+    return {"rows": len(rows), "ok": len(ok), "pim": pim, "cells": cells,
+            "parallel": parallel, "meshes": meshes, "ranks": ranks,
             "seconds": seconds}
 
 
@@ -3956,6 +4519,8 @@ def _mesh_rank(rank, world, tmp, refs, cfg, device):
     # place leave less of it reserved but unused (set before CUDA starts)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     sys.path.insert(0, str(SRC))
+    if device == "cuda":
+        _blocking_sync()
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4411,12 +4976,18 @@ def main(argv=None) -> int:
         timed(phase_lm_parity)
         lm_run = timed(phase_lm_main)
         lm_times = timed(phase_lm_kernel_times)
+        dryruns = start_dryruns()
         train = timed(phase_train)
-        launch = timed(phase_launch, scripts_run)
+        launch = timed(phase_launch, scripts_run, system_run, dryruns)
         mesh = timed(phase_mesh)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     carry = step_run["va_us_per_step"]
     kernels = [{
         "name": "alu_exec", "route": "cuda",
@@ -4448,6 +5019,10 @@ def main(argv=None) -> int:
         + scripts_run["engine_perf"]["launches"]["cycle_step"],
         # [launch] (a): the dry-run's PIM cell, in the dry-run's process
         "launch_launches": launch["pim"]["cycle_step_launches"],
+        # [launch] (e): the full system's DPUs split over four ranks, each
+        # rank's launches (the resident route: K-blocks and catch-ups)
+        "launch_rank_launches": [r["pim"]["launches"]
+                                 for r in launch["ranks"]["ranks"]],
     }, {
         # above the resident limit: the full-system path ([system]'s VA),
         # timed at VA's launch at 2,560 DPUs ([step]) beside stepwise
@@ -4516,6 +5091,12 @@ def main(argv=None) -> int:
     ssd_tc = next(k for k in kernels if k["name"] == "ssd_scan_tc")
     ssd_tc["launch_launches"] = cells["mamba2-130m"]["launches"][
         "ssd_scan_tc"]
+    # [launch] (f): sharded serving, each rank's launches
+    served = [r["serve"] for r in launch["ranks"]["ranks"]]
+    flash["launch_rank_launches"] = [
+        f["llama3-8b"]["launches"]["flash_sm90"] for f in served]
+    ssd_tc["launch_rank_launches"] = [
+        f["mamba2-130m"]["launches"]["ssd_scan_tc"] for f in served]
     flash["launches_by_arch"] = {
         a: r["launches"].get("flash_attention", 0) for a, r in lm.items()}
     # [mesh]: the sharded qwen3-moe step's launches on each rank
@@ -4629,8 +5210,14 @@ def main(argv=None) -> int:
                               carry))
         + f"; smoke {time.perf_counter() - t_start:.1f} s; card: {card}")
     par_run = launch["parallel"]
-    log(f"[report] launch (card: {card}): the dry-run {launch['rows']} rows "
-        f"({launch['ok']} OK) in {launch['sweep_s']:.1f} s; at "
+    meshes = launch["meshes"]
+    log(f"[report] launch (card: {card}): the one-card dry-run "
+        f"{launch['rows']} rows ({launch['ok']} OK); the production meshes "
+        + ", ".join(f"{m} {len(v['rows'])} OK rows collected at "
+                    f"{v['done_s']:.1f} s" for m, v in meshes.items())
+        + "; (e) each rank's wall "
+        + str([round(r["pim"]["wall_s"], 3) for r in launch["ranks"]["ranks"]])
+        + f" s; at "
         f"{LAUNCH_CUT['n_layers']} layers, {LAUNCH_BATCH} x {LAUNCH_SEQ} "
         "tokens: " + "; ".join(
             f"{arch} {c['wall_s']:.4f} s on the card, its row's bound "

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backends
-from repro_torch.core import engine
+from repro_torch.core import engine, isa
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.carry import (resolve_device, state_to_numpy,
                                     state_to_torch)
@@ -170,6 +170,11 @@ _LOCK = threading.Lock()
 _ENTRIES: Dict[tuple, _Entry] = {}
 _HITS = 0
 _MISSES = 0
+# the sharded runs' (run_sharded): votes, replays, catch-ups, loop seconds
+_VOTES = 0
+_REPLAYS = 0
+_CATCH_UPS = 0
+_SHARD_LOOP_S = 0.0
 
 
 def _get_entry(cfg: DPUConfig, be: "backends.ExecBackend", P: int, Dp: int,
@@ -190,12 +195,15 @@ def _get_entry(cfg: DPUConfig, be: "backends.ExecBackend", P: int, Dp: int,
 
 def _padded_state(cfg: DPUConfig, be: "backends.ExecBackend", binary,
                   wram_init, mram_init, T: int, Dp: int,
-                  all_done: bool = False, ndpus_reg: int = None):
+                  all_done: bool = False, ndpus_reg: int = None,
+                  dpu_base: int = 0):
     """Initial state padded to the DPU bucket, masked lanes DONE (host
     numpy).
 
     ``ndpus_reg`` overrides the ``N_DPUS`` register the kernels read —
-    runtime state, not part of any cache key."""
+    runtime state, not part of any cache key; ``dpu_base`` is added to the
+    ``DPU_ID`` register of the scalar engine's DPUs (a rank's block of a
+    sharded run keeps the global ids)."""
     D = cfg.n_dpus
     if Dp != D:
         wram_init = np.concatenate(
@@ -208,6 +216,8 @@ def _padded_state(cfg: DPUConfig, be: "backends.ExecBackend", binary,
         be.pad_lanes(cfg, st, D)                # masked lanes never issue
     if ndpus_reg is not None:
         be.set_ndpus(st, D, ndpus_reg)
+    if dpu_base:
+        st["regs"][:D, :, isa.R_DPU] += dpu_base
     if all_done:
         be.finish_all(st)
     return st
@@ -334,6 +344,289 @@ def prewarm(cfg: DPUConfig, binary, mram_words: int = None,
 
 
 # ---------------------------------------------------------------------------
+# The DPU axis split over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+
+def dpu_block(n_dpus: int, world: int, rank: int) -> tuple:
+    """(first DPU, one past the last) of ``rank``'s block of ``n_dpus``
+    DPUs split over ``world`` ranks in order (the first ``n_dpus %
+    world`` blocks one DPU larger)."""
+    q, r = divmod(n_dpus, world)
+    lo = rank * q + min(rank, r)
+    return lo, lo + q + (rank < r)
+
+
+@dataclass
+class BlockBits:
+    """What a K-block told of a rank's DPUs: ``G``, the first step at
+    which none of them ran (K: some ran through); ``run_after``, whether
+    one still runs after it; per step and issue slot, whether one's DMA
+    was wide (``wide``) and whether one's DMA depends on the window
+    (``clip``, ``engine.StepControl``)."""
+
+    G: int
+    run_after: bool
+    wide: np.ndarray
+    clip: np.ndarray
+
+
+class Shard:
+    """This rank's block of DPUs of a run whose DPU axis is split over the
+    ranks of ``group`` (:func:`dpu_block`): the scalar engine's state of
+    the block (its DPUs keep their global ids and the whole system's
+    ``N_DPUS``), padded to its bucket, on ``device`` (``"meta"``: the
+    state alone, for the dry-run's count).
+
+    The DPUs are not independent: a stopped DPU still takes steps while
+    any DPU runs (``go``), and a DMA's copy window is set by the widest
+    DMA of its issue slot on every DPU, which decides what a DMA of
+    exactly ``small_dma_words`` that reaches the last word of its row (or
+    lies that far below word 0) writes.  Each K-block therefore:
+
+    1. runs its K steps on the block alone (:meth:`block`: ``go`` and the
+       widths its own), recording per step whether a DMA was wide and
+       whether one depended on the window;
+    2. agrees with the other ranks in one all-reduce (:meth:`consensus`,
+       a maximum: whether any DPU runs after the block, the first step at
+       which none ran, and each step's and slot's wide bit);
+    3. where a DMA of this rank depended on the window and the window it
+       took is not the one the whole system took, replays the run from
+       its start with every K-block's agreed widths so far (deterministic;
+       no collective), which must then report what it reported before;
+    4. takes the steps it missed with ``go`` true (the first step at
+       which no DPU of any rank ran, from the first at which none of its
+       own did): its stopped DPUs' retirements, barrier releases, port
+       drains and time series (:meth:`catch_up`).
+
+    Every rank takes part in every vote until no DPU of any rank runs;
+    the next K-block is queued before a vote (:meth:`run`).
+    On the card each K-block is one launch of ``cycle_step`` on the
+    resident route, its widths forced from a device word a step on a
+    replay, and the catch-up a launch of as many steps with ``go`` held
+    true (``ops.CycleStep``'s ``report`` / ``forced`` / ``go_floor``)."""
+
+    def __init__(self, cfg: DPUConfig, binary, wram_init, mram_init,
+                 n_threads: int, group, device=None, ndpus_reg: int = None):
+        import torch.distributed as dist
+
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        lo, hi = dpu_block(cfg.n_dpus, self.world, self.rank)
+        self.lo, self.hi = lo, hi
+        self.cfg = cfg.replace(n_dpus=hi - lo)
+        self.T = n_threads or cfg.n_tasklets
+        self.K = STEPS_PER_CHECK
+        self.SS = cfg.superscalar
+        be = backends.get(resolve_backend(self.cfg))
+        if be.name != "scalar":
+            raise ValueError(f"a sharded run takes the scalar engine, not "
+                             f"{be.name!r}")
+        be.validate(self.cfg, binary, self.T)
+        self._be, self.binary = be, binary
+        self._inputs = (np.ascontiguousarray(np.asarray(
+            wram_init, np.int32)[lo:hi]), np.ascontiguousarray(np.asarray(
+                mram_init, np.int32)[lo:hi]))
+        self._ndpus = cfg.n_dpus if ndpus_reg is None else ndpus_reg
+        self.log = []            # (this rank's BlockBits, agreed BlockBits)
+        self.replays = 0
+        self.catch_ups = 0       # catch-ups taken (on the card, launches)
+        self._start()
+
+    def _start(self):
+        """The block's initial state on the device."""
+        cfg, be = self.cfg, self._be
+        capacity = self.binary.opcode.shape[0]
+        P = program_bucket(self.binary.n_instrs, capacity)
+        Dp = dpu_bucket(cfg.n_dpus)
+        st0 = _padded_state(cfg, be, self.binary, *self._inputs, self.T, Dp,
+                            ndpus_reg=self._ndpus, dpu_base=self.lo)
+        self.st = state_to_torch(st0, self.device)
+        ir_np = np.stack([np.asarray(a[:P], np.int32)
+                          for a in self.binary.arrays])
+        self.ir = torch.from_numpy(ir_np).to(self.device)
+        self.kernel = None
+        if self.device.type == "cuda":
+            from repro_torch.kernels.cycle_step import ops as step_ops
+            self.kernel = step_ops.CycleStep(
+                cfg, self.st, self.ir, ir_np,
+                route="resident", report=True)
+        elif self.device.type != "meta":
+            entry = _get_entry(cfg, be, P, Dp, self.T,
+                               self._inputs[1].shape[1])
+            self.step, self.cond = entry.driver(self.device)
+
+    # ---- one K-block ----
+    def launch(self, forced: np.ndarray = None):
+        """Queue K steps of this rank's DPUs (``forced``: each step's and
+        slot's agreed wide bit, a replay's; None: this rank's own); a
+        token for :meth:`bits` (on the CPU the steps run now)."""
+        if self.kernel is not None:
+            return self.kernel.block(self.K, forced)
+        return self._cpu_block(forced)
+
+    def bits(self, token) -> BlockBits:
+        """The :class:`BlockBits` of the K-block ``token`` stands for."""
+        if self.kernel is not None:
+            return BlockBits(*self.kernel.block_bits(token, self.K))
+        return token
+
+    def block(self, forced: np.ndarray = None) -> BlockBits:
+        return self.bits(self.launch(forced))
+
+    def _cpu_block(self, forced) -> BlockBits:
+        K, SS = self.K, self.SS
+        wide = np.zeros((K, SS), bool)
+        clip = np.zeros((K, SS), bool)
+        G = K
+        for t in range(K):
+            if not bool(self.cond(self.st)):
+                G = t           # the steps left change nothing here
+                break
+            ctl = engine.StepControl(
+                wide=None if forced is None else forced[t])
+            self.st = self.step(self.ir, self.st, ctl)
+            wide[t], clip[t] = ctl.wide_bits, ctl.clip_bits
+        return BlockBits(G, bool(self.cond(self.st)), wide, clip)
+
+    def catch_up(self, n: int) -> None:
+        """``n`` steps with ``go`` true and no DPU of this rank running."""
+        if n <= 0:
+            return
+        self.catch_ups += 1
+        if self.kernel is not None:
+            self.kernel.catch_up(n)
+            return
+        for _ in range(n):
+            self.st = self.step(self.ir, self.st, engine.StepControl(go=True))
+
+    def consensus(self, bits: BlockBits = None) -> BlockBits:
+        """The whole system's :class:`BlockBits` (``clip`` this rank's): a
+        maximum over the ranks of [run_after, G, wide bits], one
+        all-reduce of ``2 + K * superscalar`` int32 (on meta, without
+        ``bits``: the exchange alone, the dry-run's count)."""
+        from repro_torch.parallel import collectives as coll
+
+        n = 2 + self.K * self.SS
+        if bits is None:
+            v = torch.zeros(n, dtype=torch.int32, device="meta")
+            coll.max_over(v, self.group)
+            return None
+        v = np.concatenate([[int(bits.run_after), bits.G],
+                            bits.wide.reshape(-1).astype(np.int32)])
+        dev = _comm_device(self.group, self.device)
+        got = coll.max_over(torch.tensor(v, dtype=torch.int32, device=dev),
+                            self.group).cpu().numpy()
+        return BlockBits(int(got[1]), bool(got[0]),
+                         got[2:].reshape(self.K, self.SS).astype(bool),
+                         bits.clip)
+
+    def _replay(self) -> None:
+        """The run again from its start with every K-block's agreed
+        widths; each block must report what it reported the first time."""
+        self.replays += 1
+        self._start()
+        for mine, agreed in self.log:
+            got = self.block(agreed.wide)
+            if got.G != mine.G or not np.array_equal(got.wide, mine.wide):
+                raise RuntimeError(
+                    "a replay with the system's DMA windows changed this "
+                    "rank's own steps (where its DPUs stop, or their DMAs' "
+                    "widths): the ranks would have to agree again")
+            self.catch_up(agreed.G - got.G)
+
+    def run(self) -> Dict[str, torch.Tensor]:
+        """Every K-block to the end; returns the block's final state (on
+        the device).  ``loop_s``: its wall.
+
+        Block n + 1 is queued before block n's bits are read and agreed:
+        where block n then needs a catch-up, none of this rank's DPUs ran
+        past it, so block n + 1 changed nothing and the catch-up may
+        follow it; where it needs a replay, the replay starts the state
+        again and block n + 1 is queued anew; after the last block it is
+        a launch in which no DPU runs."""
+        t0 = time.perf_counter()
+        pending = self.launch()
+        while True:
+            queued = self.launch()
+            mine = self.bits(pending)
+            agreed = self.consensus(mine)
+            self.log.append((mine, agreed))
+            if (mine.clip & (mine.wide != agreed.wide)).any():
+                self._replay()
+                queued = self.launch()
+            else:
+                self.catch_up(agreed.G - mine.G)
+            if not agreed.run_after:
+                if self.kernel is not None:
+                    torch.cuda.synchronize(self.device)
+                self.loop_s = time.perf_counter() - t0
+                return self.st
+            pending = queued
+
+
+def _comm_device(group, device) -> torch.device:
+    """Where a collective over ``group`` takes its tensors: ``device`` (the
+    card) where the group has an NCCL backend, else the host (gloo)."""
+    import torch.distributed as dist
+
+    if "nccl" in str(dist.get_backend(group)):
+        return torch.device(device)
+    return torch.device("cpu")
+
+
+def gather_blocks(block: Dict[str, np.ndarray], n_dpus: int, group,
+                  device=None) -> Dict[str, np.ndarray]:
+    """The whole system's state from every rank's block (host numpy, this
+    rank's DPU rows): each leaf gathered over ``group`` in rank order (on
+    ``device``, the card, where the group's backend is NCCL)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives as coll
+
+    world = dist.get_world_size(group)
+    spans = [dpu_block(n_dpus, world, r) for r in range(world)]
+    rows = max(hi - lo for lo, hi in spans)
+    dev = _comm_device(group, device or "cpu")
+    out = {}
+    for k, v in block.items():
+        pad = np.zeros((rows,) + v.shape[1:], v.dtype)
+        pad[:v.shape[0]] = v
+        got = torch.stack(coll.gather_blocks(torch.from_numpy(pad).to(dev),
+                                             group)).cpu().numpy()
+        if all(hi - lo == rows for lo, hi in spans):
+            out[k] = got.reshape((world * rows,) + v.shape[1:])
+        else:
+            out[k] = np.concatenate([g[:hi - lo]
+                                     for g, (lo, hi) in zip(got, spans)])
+    return out
+
+
+def run_sharded(cfg: DPUConfig, binary, wram_init, mram_init, group,
+                n_threads: int = None, ndpus_reg: int = None,
+                device=None) -> Dict[str, np.ndarray]:
+    """:func:`run` with the DPU axis split over the ranks of ``group``
+    (:class:`Shard`): every rank calls it with the whole system's
+    arguments and simulates its block.  Returns the whole final state on
+    every rank (:func:`gather_blocks`), host numpy; :func:`stats` counts
+    its votes, replays and catch-ups."""
+    global _VOTES, _REPLAYS, _CATCH_UPS, _SHARD_LOOP_S
+    shard = Shard(cfg, binary, wram_init, mram_init, n_threads, group,
+                  device, ndpus_reg)
+    out = state_to_numpy(shard.run())
+    with _LOCK:
+        _VOTES += len(shard.log)
+        _REPLAYS += shard.replays
+        _CATCH_UPS += shard.catch_ups
+        _SHARD_LOOP_S += shard.loop_s
+    return gather_blocks({k: v[:shard.hi - shard.lo] for k, v in out.items()},
+                         cfg.n_dpus, group, shard.device)
+
+
+# ---------------------------------------------------------------------------
 # introspection (tests + benchmarks)
 # ---------------------------------------------------------------------------
 
@@ -345,7 +638,10 @@ def stats() -> Dict[str, float]:
     steps past the predicate included); ``loop_s`` is the wall seconds
     every driver spent in its K-step loops (on the card, the kernel
     launches and flag reads).  Each but ``entries`` is cumulative until
-    :func:`clear`: a caller reads a run's share as the delta across it."""
+    :func:`clear`: a caller reads a run's share as the delta across it.
+    ``votes``, ``replays`` and ``catch_ups`` count what the ranks of a
+    sharded run (:func:`run_sharded`) agreed, replayed and caught up;
+    its K-block loop's wall is in ``loop_s``."""
     with _LOCK:
         return {
             "entries": len(_ENTRIES),
@@ -353,7 +649,11 @@ def stats() -> Dict[str, float]:
             "misses": _MISSES,
             "launches": sum(e.launches for e in _ENTRIES.values()),
             "steps": sum(e.steps for e in _ENTRIES.values()),
-            "loop_s": sum(e.loop_s for e in _ENTRIES.values()),
+            "loop_s": (sum(e.loop_s for e in _ENTRIES.values())
+                       + _SHARD_LOOP_S),
+            "votes": _VOTES,
+            "replays": _REPLAYS,
+            "catch_ups": _CATCH_UPS,
         }
 
 
@@ -367,8 +667,8 @@ def cache_info():
 
 def clear():
     """Drop every cached driver and zero the counters (tests)."""
-    global _HITS, _MISSES
+    global _HITS, _MISSES, _VOTES, _REPLAYS, _CATCH_UPS, _SHARD_LOOP_S
     with _LOCK:
         _ENTRIES.clear()
-        _HITS = 0
-        _MISSES = 0
+        _HITS = _MISSES = _VOTES = _REPLAYS = _CATCH_UPS = 0
+        _SHARD_LOOP_S = 0.0

@@ -245,8 +245,31 @@ def _pick(cond, x: int, y: int):
 # (D, T) per-thread arrays without reshaping.
 
 
+class StepControl:
+    """What one rank of a sharded run (``compile_cache``'s sharded driver)
+    sets and reads of a step of its block of DPUs.
+
+    Two values of a step cross DPUs: ``go`` (some DPU runs: a stopped DPU
+    still retires DMAs, releases barriers, drains its port and accumulates
+    the time series while others run) and, per issue slot, whether some
+    DPU's DMA is wider than ``small_dma_words`` (the copy window, which
+    decides what a clipped DMA writes).  ``go`` forces the first (None:
+    this rank's own predicate); ``wide`` forces the second, a bool per
+    slot (None: this rank's widest DMA).  After the step ``wide_bits`` and
+    ``clip_bits`` hold, per slot, whether one of this rank's DMAs was wide
+    and whether one was of exactly ``small_dma_words`` reaching the last
+    word of its destination row or lying that far below word 0: the only
+    DMA whose result depends on the window (host bools)."""
+
+    def __init__(self, go=None, wide=None):
+        self.go = go
+        self.wide = wide
+        self.wide_bits = []
+        self.clip_bits = []
+
+
 def _dma_copy(C: StepConsts, cfg: DPUConfig, wram, mram, do_dma, a, breg,
-              size, is_w):
+              size, is_w, ctl: StepControl = None):
     """Functional DMA copy of this issue slot, in place on WRAM/MRAM.
 
     The reference runs a 64-word or a 512-word masked copy, picked by
@@ -259,11 +282,22 @@ def _dma_copy(C: StepConsts, cfg: DPUConfig, wram, mram, do_dma, a, breg,
     M = mram.shape[1]
     small = cfg.small_dma_words
     sz = size * do_dma
-    nw = torch.where((sz.amax() + 3) >> 2 <= small, small, MAX_DMA_BYTES // 4)
-    last = nw - 1
-    kc = torch.minimum(C.kk, last)                            # (1, nwin)
+    wide = (sz.amax() + 3) >> 2 > small
     wb0 = (a * do_dma) >> 2                                   # (D, 1)
     mb0 = (breg * do_dma) >> 2
+    if ctl is not None:
+        b0 = torch.where(is_w, mb0, wb0)
+        top = torch.where(is_w, M - 1, W - 1)
+        clip = do_dma & ((sz + 3) >> 2 == small) \
+            & ((b0 + small - 1 >= top) | (b0 <= -small))
+        ctl.wide_bits.append(bool(wide))
+        ctl.clip_bits.append(bool(clip.any()))
+        if ctl.wide is not None:
+            wide = torch.tensor(bool(ctl.wide[len(ctl.wide_bits) - 1]),
+                                device=sz.device)
+    nw = torch.where(wide, MAX_DMA_BYTES // 4, small)
+    last = nw - 1
+    kc = torch.minimum(C.kk, last)                            # (1, nwin)
     wc = (wb0 + kc).clamp(0, W - 1).to(torch.int64)
     mc = (mb0 + kc).clamp(0, M - 1).to(torch.int64)
     mask = kc < (sz + 3) >> 2
@@ -286,7 +320,7 @@ def _dma_copy(C: StepConsts, cfg: DPUConfig, wram, mram, do_dma, a, breg,
 
 
 def _issue_one(cfg: DPUConfig, C: StepConsts, img, st, cycle1, running,
-               already, slot_block):
+               already, slot_block, ctl: StepControl = None):
     """Try to issue one instruction per DPU.  Returns (st, issued,
     hazard, issued_mask); ``cycle1`` is the cycle as a (D, 1) column."""
     D, T = st["status"].shape
@@ -413,7 +447,7 @@ def _issue_one(cfg: DPUConfig, C: StepConsts, img, st, cycle1, running,
     # functional copy now (timing handled by the DRAM engine); data-race-free
     # programs observe identical results
     mram = st["mram"]
-    _dma_copy(C, cfg, wram, mram, do_dma, a, breg, size, is_sdma)
+    _dma_copy(C, cfg, wram, mram, do_dma, a, breg, size, is_sdma, ctl)
 
     # ---- control flow ----
     eq = a == b
@@ -618,14 +652,17 @@ def make_cond(cfg: DPUConfig):
     return cond
 
 
-def _step(cfg: DPUConfig, C: StepConsts, ir, st):
-    """One simulated cycle: the new state."""
+def _step(cfg: DPUConfig, C: StepConsts, ir, st, ctl: StepControl = None):
+    """One simulated cycle: the new state (``ctl``: a rank's
+    :class:`StepControl` of a sharded run)."""
     img = C.decode(ir)
     cycle = st["cycle"]
     D = cycle.shape[0]
     cycle1 = cycle.view(D, 1)
     running = _running(cfg, st)
     go = running.any()
+    if ctl is not None and ctl.go is not None:
+        go = torch.tensor(bool(ctl.go), device=go.device)
 
     st = _dram_step(cfg, C, st, cycle, cycle1, go)
 
@@ -647,7 +684,7 @@ def _step(cfg: DPUConfig, C: StepConsts, ir, st):
     slot_block = torch.zeros_like(running)
     for s in range(cfg.superscalar):
         st, valid, hazard, im = _issue_one(
-            cfg, C, img, st, cycle1, running, already, slot_block)
+            cfg, C, img, st, cycle1, running, already, slot_block, ctl)
         issued_any = issued_any | valid
         already = im if already is None else (already | im)
         # an RF-hazard instruction consumes the second read slot:
@@ -675,8 +712,8 @@ def make_step_traced(cfg: DPUConfig, n_threads: int = None, device=None):
     C = StepConsts(cfg, n_threads or cfg.n_tasklets,
                    resolve_device(device))
 
-    def step(ir, st):
-        return _step(cfg, C, ir, st)
+    def step(ir, st, ctl: StepControl = None):
+        return _step(cfg, C, ir, st, ctl)
 
     return step
 

@@ -160,7 +160,8 @@ class PIMSystem:
                  mode: str = "inorder", faults: Optional[FaultPlan] = None,
                  retry: Optional[RetryPolicy] = None,
                  recovery: str = "remap", ckpt_dir: Optional[str] = None,
-                 tracer: Optional[Tracer] = None, device=None):
+                 tracer: Optional[Tracer] = None, device=None,
+                 group=None):
         from repro_torch.core import compile_cache
         if recovery not in ("remap", "raise"):
             raise ValueError(f"unknown recovery policy {recovery!r} "
@@ -168,6 +169,10 @@ class PIMSystem:
         self.cfg = cfg
         #: torch device the engine runs on (None = the CUDA card)
         self.device = compile_cache.resolve_device(device)
+        #: a process group over whose ranks every launch splits its DPUs
+        #: (``compile_cache.run_sharded``; each rank then holds the whole
+        #: final state, report and timeline); None: this process alone
+        self.group = group
         #: optional repro_torch.trace.TraceRecorder (attach via trace.record());
         #: None = zero-cost, every emission site is guarded
         self.recorder = None
@@ -611,8 +616,14 @@ class PIMSystem:
         # simulates the kernel and aggregates its own report
         be = backends.get(backends.resolve_backend(cfg))
         from repro_torch.core import compile_cache
-        st = compile_cache.run(cfg, binary, wram, mram, n_threads=T,
-                               ndpus_reg=ndpus_reg, device=self.device)
+        if self.group is None:
+            st = compile_cache.run(cfg, binary, wram, mram, n_threads=T,
+                                   ndpus_reg=ndpus_reg, device=self.device)
+        else:
+            st = compile_cache.run_sharded(cfg, binary, wram, mram,
+                                           self.group, n_threads=T,
+                                           ndpus_reg=ndpus_reg,
+                                           device=self.device)
         if (st["status"] != engine.DONE).any():
             raise RuntimeError(
                 f"{name}: kernel hit max_cycles={cfg.max_cycles} "

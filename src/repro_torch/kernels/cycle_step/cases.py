@@ -12,7 +12,8 @@ DPUs the kernel takes (24 and 32 tasklets, 4 and 8 issue slots), and
 that stop at different cycles, hit ``max_cycles`` in one run, and issue,
 in one slot of one cycle, 256-byte DMAs that cover the last WRAM word
 beside 1500-byte ones on other DPUs, so the copy window is the widest
-DMA's across DPUs.  :func:`cache_va` is the cache-mode VA (case study
+DMA's across DPUs; ``cross_pair`` the same on 8 DPUs, sized by DPU pair,
+for a run split over 4 ranks.  :func:`cache_va` is the cache-mode VA (case study
 #4), :func:`va` VA's launch at any DPU count.  :func:`launch` turns a
 case into ``(cfg, binary, wram, mram, T)``; :func:`hold_against_plain`
 holds the card kernel of any backend's launch against its plain version
@@ -219,16 +220,21 @@ def _mix_prog(nt=24):
     return p
 
 
-def _cross_dpu_prog(nt=4, W=16384):
+def _cross_dpu_prog(nt=4, W=16384, pair=1):
     """Per DPU: 1 + DPU_ID % 3 rounds of one DMA per tasklet, 256 bytes
     onto the last 64 WRAM words on even DPUs, 1500 bytes (clipped at the
     end of WRAM) on odd ones; MRAM rows end-to-end so the last round of
-    tasklet nt - 1 covers the last MRAM word of a 16 KiB bank."""
-    p = Program("xdpu", nt)
+    tasklet nt - 1 covers the last MRAM word of a 16 KiB bank.  ``pair``
+    > 1: the size by DPU_ID // pair instead (DPUs 0 to pair - 1 even)."""
+    p = Program("xdpu" if pair == 1 else "xpair", nt)
     w, m, sz, i, n, t = p.regs("w", "m", "sz", "i", "n", "t")
     p.li(w, 4 * (W - 64))
     p.mul(m, TID, 1024)
-    p.and_(t, DPU_ID, 1)
+    if pair == 1:
+        p.and_(t, DPU_ID, 1)
+    else:
+        p.div(t, DPU_ID, pair)
+        p.and_(t, t, 1)
     p.mul(sz, t, 1244)
     p.add(sz, sz, 256)
     p.li(n, 3)
@@ -281,6 +287,17 @@ CASES = {
                                        "timeseries_window": 64}, True),
     "cross_dpu_max_cycles": (_cross_dpu_prog, 4, {
         "n_dpus": 40, "max_cycles": 1500, "mmu": True, "tlb_entries": 4,
+        "page_bytes": 512}, True),
+    # the DPU axis split 2 a rank over 4 ranks (compile_cache.Shard): DPUs
+    # 0-1 and 4-5 (ranks 0 and 2) copy 256 bytes onto the last 64 WRAM
+    # words (a DMA whose result depends on the window) in the step in
+    # which DPUs 2-3 and 6-7 (ranks 1 and 3) copy 1,500 bytes, so ranks 0
+    # and 2 replay with the system's windows; the DPUs stop at different
+    # cycles, so ranks with stopped DPUs catch up
+    "cross_pair": (lambda: _cross_dpu_prog(pair=2), 4, {
+        "n_dpus": 8, "superscalar": 2, "timeseries_window": 64}, True),
+    "cross_pair_max_cycles": (lambda: _cross_dpu_prog(pair=2), 4, {
+        "n_dpus": 8, "max_cycles": 1500, "mmu": True, "tlb_entries": 4,
         "page_bytes": 512}, True),
 }
 

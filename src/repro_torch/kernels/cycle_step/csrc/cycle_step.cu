@@ -187,6 +187,16 @@ struct Args {
   float inv_bw;          // float32(1) / float32(effective_mram_bw)
   float inv_win;         // float32(1) / float32(timeseries_window)
   int32_t carry;         // resident_carry route: DPUs a warp carries
+  // A rank of a sharded run (resident route; null / 0 otherwise):
+  // report (2K + 1,), zeroed by the host before the launch: [t] this
+  // launch's wide bits of step t, [K + t] bit s: a DMA of slot s at step t
+  // depended on the window, [2K] G, the first step at which none of the
+  // launch's DPUs ran; forced (K,): the window bits to take instead of
+  // the launch's own (a replay); go_floor: phase 2 runs to
+  // max(G, go_floor) (the steps another rank's DPUs still ran)
+  uint32_t* report;
+  const uint32_t* forced;
+  int32_t go_floor;
 };
 constexpr long long kStopped = 0x7fffffffffffffffLL;
 constexpr uint32_t kGo = 1u << 31;
@@ -652,7 +662,11 @@ __device__ __forceinline__ void step_dpu(Dpu& u, const Warp& w,
           nw = MAX_DMA_WORDS;
         else if (sw == small && (b0 + small - 1 >= top || b0 <= -small)) {
           bool wide;
-          if constexpr (R == R_RESIDENT)
+          if (args.report && lane == 0)
+            atomicOr(args.report + c[C_K] + t, 1u << s);
+          if (args.forced)
+            wide = (args.forced[t] >> s) & 1u;
+          else if constexpr (R == R_RESIDENT)
             wide = wide_anywhere(args, w, args.base + t, t, s);
           else if constexpr (R == R_SMEM)
             wide = wide_ring(args.ring, args.ring_k, args.prog, w.D, lane,
@@ -1081,7 +1095,7 @@ cycle_step_kernel(const Args args) {
   // ---- G and the predicate: one vote over the launch ----
   sec.start();
   const int vote = vote_max(live ? 2 * stop + run_end : 0, args.partial);
-  const int G = vote >> 1;
+  const int G = max(vote >> 1, args.go_floor);
   sec.mark(step_common::S_VOTE);
 
   // ---- phase 2: go was true up to step G for the DPUs that stopped ----
@@ -1132,8 +1146,12 @@ cycle_step_kernel(const Args args) {
   }
   if (blockIdx.x == 0) {
     // every DPU has passed phase 1: the next launch starts from no votes
-    for (int t = threadIdx.x; t < K; t += blockDim.x) args.wide[t] = 0;
+    for (int t = threadIdx.x; t < K; t += blockDim.x) {
+      if (args.report) args.report[t] = args.wide[t];
+      args.wide[t] = 0;
+    }
     if (threadIdx.x == 0) {
+      if (args.report) args.report[2 * K] = vote >> 1;
       args.flag[args.parity] = vote & 1;
       __threadfence_system();
     }

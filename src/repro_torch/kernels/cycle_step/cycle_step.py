@@ -156,7 +156,10 @@ class Args(ctypes.Structure):
                 ("c", ctypes.c_int32 * len(CONFIG)),
                 ("inv_bw", ctypes.c_float),
                 ("inv_win", ctypes.c_float),
-                ("carry", ctypes.c_int32)]
+                ("carry", ctypes.c_int32),
+                ("report", ctypes.c_void_p),
+                ("forced", ctypes.c_void_p),
+                ("go_floor", ctypes.c_int32)]
 
 
 #: how a launch orders the DPUs -> its C launcher: ``"resident_smem"``,

@@ -199,6 +199,64 @@ class CycleStep(StepDriver):
     SECTIONS = True
     Args = Args
 
+    def __init__(self, cfg, st, ir, image=None, route=None, sections=None,
+                 report: bool = False):
+        super().__init__(cfg, st, ir, image, route, sections)
+        # a rank of a sharded run (compile_cache.Shard): each K-block
+        # reports its wide and window-dependent DMAs and G, may take the
+        # agreed windows instead of its own, and catch-up launches hold go
+        # true (the resident route's Args.report / forced / go_floor)
+        self.report = None
+        if report:
+            if self.route != "resident":
+                raise ValueError("a sharded run's blocks take the resident "
+                                 f"route, not {self.route!r}")
+            # a report and a forced word a step for each parity: launch
+            # n + 1 writes its own while launch n's is read
+            self.report = [None, None]
+            self.forced = [None, None]
+
+    def block(self, k: int, forced=None) -> int:
+        """Queue one launch of ``k`` steps of a sharded run's block
+        (``forced``: (k, slots) bools, the agreed windows of a replay);
+        returns its parity, for :meth:`block_bits`."""
+        p = self.args.parity
+        if self.report[p] is None or self.report[p].numel() < 2 * k + 1:
+            self.report[p] = torch.zeros(2 * k + 1, dtype=torch.int32,
+                                         device=self.device)
+            self.forced[p] = torch.zeros(k, dtype=torch.int32,
+                                         device=self.device)
+        self.report[p].zero_()
+        self.args.report = self.report[p].data_ptr()
+        self.args.forced = 0
+        if forced is not None:
+            bits = (np.asarray(forced, np.int64)
+                    << np.arange(forced.shape[1])).sum(1)
+            self.forced[p][:k].copy_(torch.from_numpy(bits.astype(np.int32)))
+            self.args.forced = self.forced[p].data_ptr()
+        self.args.go_floor = 0
+        return self.run(k)
+
+    def block_bits(self, parity: int, k: int) -> tuple:
+        """What the block launched as ``parity`` reported: (G, the
+        predicate after it, (k, slots) wide bits, (k, slots) bits of the
+        DMAs that depended on the window); waits for that launch alone."""
+        run_after = self.flag_of(parity)
+        rep = self.report[parity][:2 * k + 1].cpu().numpy()
+        ss = np.arange(self.cfg.superscalar)
+        return (int(rep[2 * k]), run_after,
+                ((rep[:k, None] >> ss) & 1).astype(bool),
+                ((rep[k:2 * k, None] >> ss) & 1).astype(bool))
+
+    def catch_up(self, n: int) -> None:
+        """One launch of ``n`` steps with ``go`` held true (every DPU of
+        the block stopped: each takes them with nothing to issue)."""
+        self.args.report = 0
+        self.args.forced = 0
+        self.args.go_floor = n
+        self.run(n)
+        self.args.go_floor = 0
+
     def state_keys(self, cfg, st):
         return set(LEAVES)
 

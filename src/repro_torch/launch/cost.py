@@ -30,11 +30,18 @@ alone: nothing is allocated or computed) under one dispatch mode,
 
 ``args`` and ``out`` are the bytes of the distinct storages of the
 arguments and of the results.
+
+On a mesh (the dry-run's fake group, ``launch/mesh.py``) the function is
+the sharded program of one rank, and every count is that rank's: its
+blocks' bytes, its FLOPs, and the collectives it issued (``coll``: by
+kind and group, the bytes of each result on this rank, as
+``parallel/collectives.py`` records them; the collectives themselves do
+not pass through the dispatch mode).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -44,6 +51,7 @@ from torch.utils.flop_counter import flop_registry, shape_wrapper
 # register the ops that stand for the kernels on meta
 from repro_torch.kernels.flash_attention import ops as _flash_ops  # noqa: F401
 from repro_torch.kernels.ssd_scan import ops as _ssd_ops  # noqa: F401
+from repro_torch.parallel import collectives as coll
 
 aten = torch.ops.aten
 
@@ -204,26 +212,45 @@ class Counter(TorchDispatchMode):
 
 @dataclass
 class Counts:
-    """What :func:`count` counted: FLOPs, bytes accessed, and the bytes of
-    the arguments, the results and the peak of the temporaries."""
+    """What :func:`count` counted: FLOPs, bytes accessed, the bytes of the
+    arguments, the results and the peak of the temporaries, and the
+    collectives' result bytes by (kind, the group's global ranks)."""
 
     flops: float
     bytes: float
     args: float
     out: float
     temp: float
+    coll: Dict[Tuple[str, Tuple[int, ...]], float] = field(
+        default_factory=dict)
 
     def scaled(self, other: "Counts", s: float) -> "Counts":
-        """``self + (other - self) * s``, field by field: the reference's
-        extrapolation in depth from two reduced-depth points."""
+        """``self + (other - self) * s``, field by field (``coll`` key by
+        key): the reference's extrapolation in depth from two
+        reduced-depth points."""
+        keys = set(self.coll) | set(other.coll)
+        coll_s = {k: self.coll.get(k, 0.0)
+                  + (other.coll.get(k, 0.0) - self.coll.get(k, 0.0)) * s
+                  for k in keys}
         return Counts(*(a + (b - a) * s for a, b in zip(
-            self.__dict__.values(), other.__dict__.values())))
+            (self.flops, self.bytes, self.args, self.out, self.temp),
+            (other.flops, other.bytes, other.args, other.out, other.temp))),
+            coll_s)
+
+    def coll_by_kind(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for (kind, _), b in self.coll.items():
+            out[kind] = out.get(kind, 0.0) + b
+        return out
 
 
 def count(fn, *args: Any) -> Counts:
     """Run ``fn(*args)`` (meta tensors) under the :class:`Counter`."""
     args_bytes = tree_bytes(args)
+    before = dict(coll.BY_GROUP)
     with Counter() as c:
         out = fn(*args)
+    issued = {k: float(b - before.get(k, 0))
+              for k, b in coll.BY_GROUP.items() if b != before.get(k, 0)}
     return Counts(float(c.flops), float(c.bytes), float(args_bytes),
-                  float(tree_bytes(out)), float(c.peak))
+                  float(tree_bytes(out)), float(c.peak), issued)

@@ -8,9 +8,15 @@ that group.  Each function raises unless the group exists and its world
 size is the mesh's: nothing stands in for a mesh the world cannot hold.
 :func:`elastic_shape` is ``make_elastic_mesh``'s shape arithmetic alone,
 for a caller that has no group (the training CLI on one card).
+
+The dry-run (``launch/dryrun.py``) alone builds the production meshes
+over :func:`fake_group`: torch's ``fake`` backend, whose collectives
+return at once (on meta tensors too), as one rank of a world of 256 or
+512, the counterpart of the reference's 512 host devices.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
@@ -38,11 +44,36 @@ def _device_mesh(shape: Dict[str, int], device_type: str):
                             mesh_dim_names=tuple(shape))
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cuda"):
+def production_shape(multi_pod: bool = False) -> Dict[str, int]:
+    """The production mesh's axes: (data 16, model 16), or (pod 2, data
+    16, model 16)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _device_mesh(dict(zip(axes, shape)), device_type)
+    return dict(zip(axes, shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    return _device_mesh(production_shape(multi_pod), device_type)
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int):
+    """The default process group, for the body, as rank ``rank`` of a
+    ``fake`` group of ``world`` ranks (``torch.testing``'s ``FakeStore``:
+    no network, no card; every collective returns at once, its buffers
+    untouched).  Destroyed on exit, so the next may have another size or
+    rank.  Refuses to stand in for a group that exists."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", rank=rank, world_size=world,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def elastic_shape(n_devices: int, model_parallel: int = None

@@ -11,15 +11,17 @@ with the hardware a field of :class:`RooflineReport`.  Its default,
 :data:`TPU_V5E`, holds the reference's constants (``PEAK_FLOPS``,
 ``HBM_BW``, ``LINK_BW``), so ``to_row()`` gives the reference's numbers
 for the same inputs; the port's dry-run (``launch/dryrun.py``) prices its
-counts with :data:`H100` instead.  The reference's ``analyze`` reads an
-XLA compiled object; the port has none (its counts come from
-``launch/cost.py``).
+counts with :data:`H100` instead, and the collectives of a mesh row on
+:data:`H100_FLEET`, each group by the slowest link it crosses
+(:meth:`Fleet.seconds`, the report's ``coll_seconds``).  The reference's
+``analyze`` reads an XLA compiled object; the port has none (its counts
+come from ``launch/cost.py``).
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -48,6 +50,38 @@ TPU_V5E = Hardware("TPU v5e (the reference's constants)", PEAK_FLOPS,
 # GB/s a card both ways together (450 GB/s each way, the rate a send
 # sees).
 H100 = Hardware("NVIDIA H100 SXM (data sheet)", 989e12, 3.35e12, 450e9)
+
+
+@dataclass(frozen=True)
+class Fleet:
+    """A fleet of cards: ``per_node`` to a node joined by ``node_bw``
+    (bytes/s each way a card), the nodes by ``fabric_bw`` (bytes/s each
+    way a card).  Ranks are laid out row-major over the mesh (rank r on
+    node r // per_node), so a group is priced by the slowest link it
+    crosses."""
+
+    name: str
+    per_node: int
+    node_bw: float
+    fabric_bw: float
+
+    def link_bw(self, members: Iterable[int]) -> float:
+        nodes = {m // self.per_node for m in members}
+        return self.node_bw if len(nodes) <= 1 else self.fabric_bw
+
+    def seconds(self, by_group: Mapping[Tuple[str, Tuple[int, ...]], float]
+                ) -> float:
+        """The collectives' time: each group's result bytes over its
+        slowest link, summed."""
+        return sum(b / self.link_bw(m) for (_, m), b in by_group.items())
+
+
+# HGX H100 data sheets: 8 cards to a node on NVLink 4 (450 GB/s each way a
+# card, as H100.link_bw); nodes on NDR InfiniBand, one 400 Gb/s link a
+# card (50 GB/s each way).
+H100_FLEET = Fleet("HGX H100 nodes of 8 (NVLink 4, 450 GB/s each way a "
+                   "card) on NDR InfiniBand (400 Gb/s a card: 50 GB/s)",
+                   8, 450e9, 50e9)
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "f8e4m3": 1, "f8e5m2": 1,
@@ -81,9 +115,9 @@ def _shape_bytes(type_str: str) -> int:
 
 def collective_bytes(hlo_text: str) -> Dict[str, int]:
     """Per-collective-kind result bytes (per device) from optimized HLO.
-    The port's one-card dry-run has no HLO and prices no collective: this
-    is the reference's parser, kept with its test cases so that the module
-    stays the reference's copy."""
+    The port has no HLO (its mesh rows count the collectives its ranks
+    issue, ``launch/cost.py``): this is the reference's parser, kept with
+    its test cases so that the module stays the reference's copy."""
     out = {k: 0 for k in _COLLECTIVES}
     for line in hlo_text.splitlines():
         s = line.strip()
@@ -119,6 +153,9 @@ class RooflineReport:
     model_bytes: float = 0.0  # useful traffic (decode: params + cache)
     notes: str = ""
     hw: Hardware = field(default=TPU_V5E)
+    #: the collectives' seconds when priced by group (``Fleet.seconds``);
+    #: None: ``coll_bytes_per_device`` over ``hw.link_bw``
+    coll_seconds: Optional[float] = None
 
     @property
     def compute_s(self) -> float:
@@ -130,6 +167,8 @@ class RooflineReport:
 
     @property
     def collective_s(self) -> float:
+        if self.coll_seconds is not None:
+            return self.coll_seconds
         return self.coll_bytes_per_device / self.hw.link_bw
 
     @property

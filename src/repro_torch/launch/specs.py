@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeSpec
 from repro_torch.models import transformer as T
 from repro_torch.optim import get_optimizer, warmup_cosine
+from repro_torch.parallel import api as par
 from repro_torch.train import loop as train_loop
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -82,30 +83,43 @@ def input_specs(cfg: ArchConfig, shape_name: str):
 # ---------------------------------------------------------------------------
 
 
-def make_cell(cfg: ArchConfig, shape):
+def make_cell(cfg: ArchConfig, shape, mesh=None):
     """Returns dict(fn, args, kind) for ``shape`` (a name of ``SHAPES`` or
-    a :class:`ShapeSpec`)."""
+    a :class:`ShapeSpec`); on ``mesh`` (a ``DeviceMesh``) this rank's
+    blocks of the arguments and the sharded program."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     if not cfg.supports_shape(shape):
         raise ValueError(f"{cfg.name} does not take {shape.name}")
 
+    def rows(batch):
+        return batch if mesh is None else par.batch_rows(batch, mesh)
+
     if shape.kind == "train":
         state, opt = abstract_state(cfg)
+        if mesh is not None:
+            state = train_loop.shard_train_state(state, mesh)
         step = train_loop.make_train_step(
             cfg, opt, microbatches=cfg.train_microbatches)
-        return dict(fn=step, args=(state, batch_specs(cfg, shape)),
+        return dict(fn=step, args=(state, rows(batch_specs(cfg, shape))),
                     kind="train")
 
     params = abstract_params(cfg)
+    if mesh is not None:
+        par.shard_module(params, mesh, T.cdtype(cfg))
+    B = shape.global_batch
 
     if shape.kind == "prefill":
         def fn(params, batch):
-            return params.prefill(batch)
+            return params.prefill(batch, global_batch=B)
 
-        return dict(fn=fn, args=(params, prefill_specs(cfg, shape)),
+        return dict(fn=fn, args=(params, rows(prefill_specs(cfg, shape))),
                     kind="prefill")
 
-    cache, tokens = decode_specs(cfg, shape)
+    if mesh is None:
+        cache, tokens = decode_specs(cfg, shape)
+    else:
+        cache = params.init_cache(B, shape.seq_len, src_len=shape.seq_len)
+        tokens = rows(_meta((B,), torch.int32))
 
     def fn(params, cache, tokens):
         return params.decode_step(cache, tokens)

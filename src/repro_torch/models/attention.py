@@ -14,16 +14,37 @@ with Dk != Dv) goes through it; the decode paths (:func:`decode_attention`,
 :func:`cross_attn_decode`, MLA's absorbed-matrix :func:`mla_apply_decode`)
 are plain torch on every device, as the JAX package computes them outside
 any Pallas kernel.
+
+On the ranks of a mesh (``models.transformer``'s sharded decode) a cache
+may be split along its sequence over a group of ranks (``cache_sharding``'s
+``sp``): each decode path then takes ``shard``, a :class:`SeqShard`, and
+each rank computes its block's partial softmax, merged across the group
+by all-reduces: the partial maximum, then the partial sum of the
+exponentials, then the partial P·V (:func:`decode_attention_sharded`);
+only the rank whose block holds the written slot writes the new K/V.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_param
+from repro_torch.parallel import collectives as coll
 
 _NEG = -1e30
+
+
+class SeqShard(NamedTuple):
+    """This rank's block of a cache split along its sequence: its first
+    position ``off``, the whole sequence's length ``length``, and the
+    group of ranks that hold the blocks (None: this rank alone)."""
+
+    off: int
+    length: int
+    group: object
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +141,43 @@ def decode_attention(q, k_cache, v_cache, pos):
     return o.reshape(B, H, -1).to(v_cache.dtype)
 
 
+def _merged_softmax(s, shard: SeqShard, pos):
+    """The softmax over the whole sequence of the scores ``s`` (..., S_blk)
+    of this rank's block (positions past ``pos`` masked), in float32: the
+    maximum and the sum of the exponentials all-reduced over the group."""
+    idx = shard.off + torch.arange(s.shape[-1], device=s.device)
+    s = torch.where(idx <= pos, s, _NEG)
+    m = coll.max_over(s.amax(dim=-1), shard.group)
+    e = torch.exp(s - m[..., None])
+    return e / coll.sum_over(e.sum(dim=-1), shard.group)[..., None]
+
+
+def decode_attention_sharded(q, k_blk, v_blk, pos, shard: SeqShard):
+    """:func:`decode_attention` over a cache split along its sequence:
+    ``k_blk`` / ``v_blk`` (B, S_blk, KV, D*) are this rank's positions
+    ``shard.off ..``; P·V of the block summed over the group."""
+    f32 = torch.float32
+    B, H, Dk = q.shape
+    KV = k_blk.shape[2]
+    qg = q.reshape(B, KV, H // KV, Dk)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k_blk.to(f32)) \
+        * (Dk ** -0.5)
+    p = _merged_softmax(s, shard, pos).to(v_blk.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(f32), v_blk.to(f32))
+    o = coll.sum_over(o, shard.group)
+    return o.reshape(B, H, -1).to(v_blk.dtype)
+
+
+def _write_slot(cache, slot: int, value, shard):
+    """``cache[:, slot] = value`` of the whole cache's ``slot``: on this
+    rank's block only where it holds that slot (``shard``)."""
+    if shard is not None:
+        slot -= shard.off
+        if not 0 <= slot < cache.shape[1]:
+            return
+    cache[:, slot] = value.to(cache.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Standard GQA attention layer (projections + rope + cache plumbing)
 # ---------------------------------------------------------------------------
@@ -162,19 +220,23 @@ def attn_apply_train(p, x, positions, cfg, *, causal=True, window=0,
     return o @ p["wo"].to(cdtype(cfg))
 
 
-def _cache_slot(pos: int, cache):
+def _cache_slot(pos: int, cache, shard=None):
     """``jax.lax.dynamic_update_index_in_dim``'s index: a slot past the
-    cache's end is clamped onto its last position."""
-    return min(max(pos, 0), cache.shape[1] - 1)
+    cache's end (the whole cache's, ``shard.length``, when split) is
+    clamped onto its last position."""
+    n = cache.shape[1] if shard is None else shard.length
+    return min(max(pos, 0), n - 1)
 
 
-def attn_apply_decode(p, x, pos: int, cache_k, cache_v, cfg, *, window=0):
+def attn_apply_decode(p, x, pos: int, cache_k, cache_v, cfg, *, window=0,
+                      shard=None):
     """One-token decode. x: (B, D).  Returns (out, cache_k, cache_v).
 
     Writes the new K/V into ``cache_k`` / ``cache_v`` in place (the JAX
     package returns updated copies; the serving engine donates them), at
     ``pos`` or, with ``window > 0``, at ``pos % window`` of a ring of the
-    last ``window`` positions."""
+    last ``window`` positions.  ``shard``: the caches are this rank's
+    blocks of a cache split along its sequence (:class:`SeqShard`)."""
     dt = cdtype(cfg)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ p["wq"].to(dt)).reshape(-1, H, Dh)
@@ -187,10 +249,15 @@ def attn_apply_decode(p, x, pos: int, cache_k, cache_v, cfg, *, window=0):
         slot, eff_pos = pos % window, min(pos, window - 1)
     else:
         slot, eff_pos = pos, pos
-    slot = _cache_slot(slot, cache_k)
-    cache_k[:, slot] = k.to(cache_k.dtype)
-    cache_v[:, slot] = v.to(cache_v.dtype)
-    o = decode_attention(q, cache_k, cache_v, eff_pos)
+    slot = _cache_slot(slot, cache_k, shard)
+    if shard is None:
+        cache_k[:, slot] = k.to(cache_k.dtype)
+        cache_v[:, slot] = v.to(cache_v.dtype)
+        o = decode_attention(q, cache_k, cache_v, eff_pos)
+    else:
+        _write_slot(cache_k, slot, k, shard)
+        _write_slot(cache_v, slot, v, shard)
+        o = decode_attention_sharded(q, cache_k, cache_v, eff_pos, shard)
     o = o.reshape(-1, H * Dh)
     return o @ p["wo"].to(dt), cache_k, cache_v
 
@@ -204,13 +271,18 @@ def cross_attn_project_kv(p, enc_mem, cfg):
     return k.reshape(*k.shape[:-1], KV, Dh), v.reshape(*v.shape[:-1], KV, Dh)
 
 
-def cross_attn_decode(p, x, k_mem, v_mem, cfg):
+def cross_attn_decode(p, x, k_mem, v_mem, cfg, shard=None):
     """One decoder token against the whole encoder memory (B,Ssrc,KV,Dh);
-    an empty memory (Ssrc 0) contributes zeros, as in the JAX package."""
+    an empty memory (Ssrc 0) contributes zeros, as in the JAX package.
+    ``shard``: the memory is this rank's block of it."""
     dt = cdtype(cfg)
     H, Dh = cfg.n_heads, cfg.d_head
     q = (x @ p["wq"].to(dt)).reshape(-1, H, Dh)
-    o = decode_attention(q, k_mem, v_mem, k_mem.shape[1] - 1)
+    if shard is None:
+        o = decode_attention(q, k_mem, v_mem, k_mem.shape[1] - 1)
+    else:
+        o = decode_attention_sharded(q, k_mem, v_mem, shard.length - 1,
+                                     shard)
     return o.reshape(-1, H * Dh) @ p["wo"].to(dt)
 
 
@@ -284,11 +356,14 @@ def mla_apply_train(p, x, positions, cfg):
     return o @ p["wo"].to(dt), (ckv, k_rope)
 
 
-def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg):
+def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg,
+                     shard=None):
     """Absorbed-matrix MLA decode: scores/output computed in the latent
     space so the cache stays (kv_lora + rope) wide — the memory win MLA
     exists for.  Writes the step into the caches in place, as
-    :func:`attn_apply_decode` does; returns (out, cache_ckv, cache_krope)."""
+    :func:`attn_apply_decode` does; returns (out, cache_ckv, cache_krope).
+    ``shard``: the caches are this rank's blocks (:class:`SeqShard`), the
+    latent output summed over the group."""
     dt = cdtype(cfg)
     f32 = torch.float32
     H = cfg.n_heads
@@ -297,9 +372,9 @@ def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg):
     posv = torch.tensor([pos], device=x.device)
     q_nope, q_rope = _mla_q(p, x, posv, cfg)  # (B,H,dn), (B,H,dr)
     ckv, k_rope = _mla_latent(p, x, posv, cfg)  # (B,kvr), (B,dr)
-    slot = _cache_slot(pos, cache_ckv)
-    cache_ckv[:, slot] = ckv.to(cache_ckv.dtype)
-    cache_krope[:, slot] = k_rope.to(cache_krope.dtype)
+    slot = _cache_slot(pos, cache_ckv, shard)
+    _write_slot(cache_ckv, slot, ckv, shard)
+    _write_slot(cache_krope, slot, k_rope, shard)
     wk_b = p["wk_b"].to(dt).reshape(kvr, H, dn)
     wv_b = p["wv_b"].to(dt).reshape(kvr, H, dv)
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope, wk_b)  # absorb W^UK
@@ -307,10 +382,15 @@ def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg):
     s = s + torch.einsum("bhr,bsr->bhs", q_rope.to(f32),
                          cache_krope.to(f32))
     s = s * (dn + dr) ** -0.5
-    idx = torch.arange(cache_ckv.shape[1], device=x.device)
-    s = torch.where(idx <= pos, s, _NEG)
-    a = torch.softmax(s, dim=-1).to(dt)
-    o_lat = torch.einsum("bhs,bsr->bhr", a, cache_ckv)
+    if shard is None:
+        idx = torch.arange(cache_ckv.shape[1], device=x.device)
+        s = torch.where(idx <= pos, s, _NEG)
+        a = torch.softmax(s, dim=-1).to(dt)
+        o_lat = torch.einsum("bhs,bsr->bhr", a, cache_ckv)
+    else:
+        a = _merged_softmax(s, shard, pos).to(dt)
+        o_lat = coll.sum_over(torch.einsum("bhs,bsr->bhr", a, cache_ckv),
+                              shard.group)
     o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b)  # absorb W^UV
     out = o.reshape(o.shape[0], H * dv) @ p["wo"].to(dt)
     return out, cache_ckv, cache_krope

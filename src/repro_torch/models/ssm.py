@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_param
+from repro_torch.parallel import collectives as coll
 
 
 def softplus(x):
@@ -108,10 +109,15 @@ def ssm_apply_train(p, x, cfg, return_state=False):
     return out
 
 
-def ssm_apply_decode(p, x, state, conv_buf, cfg):
+def ssm_apply_decode(p, x, state, conv_buf, cfg, heads=None):
     """One-token decode.  x: (B,D); state: (B,H,N,P) f32;
     conv_buf: (B, K-1, conv_dim) pre-activation conv inputs.
-    Returns (out, new state, new conv_buf) as new tensors."""
+    Returns (out, new state, new conv_buf) as new tensors.
+
+    ``heads`` ((first head, group of ranks)): ``state`` is this rank's
+    block of the heads (``cache_sharding`` splits them over ``model``);
+    each rank updates its own heads and their outputs are gathered over
+    the group before the gated norm, which mixes the heads."""
     dt_ = cdtype(cfg)
     d_in = cfg.d_inner
     G, N, H, Pd = cfg.ssm_ngroups, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_headdim
@@ -131,11 +137,18 @@ def ssm_apply_decode(p, x, state, conv_buf, cfg):
     Ch = Cm.reshape(B_, G, N).repeat_interleave(rep, dim=1).float()
     dt = softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
     A = -torch.exp(p["A_log"])
+    D_skip = p["D_skip"]
+    if heads is not None:
+        h = slice(heads[0], heads[0] + state.shape[1])
+        xh, Bh, Ch, dt, A, D_skip = (xh[:, h], Bh[:, h], Ch[:, h], dt[:, h],
+                                     A[h], D_skip[h])
     dA = torch.exp(dt * A)  # (B,H)
     state = state * dA[..., None, None] + torch.einsum(
         "bhn,bhp->bhnp", Bh * dt[..., None], xh.float())
     y = torch.einsum("bhn,bhnp->bhp", Ch, state).to(dt_)
-    y = y + xh * p["D_skip"].to(dt_)[None, :, None]
+    y = y + xh * D_skip.to(dt_)[None, :, None]
+    if heads is not None:
+        y = torch.cat(coll.gather_blocks(y.contiguous(), heads[1]), dim=1)
     y = y.reshape(B_, d_in)
     y = layers.rms_norm(y * F.silu(z), p["gate_norm"]["scale"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)

@@ -26,8 +26,13 @@ weights are gathered whole just before use and dropped after (inside the
 recomputed region under ``remat``; the top-level trees' once for a
 step's microbatches, ``hoisted``), and the loss's sums and token count
 are summed over the data-parallel ranks before the division, as the
-reference takes them over the global batch.  Serving a sharded model is
-not ported (``prefill`` and ``decode_step`` raise).
+reference takes them over the global batch.  Sharded serving
+(``prefill``, ``decode_step``) gathers each block's weights for its layer
+likewise, serves each rank's batch rows, and keeps the cache as each
+rank's blocks for ``parallel.api.cache_sharding``: an attention cache
+split along its sequence over ``model`` is attended block by block and
+merged (``attention.decode_attention_sharded``), the ssm state split over
+its heads is updated head block by head block.
 Two pieces of the JAX module are not carried over: ``scan_util`` (its
 unrolled mode only serves XLA's cost analysis) and ``_x_constraint``
 (sharding annotations: placement here is explicit).
@@ -255,66 +260,72 @@ def _lru_step(p, x, h, cb, cfg):
 # ===========================================================================
 
 
+def cache_leaves(cfg, batch: int, capacity: int, src_len: int = 0
+                 ) -> Dict[str, tuple]:
+    """{leaf: (shape, dtype)} of :func:`init_cache`'s cache (its position
+    apart)."""
+    dt = cdtype(cfg)
+    f32 = torch.float32
+    fam = cfg.family
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    if fam in ("dense", "vlm"):
+        L = cfg.n_layers
+        return {"k": ((L, batch, capacity, KV, Dh), dt),
+                "v": ((L, batch, capacity, KV, Dh), dt)}
+    if fam == "moe":
+        c = {}
+        Ld, Lm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
+        for suffix, n in (("_d", Ld), ("_m", Lm)):
+            if not n:
+                continue
+            if cfg.use_mla:
+                c["ckv" + suffix] = ((n, batch, capacity, cfg.kv_lora_rank),
+                                     dt)
+                c["krope" + suffix] = ((n, batch, capacity, cfg.qk_rope_dim),
+                                       dt)
+            else:
+                c["k" + suffix] = ((n, batch, capacity, KV, Dh), dt)
+                c["v" + suffix] = ((n, batch, capacity, KV, Dh), dt)
+        return c
+    if fam == "ssm":
+        L, H, N, Pd = (cfg.n_layers, cfg.n_ssm_heads, cfg.ssm_state,
+                       cfg.ssm_headdim)
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * N
+        return {"state": ((L, batch, H, N, Pd), f32),
+                "conv": ((L, batch, cfg.ssm_conv - 1, conv_dim), dt)}
+    if fam == "hybrid":
+        ng, rem = _hybrid_split(cfg)
+        W = cfg.lru_width or cfg.d_model
+        K = cfg.ssm_conv
+        win = min(cfg.window, capacity)
+        c = {"lru_h": ((ng, 2, batch, W), f32),
+             "lru_conv": ((ng, 2, batch, K - 1, W), dt),
+             "attn_k": ((ng, batch, win, KV, Dh), dt),
+             "attn_v": ((ng, batch, win, KV, Dh), dt)}
+        if rem:
+            c["rem_lru_h"] = ((rem, batch, W), f32)
+            c["rem_lru_conv"] = ((rem, batch, K - 1, W), dt)
+        return c
+    if fam == "encdec":
+        Ld = cfg.n_dec_layers
+        return {"self_k": ((Ld, batch, capacity, KV, Dh), dt),
+                "self_v": ((Ld, batch, capacity, KV, Dh), dt),
+                "cross_k": ((Ld, batch, src_len, KV, Dh), dt),
+                "cross_v": ((Ld, batch, src_len, KV, Dh), dt)}
+    raise ValueError(fam)
+
+
 def init_cache(cfg, batch: int, capacity: int, device=None,
                src_len: int = 0) -> Cache:
     """Zeroed serving cache of ``batch`` sequences of ``capacity``
     positions (encdec: and ``src_len`` encoder positions), with the JAX
     package's leaves."""
     device = resolve_device(device)
-    dt = cdtype(cfg)
-    fam = cfg.family
-    KV, Dh = cfg.n_kv_heads, cfg.d_head
-
-    def zeros(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    if fam in ("dense", "vlm"):
-        L = cfg.n_layers
-        return {"k": zeros(L, batch, capacity, KV, Dh),
-                "v": zeros(L, batch, capacity, KV, Dh), "pos": 0}
-    if fam == "moe":
-        c: Cache = {"pos": 0}
-        Ld, Lm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
-        for suffix, n in (("_d", Ld), ("_m", Lm)):
-            if not n:
-                continue
-            if cfg.use_mla:
-                c["ckv" + suffix] = zeros(n, batch, capacity, cfg.kv_lora_rank)
-                c["krope" + suffix] = zeros(n, batch, capacity,
-                                            cfg.qk_rope_dim)
-            else:
-                c["k" + suffix] = zeros(n, batch, capacity, KV, Dh)
-                c["v" + suffix] = zeros(n, batch, capacity, KV, Dh)
-        return c
-    if fam == "ssm":
-        L, H, N, Pd = (cfg.n_layers, cfg.n_ssm_heads, cfg.ssm_state,
-                       cfg.ssm_headdim)
-        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * N
-        return {"state": zeros(L, batch, H, N, Pd, dtype=torch.float32),
-                "conv": zeros(L, batch, cfg.ssm_conv - 1, conv_dim),
-                "pos": 0}
-    if fam == "hybrid":
-        ng, rem = _hybrid_split(cfg)
-        W = cfg.lru_width or cfg.d_model
-        K = cfg.ssm_conv
-        win = min(cfg.window, capacity)
-        c = {"lru_h": zeros(ng, 2, batch, W, dtype=torch.float32),
-             "lru_conv": zeros(ng, 2, batch, K - 1, W),
-             "attn_k": zeros(ng, batch, win, KV, Dh),
-             "attn_v": zeros(ng, batch, win, KV, Dh),
-             "pos": 0}
-        if rem:
-            c["rem_lru_h"] = zeros(rem, batch, W, dtype=torch.float32)
-            c["rem_lru_conv"] = zeros(rem, batch, K - 1, W)
-        return c
-    if fam == "encdec":
-        Ld = cfg.n_dec_layers
-        return {"self_k": zeros(Ld, batch, capacity, KV, Dh),
-                "self_v": zeros(Ld, batch, capacity, KV, Dh),
-                "cross_k": zeros(Ld, batch, src_len, KV, Dh),
-                "cross_v": zeros(Ld, batch, src_len, KV, Dh),
-                "pos": 0}
-    raise ValueError(fam)
+    cache: Cache = {k: torch.zeros(shape, dtype=dtype, device=device)
+                    for k, (shape, dtype) in cache_leaves(
+                        cfg, batch, capacity, src_len).items()}
+    cache["pos"] = 0
+    return cache
 
 
 # ===========================================================================
@@ -356,6 +367,20 @@ def _in_context(fn, context, plans, p, *args, **kw):
     with par.reentered(context):
         return fn(p if plans is None else par.gathered(p, plans), *args,
                   **kw)
+
+
+#: the attention caches ((L, B, S, ...): K/V, MLA latents, encdec's self
+#: and cross K/V, the hybrid's window ring), which a sharded decode attends
+#: block by block along their sequence
+_KV_LEAVES = frozenset(("k", "v", "k_d", "v_d", "k_m", "v_m", "ckv_d",
+                        "krope_d", "ckv_m", "krope_m", "self_k", "self_v",
+                        "cross_k", "cross_v", "attn_k", "attn_v"))
+
+
+#: cache leaves whose batch rows are not on axis 1 (the hybrid's stacked
+#: pairs, (groups, 2, B, ...)); ``cache_spec``'s rule puts ``dp`` on axis
+#: 1 all the same, as the reference's does
+_CACHE_ROW_AXIS = {"lru_h": 2, "lru_conv": 2}
 
 
 def _moe_cache_keys(cfg):
@@ -413,12 +438,9 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed["tok"].device
 
-    def init_cache(self, batch: int, capacity: int, src_len: int = 0) -> Cache:
-        return init_cache(self.cfg, batch, capacity, self.device, src_len)
-
     @torch.no_grad()
     def logits(self, x):
-        return layers.logits_apply(self, x, self.cfg)
+        return self._logits(x)
 
     def _positions(self, x):
         B, S = x.shape[0], x.shape[1]
@@ -444,12 +466,18 @@ class Transformer(nn.Module):
             return checkpoint(fn, p, *args, use_reentrant=False, **kw)
         return fn(p, *args, **kw)
 
+    def _gather_dtype(self):
+        """The dtype serving gathers weights in (no gradient is taken:
+        the compute dtype); None in training (each plan's own)."""
+        return None if torch.is_grad_enabled() else cdtype(self.cfg)
+
     def _top(self, key):
         """The top-level tree ``key`` (``embed``, ``final_norm``, ...),
         gathered when sharded (or taken from ``hoisted``)."""
         if self.mesh is None:
             return self[key]
-        return par.gathered(self[key], self.gather_plans, self.hoisted)
+        return par.gathered(self[key], self.gather_plans, self.hoisted,
+                            self._gather_dtype())
 
     def _head(self):
         """What ``layers.logits_apply`` reads: the model, or (sharded) its
@@ -465,10 +493,6 @@ class Transformer(nn.Module):
         if self.mesh is None:
             return contextlib.nullcontext()
         return par.mesh_context(self.mesh)
-
-    def _unsharded(self, what: str):
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} of a sharded model")
 
     def _encode(self, frames):
         """Encoder over precomputed frame embeddings (frontend stub)."""
@@ -554,27 +578,96 @@ class Transformer(nn.Module):
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
 
+    def _weights(self, p):
+        """A block's tree: its parameters, or (sharded) its weights
+        gathered (the serving paths' counterpart of :meth:`_block`)."""
+        if self.mesh is None:
+            return p
+        return par.gathered(p, self.gather_plans,
+                            dtype=self._gather_dtype())
+
+    def init_cache(self, batch: int, capacity: int, src_len: int = 0) -> Cache:
+        """A zeroed cache of ``batch`` sequences (sharded: the global batch;
+        each leaf this rank's block for ``cache_sharding``, the specs under
+        ``"specs"``)."""
+        if self.mesh is None:
+            return init_cache(self.cfg, batch, capacity, self.device,
+                              src_len)
+        ranks = par.mesh_ranks(self.mesh)
+        cache: Cache = {"pos": 0, "specs": {}}
+        for k, (whole, dtype) in cache_leaves(self.cfg, batch, capacity,
+                                              src_len).items():
+            spec = cache["specs"][k] = par.cache_spec(whole, self.mesh)
+            shape = [d // par.block_index(e, ranks.axes, ranks.coord)[1]
+                     for d, e in zip(whole, spec)]
+            cache[k] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return cache
+
+    def _placed(self, cache: Cache, batch: int) -> Cache:
+        """A cache of this rank's rows of a global batch of ``batch`` as
+        this rank's blocks (:func:`parallel.api.place_rows`), with their
+        specs under ``"specs"``; the cache itself in one process."""
+        if self.mesh is None:
+            return cache
+        ranks = par.mesh_ranks(self.mesh)
+        rows = par.rows_entry(batch, self.mesh)
+        n = par.block_index(rows, ranks.axes, ranks.coord)[1]
+        out: Cache = {"specs": {}}
+        for k, t in cache.items():
+            if not isinstance(t, torch.Tensor):
+                out[k] = t
+                continue
+            ax = _CACHE_ROW_AXIS.get(k, 1)
+            shape = list(t.shape)
+            shape[ax] *= n
+            spec = out["specs"][k] = par.cache_spec(shape, self.mesh)
+            out[k] = par.place_rows(t, spec, ax, self.mesh, rows)
+        return out
+
     @torch.no_grad()
-    def prefill(self, batch) -> tuple:
+    def prefill(self, batch, global_batch: int = None,
+                capacity: int = None) -> tuple:
         """Process the prompt (``batch["tokens"]`` (B,S); vlm also
         ``batch["patches"]``; encdec ``batch["frames"]`` alone, then one
-        BOS decode step); returns (last-position logits (B,V), cache)."""
-        self._unsharded("prefill")
+        BOS decode step); returns (last-position logits (B,V), cache).
+        ``capacity``: the positions the dense, moe and vlm caches (encdec:
+        its self cache) hold, room for the decode steps after the prompt
+        (default: the prompt's, as the JAX package's prefill; the ssm
+        state and the hybrid's window ring do not grow).
+
+        Sharded (``parallel.api.shard_module``): ``batch`` is this rank's
+        rows (``parallel.api.batch_rows``) of a global batch of
+        ``global_batch`` (default: the rows times the ``dp`` ranks); each
+        block's weights are gathered for its layer, and the cache comes
+        back as this rank's blocks (``cache_sharding``)."""
+        with self._on_mesh():
+            return self._prefill(batch, global_batch, capacity)
+
+    def _prefill(self, batch, global_batch, capacity):
         cfg = self.cfg
         fam = cfg.family
         dt = cdtype(cfg)
+        W = self._weights
+        lead = batch["frames"] if fam == "encdec" else batch["tokens"]
+        B = global_batch or lead.shape[0] * (
+            1 if self.mesh is None else par.dp_size(self.mesh))
 
         if fam == "encdec":
             frames = batch["frames"]
             enc = self._encode(frames)
-            B, Ssrc = frames.shape[0], frames.shape[1]
-            kvs = [attn.cross_attn_project_kv(p["cross_attn"], enc, cfg)
+            Ssrc = frames.shape[1]
+            kvs = [attn.cross_attn_project_kv(W(p)["cross_attn"], enc, cfg)
                    for p in self.dec_blocks]
-            cache = self.init_cache(B, capacity=Ssrc)
-            cache["cross_k"] = torch.stack([k for k, _ in kvs]).to(dt)
-            cache["cross_v"] = torch.stack([v for _, v in kvs]).to(dt)
-            bos = torch.zeros((B,), dtype=torch.int64, device=self.device)
-            return self.decode_step(cache, bos)
+            cache = self.init_cache(B, capacity=max(capacity or 0, Ssrc),
+                                    src_len=Ssrc)
+            cross = self._placed(
+                {"cross_k": torch.stack([k for k, _ in kvs]).to(dt),
+                 "cross_v": torch.stack([v for _, v in kvs]).to(dt)}, B)
+            for k in ("cross_k", "cross_v"):
+                cache[k] = cross[k]
+            bos = torch.zeros((frames.shape[0],), dtype=torch.int64,
+                              device=self.device)
+            return self._decode_step(cache, bos)
 
         x = self._inputs(batch["tokens"], batch.get("patches"))
         S = x.shape[1]
@@ -588,7 +681,7 @@ class Transformer(nn.Module):
         if fam in ("dense", "vlm"):
             kvs = []
             for p in self.blocks:
-                x, (k, v) = _dense_block_apply(p, x, positions, cfg,
+                x, (k, v) = _dense_block_apply(W(p), x, positions, cfg,
                                                collect_kv=True)
                 kvs.append((k.to(dt), v.to(dt)))
             put(("k", "v"), kvs)
@@ -596,7 +689,7 @@ class Transformer(nn.Module):
             keys = _moe_cache_keys(cfg)
             kvs = []
             for p in self.dense_blocks if "dense_blocks" in self else ():
-                x, kv = _dense_block_apply(p, x, positions, cfg,
+                x, kv = _dense_block_apply(W(p), x, positions, cfg,
                                            use_mla=cfg.use_mla,
                                            collect_kv=True)
                 kvs.append(tuple(t.to(dt) for t in kv))
@@ -604,14 +697,14 @@ class Transformer(nn.Module):
                 put([k + "_d" for k in keys], kvs)
             kvs = []
             for p in self.moe_blocks:
-                x, _, kv = _moe_block_apply(p, x, positions, cfg,
+                x, _, kv = _moe_block_apply(W(p), x, positions, cfg,
                                             collect_kv=True)
                 kvs.append(tuple(t.to(dt) for t in kv))
             put([k + "_m" for k in keys], kvs)
         elif fam == "ssm":
             states = []
             for p in self.blocks:
-                x, (st, conv) = _ssm_block_apply(p, x, cfg,
+                x, (st, conv) = _ssm_block_apply(W(p), x, cfg,
                                                  collect_state=True)
                 states.append((st, conv.to(dt)))
             put(("state", "conv"), states)
@@ -619,6 +712,7 @@ class Transformer(nn.Module):
             win = cfg.window
             groups = []
             for g in self.groups:
+                g = W(g)
                 x, st0 = _lru_block_apply(g["lru0"], x, cfg,
                                           collect_state=True)
                 x, st1 = _lru_block_apply(g["lru1"], x, cfg,
@@ -634,11 +728,66 @@ class Transformer(nn.Module):
             put(("lru_h", "lru_conv", "attn_k", "attn_v"), groups)
             rems = []
             for p in self.rem_lru if "rem_lru" in self else ():
-                x, (h, conv) = _lru_block_apply(p, x, cfg, collect_state=True)
+                x, (h, conv) = _lru_block_apply(W(p), x, cfg,
+                                                collect_state=True)
                 rems.append((h, conv.to(dt)))
             if rems:
                 put(("rem_lru_h", "rem_lru_conv"), rems)
-        return self.logits(x[:, -1]), cache
+        if fam in ("dense", "moe", "vlm") and (capacity or 0) > S:
+            for k in [k for k in cache if k in _KV_LEAVES]:
+                t = cache[k]
+                cache[k] = nn.functional.pad(
+                    t, [0, 0] * (t.dim() - 3) + [0, capacity - S])
+        return self._logits(x[:, -1]), self._placed(cache, B)
+
+    def _logits(self, x):
+        return layers.logits_apply(self._head(), x, self.cfg)
+
+    def _serving_leaves(self, cache: Cache):
+        """What the decode step reads of a cache: (leaves, sequence
+        shards, heads, leaves to place back).  In one process the cache's
+        leaves.  Sharded, the attention caches and the ssm state stay this
+        rank's blocks (a cache split along its sequence gets its
+        ``attention.SeqShard``; a state split over its heads, its first
+        head and group), every other leaf is gathered into this rank's
+        rows whole (:func:`parallel.api.rows_of`) and placed back after
+        the step."""
+        if self.mesh is None:
+            return cache, {}, None, {}
+        specs = cache["specs"]
+        ranks = par.mesh_ranks(self.mesh)
+        k0 = next(iter(specs))
+        ax0 = _CACHE_ROW_AXIS.get(k0, 1)
+        batch = cache[k0].shape[ax0] * par.block_index(
+            specs[k0][ax0], ranks.axes, ranks.coord)[1]
+        rows = par.rows_entry(batch, self.mesh)
+        work, shards, heads, back = {}, {}, None, {}
+
+        def split(entry, n_block):
+            """(first index, whole length, group) of a dimension of
+            ``n_block`` split over ``entry``'s axes here."""
+            i, n = par.block_index(entry, ranks.axes, ranks.coord)
+            return i * n_block, n * n_block, ranks.group(
+                par.spec_axes((entry,)))
+
+        for k, spec in specs.items():
+            t = cache[k]
+            ax = _CACHE_ROW_AXIS.get(k, 1)
+            native = spec[ax] == rows and all(e is None for e in spec[3:])
+            if native and k in _KV_LEAVES:
+                off, length, group = split(spec[2], t.shape[2])
+                shards[k] = (attn.SeqShard(off, length, group)
+                             if group is not None else None)
+                work[k] = t
+            elif native and k == "state":
+                off, _, group = split(spec[2], t.shape[2])
+                heads = (off, group) if group is not None else None
+                work[k] = t
+            else:
+                work[k] = par.rows_of(t, spec, ax, self.mesh, rows)
+                if work[k] is not t:
+                    back[k] = (spec, ax, rows)
+        return work, shards, heads, back
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens) -> tuple:
@@ -651,78 +800,102 @@ class Transformer(nn.Module):
         cross K/V are only read), and the new cache holds those same
         tensors.  A caller that needs the old cache afterwards (a branch,
         a retry) clones it first.  The JAX package's ``decode_step`` is
-        functional instead."""
-        self._unsharded("decode_step")
+        functional instead.
+
+        Sharded: ``tokens`` are this rank's rows and ``cache`` its blocks
+        (:meth:`prefill`'s, :meth:`init_cache`'s); an attention cache
+        split along its sequence is attended block by block, merged over
+        its group (``attention.decode_attention_sharded``), the ssm state
+        is updated head block by head block (``ssm.ssm_apply_decode``'s
+        ``heads``), every other leaf gathered into this rank's rows and
+        placed back (:meth:`_serving_leaves`)."""
+        with self._on_mesh():
+            return self._decode_step(cache, tokens)
+
+    def _decode_step(self, cache: Cache, tokens) -> tuple:
         cfg = self.cfg
         fam = cfg.family
         pos = int(cache["pos"])
-        x = layers.embed_apply(self.embed["tok"], tokens, cfg)  # (B, D)
+        c, shards, heads, back = self._serving_leaves(cache)
+        W = self._weights
+        x = layers.embed_apply(self._top("embed")["tok"], tokens, cfg)
 
         def mlp_res(p, x, ln="ln2"):
             h = layers.rms_norm(x, p[ln]["scale"], cfg.norm_eps)
             return x + layers.mlp_apply(p["mlp"], h, cfg)
 
-        def attn_res(p, x, k, v, window=0):
+        def attn_res(p, x, k, v, key, window=0):
             h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+            shard = shards.get(key)
             if cfg.use_mla:
-                h, _, _ = attn.mla_apply_decode(p["attn"], h, pos, k, v, cfg)
+                h, _, _ = attn.mla_apply_decode(p["attn"], h, pos, k, v, cfg,
+                                                shard=shard)
             else:
                 h, _, _ = attn.attn_apply_decode(p["attn"], h, pos, k, v, cfg,
-                                                 window=window)
+                                                 window=window, shard=shard)
             return x + h
 
         if fam in ("dense", "vlm"):
-            for p, k, v in zip(self.blocks, cache["k"], cache["v"]):
-                x = mlp_res(p, attn_res(p, x, k, v))
+            for p, k, v in zip(self.blocks, c["k"], c["v"]):
+                p = W(p)
+                x = mlp_res(p, attn_res(p, x, k, v, "k"))
         elif fam == "moe":
             keys = _moe_cache_keys(cfg)
             if "dense_blocks" in self:
-                for p, a, b in zip(self.dense_blocks, cache[keys[0] + "_d"],
-                                   cache[keys[1] + "_d"]):
-                    x = mlp_res(p, attn_res(p, x, a, b))
-            for p, a, b in zip(self.moe_blocks, cache[keys[0] + "_m"],
-                               cache[keys[1] + "_m"]):
-                x = attn_res(p, x, a, b)
+                for p, a, b in zip(self.dense_blocks, c[keys[0] + "_d"],
+                                   c[keys[1] + "_d"]):
+                    p = W(p)
+                    x = mlp_res(p, attn_res(p, x, a, b, keys[0] + "_d"))
+            for p, a, b in zip(self.moe_blocks, c[keys[0] + "_m"],
+                               c[keys[1] + "_m"]):
+                p = W(p)
+                x = attn_res(p, x, a, b, keys[0] + "_m")
                 h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
                 y, _ = moe.moe_apply(p["moe"], h[:, None, :], cfg)
                 x = x + y[:, 0]
         elif fam == "ssm":
-            for p, st, cb in zip(self.blocks, cache["state"], cache["conv"]):
+            for p, st, cb in zip(self.blocks, c["state"], c["conv"]):
+                p = W(p)
                 h = layers.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
                 y, new_st, new_cb = ssm.ssm_apply_decode(p["ssm"], h, st, cb,
-                                                         cfg)
+                                                         cfg, heads=heads)
                 x = x + y
                 st.copy_(new_st)
                 cb.copy_(new_cb)
         elif fam == "hybrid":
-            for g, lh, lc, k, v in zip(self.groups, cache["lru_h"],
-                                       cache["lru_conv"], cache["attn_k"],
-                                       cache["attn_v"]):
+            for g, lh, lc, k, v in zip(self.groups, c["lru_h"],
+                                       c["lru_conv"], c["attn_k"],
+                                       c["attn_v"]):
+                g = W(g)
                 for j, name in enumerate(("lru0", "lru1")):
                     x, h, cb = _lru_step(g[name], x, lh[j], lc[j], cfg)
                     lh[j].copy_(h)
                     lc[j].copy_(cb)
-                x = mlp_res(g["attn"], attn_res(g["attn"], x, k, v,
+                x = mlp_res(g["attn"], attn_res(g["attn"], x, k, v, "attn_k",
                                                 window=cfg.window))
             if "rem_lru" in self:
-                for p, lh, lc in zip(self.rem_lru, cache["rem_lru_h"],
-                                     cache["rem_lru_conv"]):
-                    x, h, cb = _lru_step(p, x, lh, lc, cfg)
+                for p, lh, lc in zip(self.rem_lru, c["rem_lru_h"],
+                                     c["rem_lru_conv"]):
+                    x, h, cb = _lru_step(W(p), x, lh, lc, cfg)
                     lh.copy_(h)
                     lc.copy_(cb)
         elif fam == "encdec":
-            for p, k, v, ck, cv in zip(self.dec_blocks, cache["self_k"],
-                                       cache["self_v"], cache["cross_k"],
-                                       cache["cross_v"]):
+            for p, k, v, ck, cv in zip(self.dec_blocks, c["self_k"],
+                                       c["self_v"], c["cross_k"],
+                                       c["cross_v"]):
+                p = W(p)
                 h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
                 h, _, _ = attn.attn_apply_decode(p["self_attn"], h, pos, k, v,
-                                                 cfg)
+                                                 cfg, shard=shards.get("self_k"))
                 x = x + h
                 h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-                x = x + attn.cross_attn_decode(p["cross_attn"], h, ck, cv, cfg)
+                x = x + attn.cross_attn_decode(p["cross_attn"], h, ck, cv, cfg,
+                                               shard=shards.get("cross_k"))
                 x = mlp_res(p, x, "ln3")
         else:
             raise ValueError(fam)
+        for k, (spec, ax, rows) in back.items():
+            cache[k].copy_(par.place_rows(c[k], spec, ax, self.mesh, rows))
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
-        return self.logits(x), new_cache
+        return self._logits(x), new_cache

@@ -290,28 +290,31 @@ def batch_sharding(batch_tree, mesh):
     return one(batch_tree)
 
 
+def cache_spec(shape, mesh) -> Spec:
+    """The spec of one cache leaf of ``shape`` (a position, ``()``, gets
+    ``()``): (L, B, S, KV/heads, Dh)-style, batch over dp, the axis after
+    it over sp."""
+    if len(shape) == 0:
+        return ()
+    # find the batch axis: stacked caches are (L, B, ...), flat are (B, ...)
+    axes = [None] * len(shape)
+    b_ax = 1 if len(shape) >= 2 else 0
+    axes[b_ax] = "dp"
+    if len(shape) >= 4:
+        # (L, B, S, KV[, Dh]): shard the KV sequence over the model axis
+        # (sp) — KV-head counts (<= 8) don't divide a 16-way axis, and
+        # sequence sharding is what keeps 32k-half-MB-per-token caches
+        # inside HBM (llama3 decode_32k: 34 GB -> 2.2 GB per device).
+        # sp and tp_kv share the physical model axis, so seq wins.
+        axes[b_ax + 1] = "sp"
+    return resolve_spec(tuple(axes), shape, mesh)
+
+
 def cache_sharding(cache_tree, mesh):
     """KV caches: (L, B, S, KV/heads, Dh)-style — batch over dp, heads over
     tp.  The position (a Python int in the port) gets ``()``."""
-
-    def one(leaf):
-        shape = getattr(leaf, "shape", ())
-        if len(shape) == 0:
-            return ()
-        # find the batch axis: stacked caches are (L, B, ...), flat are (B, ...)
-        axes = [None] * len(shape)
-        b_ax = 1 if len(shape) >= 2 else 0
-        axes[b_ax] = "dp"
-        if len(shape) >= 4:
-            # (L, B, S, KV[, Dh]): shard the KV sequence over the model axis
-            # (sp) — KV-head counts (<= 8) don't divide a 16-way axis, and
-            # sequence sharding is what keeps 32k-half-MB-per-token caches
-            # inside HBM (llama3 decode_32k: 34 GB -> 2.2 GB per device).
-            # sp and tp_kv share the physical model axis, so seq wins.
-            axes[b_ax + 1] = "sp"
-        return resolve_spec(tuple(axes), shape, mesh)
-
-    return {k: one(v) for k, v in cache_tree.items()}
+    return {k: cache_spec(getattr(v, "shape", ()), mesh)
+            for k, v in cache_tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -530,18 +533,24 @@ def shard_module(module: torch.nn.Module, mesh, compute_dtype=None):
     return module
 
 
-def gathered(tree: torch.nn.Module, plans, hoisted=None) -> Dict:
+def gathered(tree: torch.nn.Module, plans, hoisted=None,
+             dtype=None) -> Dict:
     """A parameter tree (``models.layers.ParamTree``) of a sharded module
     as a nested dict of its gathered leaves (``gather_plans``); a
     parameter in ``hoisted`` ({parameter: its gathered leaf}) is taken from
-    there."""
-    out = {k: gathered(m, plans, hoisted) for k, m in tree._modules.items()}
+    there.  ``dtype``: every leaf of two or more dimensions gathered in it
+    instead (serving: no gradient to sum, and a looked-up row cast after
+    the lookup is the same value cast before it)."""
+    out = {k: gathered(m, plans, hoisted, dtype)
+           for k, m in tree._modules.items()}
     for k, p in tree._parameters.items():
         if hoisted and p in hoisted:
             out[k] = hoisted[p]
             continue
-        (shape, places, group, rest), dtype = plans[p]
-        out[k] = coll.unshard(p, shape, places, group, rest, dtype)
+        (shape, places, group, rest), dt = plans[p]
+        if dtype is not None and p.ndim >= 2:
+            dt = dtype
+        out[k] = coll.unshard(p, shape, places, group, rest, dt)
     return out
 
 
@@ -565,3 +574,50 @@ def reduce_hoisted(module: torch.nn.Module, p, grad) -> torch.Tensor:
     """The block's gradient of a hoisted leaf's gradient ``grad``."""
     (_, places, group, rest), _ = module.gather_plans[p]
     return coll.reduce_block(grad, places, group, rest, p.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving caches on the ranks
+# ---------------------------------------------------------------------------
+
+def rows_entry(batch: int, mesh):
+    """The spec entry of a batch of ``batch`` rows (``dp``'s axes, or None
+    where they do not divide it): which rows a rank serves."""
+    return resolve_spec(("dp",), (batch,), mesh)[0]
+
+
+def place_rows(t: torch.Tensor, spec: Spec, axis: int, mesh, rows
+               ) -> torch.Tensor:
+    """This rank's block for ``spec`` (a copy) of the leaf of which ``t``
+    holds this rank's batch rows (``rows``, their spec entry) along
+    ``axis`` and all of every other dimension.  Where ``spec`` splits that
+    axis as the rows are split, the block is cut from ``t``; else the rows
+    are gathered over the ``dp`` ranks first."""
+    ranks = mesh_ranks(mesh)
+    if spec[axis] == rows:
+        shape = list(t.shape)
+        shape[axis] *= block_index(rows, ranks.axes, ranks.coord)[1]
+        sl = list(block_slices(shape, spec, ranks.axes, ranks.coord))
+        sl[axis] = slice(None)
+        return t[tuple(sl)].clone()
+    if rows is not None:
+        t = torch.cat(coll.gather_blocks(t.contiguous(), ranks.group(
+            _entry_axes(rows))), axis)
+    return t[block_slices(t.shape, spec, ranks.axes, ranks.coord)].clone()
+
+
+def rows_of(block: torch.Tensor, spec: Spec, axis: int, mesh, rows
+            ) -> torch.Tensor:
+    """:func:`place_rows`' inverse: this rank's batch rows along ``axis``,
+    whole on every other dimension, of the leaf whose block for ``spec``
+    is ``block`` (``block`` itself where that is what it holds; else
+    gathered over the axes ``spec`` names)."""
+    if spec[axis] == rows and all(
+            e is None for i, e in enumerate(spec) if i != axis):
+        return block
+    ranks = mesh_ranks(mesh)
+    shape, places, group, _ = ranks.plan(spec, block.shape)
+    whole = coll.unshard(block, shape, places, group)
+    i, n = block_index(rows, ranks.axes, ranks.coord)
+    size = whole.shape[axis] // n
+    return whole.narrow(axis, i * size, size).clone()

@@ -25,35 +25,48 @@ ranks' cotangents where the values it returns are replicated, which
 ``jax.grad`` does not do for ``psum`` under ``shard_map``'s division.
 A reduce-scatter is an all-to-all of the blocks and a float32 sum of what
 arrives, in group-rank order, on the tensors' own device.  Every call
-counts its kind, the bytes this rank hands to the backend and the host
-seconds it waits in it, in :data:`COUNTS` (gloo takes CUDA tensors for
-each of these collectives
-and stages them through host memory itself; NCCL keeps them on the
-card).  A group of ``None`` is a group of this rank alone: nothing moves.
+counts, under the reference's collective kinds (``all-to-all``,
+``all-reduce``; ``repro.launch.roofline``'s names), the bytes of its
+result on this rank (what the reference reads off each collective's HLO
+result shape) and the host seconds it waits in it, in :data:`COUNTS`,
+and its bytes by its group's members in :data:`BY_GROUP` (the dry-run
+prices each group by the slowest link it crosses).  An all-gather is
+issued as an all-to-all of the block's copies (:func:`gather_blocks`) and
+is counted as that, what it is on the wire.  gloo takes CUDA tensors for
+each of these collectives and stages them through host memory itself;
+NCCL keeps them on the card.  A group of ``None`` is a group of this rank
+alone: nothing moves, nothing is counted.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-#: kind -> [calls, bytes handed to the backend, host seconds in the
-#: calls] since :func:`reset_counts`
+#: kind -> [calls, result bytes on this rank, host seconds in the calls]
+#: since :func:`reset_counts`
 COUNTS: Dict[str, list] = {}
+#: (kind, the group's global ranks) -> result bytes on this rank, since
+#: :func:`reset_counts`
+BY_GROUP: Dict[Tuple[str, Tuple[int, ...]], int] = {}
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BY_GROUP.clear()
 
 
 @contextlib.contextmanager
-def _count(kind: str, nbytes: int):
+def _count(kind: str, nbytes: int, group=None):
     c = COUNTS.setdefault(kind, [0, 0, 0.0])
     c[0] += 1
     c[1] += nbytes
+    if group is not None:
+        key = (kind, tuple(dist.get_process_group_ranks(group)))
+        BY_GROUP[key] = BY_GROUP.get(key, 0) + nbytes
     t0 = time.perf_counter()
     try:
         yield
@@ -78,7 +91,7 @@ def gather_blocks(x: torch.Tensor, group) -> List[torch.Tensor]:
         return [x]
     flat = x.unsqueeze(0).expand(_size(group), *x.shape).contiguous()
     out = torch.empty_like(flat)
-    with _count("all_gather", _nbytes(flat)):
+    with _count("all-to-all", _nbytes(out), group):
         dist.all_to_all_single(out, flat, group=group)
     return list(out.unbind(0))
 
@@ -107,7 +120,7 @@ def exchange_blocks(blocks: Sequence[torch.Tensor], group
         return [blocks[0]]
     flat = torch.stack([b.contiguous() for b in blocks])
     out = torch.empty_like(flat)
-    with _count("all_to_all", _nbytes(flat)):
+    with _count("all-to-all", _nbytes(out), group):
         dist.all_to_all_single(out, flat, group=group)
     return list(out.unbind(0))
 
@@ -116,8 +129,17 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the members' ``x`` (a new tensor)."""
     x = x.clone(memory_format=torch.contiguous_format)
     if group is not None:
-        with _count("all_reduce", _nbytes(x)):
+        with _count("all-reduce", _nbytes(x), group):
             dist.all_reduce(x, group=group)
+    return x
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of the members' ``x`` (a new tensor)."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    if group is not None:
+        with _count("all-reduce", _nbytes(x), group):
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 

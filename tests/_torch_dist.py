@@ -45,6 +45,43 @@ The sharded-training scenarios of tests/test_torch_mesh.py, on a
   restores the port's checkpoint onto (4, 2) and (1, 1)
   (``DIR/jax_restored.npz``).
 
+Sharded serving (tests/test_torch_serve_mesh.py), on the same (data 2,
+model 4) mesh, float32, at the smoke widths of :data:`SERVE_ARCHS`:
+
+* ``python tests/_torch_dist.py serve DIR``: writes ``DIR/jax_serve.npz``,
+  the JAX package on 8 host devices under ``mesh_context`` (the MoE layer
+  on its expert-parallel branch): each family's initial parameters, its
+  prefill of :func:`serve_inputs`' batch placed by ``batch_sharding`` and
+  the parameters by ``param_shardings``, then :data:`DECODE_STEPS` steps
+  of ``jax.jit(T.decode_step, in_shardings=(params, cache_sharding,
+  batch), out_shardings=(None, cache_sharding))``: every step's logits and
+  the last cache's ``addressable_shards``; llama3-smoke's decode steps
+  from an empty cache of :data:`FRESH_CAPACITY` positions likewise.  The
+  dense, moe and vlm prefill caches get :data:`DECODE_STEPS` more
+  positions first (``tests/_torch_lm.py``'s ``pad_cache``): at a full
+  cache the write index is clamped onto its last position, and there the
+  reference's sharded step disagrees with its own unsharded one (ROADMAP
+  §3).
+* :func:`torch_serve_worker`: rank ``rank`` of the port's run of the same
+  on 8 gloo ranks (``DIR/serve_rank<r>.npz``): its rows' logits and its
+  cache blocks (the same room given by the sharded prefill's
+  ``capacity``).
+
+The PIM engine with its DPU axis split over :data:`WORLD` gloo ranks
+(tests/test_torch_pim_shard.py): :func:`torch_pim_worker` runs
+:data:`PIM_SCENARIOS` (:func:`pim_launch`) through
+``compile_cache.run_sharded`` (VA through ``PIMSystem(group=...)``, the
+workload's own run) and writes ``DIR/pim_rank<r>.npz`` (the whole final
+state of each) and ``DIR/pim_rank<r>.json`` (VA's ``KernelReport`` and
+``Timeline``, each scenario's replays).
+
+The dry-run's cells on a small mesh (tests/test_torch_dryrun_mesh.py):
+``python tests/_torch_dist.py dryrun DIR`` writes ``DIR/xla_mem.json``,
+the JAX package's ``specs.make_cell`` of llama3-smoke's (one microbatch)
+:data:`DRYRUN_CELLS` lowered and compiled on a (pod 2, data 2, model 2)
+mesh of 8 host devices (the reference's
+``scenario_dryrun_cell_small_mesh``), each one's ``memory_analysis``.
+
 The training CLI on 4 ranks (tests/test_torch_scripts_launch_train_mesh.py):
 ``python tests/_torch_dist.py cli DIR ARGS...`` runs the reference's on 4
 host devices (:func:`jax_cli_main`), :func:`torch_cli_worker` the port's
@@ -632,6 +669,275 @@ def torch_mesh_worker(rank: int, world: int, init_file: str, out_dir: str):
 
 
 # ---------------------------------------------------------------------------
+# Sharded serving
+# ---------------------------------------------------------------------------
+
+#: one architecture of each family the serving test holds
+SERVE_ARCHS = ("llama3-8b", "mamba2-130m", "qwen3-moe-30b-a3b",
+               "recurrentgemma-9b", "seamless-m4t-large-v2",
+               "llava-next-mistral-7b")
+SERVE_ROWS, SERVE_SEQ, DECODE_STEPS = 8, 32, 4
+#: llama3-smoke's empty cache: 40 positions, 10 a model rank
+FRESH_CAPACITY = 40
+
+
+def serve_inputs(cfg) -> dict:
+    """The prompt batch of ``cfg``'s family (numpy, fixed seed) and the
+    decode steps' tokens (``"steps"``, (DECODE_STEPS, rows))."""
+    r = np.random.default_rng(11)
+    B, S = SERVE_ROWS, SERVE_SEQ
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = r.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    elif cfg.family == "vlm":
+        Pn = cfg.n_frontend_tokens
+        out["tokens"] = r.integers(0, cfg.vocab_size, (B, S - Pn),
+                                   dtype=np.int32)
+        out["patches"] = r.normal(size=(B, Pn, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = r.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    out["steps"] = r.integers(0, cfg.vocab_size, (DECODE_STEPS, B),
+                              dtype=np.int32)
+    return out
+
+
+def jax_serve_main(out_dir: str):
+    """The JAX package's side of the sharded serving scenarios (see the
+    module docstring)."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={MESH_WORLD}"
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_lm import pad_cache
+    from repro.configs.base import get_smoke_config
+    from repro.models import transformer as T
+    from repro.parallel import api as par
+
+    mesh = jax.make_mesh(tuple(MESH.values()), tuple(MESH),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+
+    def shape_of(tree):
+        return jax.eval_shape(lambda: tree)
+
+    def decode(name, cfg, p_sh, psh, cache, steps):
+        cache_sh = par.cache_sharding(shape_of(cache), mesh)
+        tok_sh = par.batch_sharding(shape_of(jnp.asarray(steps[0])), mesh)
+        step = jax.jit(lambda p, c, t: T.decode_step(p, c, t, cfg),
+                       in_shardings=(psh, cache_sh, tok_sh),
+                       out_shardings=(None, cache_sh))
+        cache = jax.device_put(cache, cache_sh)
+        for i, tok in enumerate(steps):
+            logits, cache = step(p_sh, cache, jnp.asarray(tok))
+            out[f"{name}/logits/{i + 1}"] = np.asarray(logits)
+        for k, leaf in cache.items():
+            if k == "pos":
+                continue
+            got = sorted(leaf.addressable_shards, key=lambda s: s.device.id)
+            out[f"{name}/cache/{k}"] = np.stack([np.asarray(s.data)
+                                                 for s in got])
+
+    with par.mesh_context(mesh):
+        for arch in SERVE_ARCHS:
+            cfg = get_smoke_config(arch).replace(dtype="float32")
+            params = T.init_params(cfg, jax.random.PRNGKey(0))
+            out.update(flat_tree(jax.tree.map(np.asarray, params),
+                                 f"{arch}/init/"))
+            inp = serve_inputs(cfg)
+            batch = {k: jnp.asarray(v) for k, v in inp.items()
+                     if k != "steps"}
+            psh = par.param_shardings(shape_of(params), mesh)
+            p_sh = jax.device_put(params, psh)
+            b_sh = jax.device_put(batch, par.batch_sharding(
+                shape_of(batch), mesh))
+            logits, cache = jax.jit(lambda p, b: T.prefill(p, b, cfg))(
+                p_sh, b_sh)
+            out[f"{arch}/logits/0"] = np.asarray(logits)
+            cache = pad_cache(cache, DECODE_STEPS, cfg.family)
+            decode(arch, cfg, p_sh, psh, cache, inp["steps"])
+            if arch == "llama3-8b":
+                decode("fresh", cfg, p_sh, psh, T.init_cache(
+                    cfg, SERVE_ROWS, FRESH_CAPACITY), inp["steps"])
+    np.savez(Path(out_dir) / "jax_serve.npz", **out)
+
+
+def torch_serve_worker(rank: int, world: int, init_file: str, out_dir: str):
+    """Rank ``rank`` of the port's sharded serving scenarios (see the
+    module docstring)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", tuple(MESH.values()),
+                                mesh_dim_names=tuple(MESH))
+        ref = np.load(Path(out_dir) / "jax_serve.npz")
+        out = {}
+
+        def rows(a):
+            t = torch.from_numpy(np.asarray(a))
+            return par.batch_rows(t.long() if not t.is_floating_point()
+                                  else t, mesh)
+
+        def decode(name, model, cache, steps):
+            for i, tok in enumerate(steps):
+                logits, cache = model.decode_step(cache, rows(tok))
+                out[f"{name}/logits/{i + 1}"] = logits.numpy()
+            for k in cache["specs"]:
+                out[f"{name}/cache/{k}"] = cache[k].numpy()
+
+        for arch in SERVE_ARCHS:
+            cfg = get_smoke_config(arch).replace(dtype="float32")
+            model = convert.params_from_jax(nested(ref, f"{arch}/init/"),
+                                            cfg, "cpu")
+            par.shard_module(model, mesh, T.cdtype(cfg))
+            inp = serve_inputs(cfg)
+            batch = {k: rows(v) for k, v in inp.items() if k != "steps"}
+            # pad_cache's room (none for encdec's self cache) by prefill
+            logits, cache = model.prefill(
+                batch, global_batch=SERVE_ROWS,
+                capacity=None if cfg.family == "encdec"
+                else SERVE_SEQ + DECODE_STEPS)
+            out[f"{arch}/logits/0"] = logits.numpy()
+            decode(arch, model, cache, inp["steps"])
+            if arch == "llama3-8b":
+                decode("fresh", model, model.init_cache(
+                    SERVE_ROWS, FRESH_CAPACITY), inp["steps"])
+        np.savez(Path(out_dir) / f"serve_rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The dry-run on a small mesh
+# ---------------------------------------------------------------------------
+
+#: the small mesh of the dry-run scenario
+SMALL_MESH = {"pod": 2, "data": 2, "model": 2}
+#: kind -> (shape name, sequence, batch) of the cells counted on it
+DRYRUN_CELLS = {"train": ("mini_train", 64, 8),
+                "prefill": ("mini_prefill", 64, 8),
+                "decode": ("mini_decode", 64, 8)}
+
+
+def jax_dryrun_main(out_dir: str):
+    """The JAX package's side of the small-mesh cells (see the module
+    docstring)."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, str(ROOT / "src"))
+    import json
+
+    import jax
+
+    import repro.configs.base as cb
+    from repro.launch import specs
+    from repro.parallel import api as par
+
+    cfg = cb.get_smoke_config("llama3-8b").replace(train_microbatches=1)
+    mesh = jax.make_mesh(tuple(SMALL_MESH.values()), tuple(SMALL_MESH),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 3)
+    out = {}
+    for kind, (name, seq, batch) in DRYRUN_CELLS.items():
+        cb.SHAPES[name] = cb.ShapeSpec(name, kind, seq, batch)
+        with par.mesh_context(mesh):
+            cell = specs.make_cell(cfg, name, mesh)
+            mem = jax.jit(cell["fn"], in_shardings=cell["in_shardings"],
+                          out_shardings=cell.get("out_shardings"),
+                          donate_argnums=cell["donate_argnums"]).lower(
+                *cell["args"]).compile().memory_analysis()
+        out[kind] = {"args": int(mem.argument_size_in_bytes),
+                     "out": int(mem.output_size_in_bytes),
+                     "temp": int(mem.temp_size_in_bytes)}
+    (Path(out_dir) / "xla_mem.json").write_text(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# The PIM engine's DPUs split over ranks
+# ---------------------------------------------------------------------------
+
+#: 8 DPUs, 2 a rank: VA at scale 0.02 (16 tasklets), the tail-clip DMA
+#: case, cross_dpu's program with its DMA sizes by DPU pair, and the same
+#: stopped at max_cycles (``cases``' cross_pair launches)
+PIM_SCENARIOS = ("va", "tail", "xdpu", "xdpu_max")
+PIM_DPUS = 8
+VA_SCALE = 0.02
+
+
+def pim_launch(name: str):
+    """``(cfg, binary, wram, mram, T)`` of a scenario (the port's; ``xdpu``
+    and ``xdpu_max`` are ``cases``' ``cross_pair`` launches)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.cycle_step import cases
+
+    if name == "tail":
+        return cases.launch("dma_tail_clip", n_dpus=PIM_DPUS)
+    if name in ("xdpu", "xdpu_max"):
+        return cases.launch({"xdpu": "cross_pair",
+                             "xdpu_max": "cross_pair_max_cycles"}[name])
+    return cases.va(PIM_DPUS, scale=VA_SCALE)
+
+
+def torch_pim_worker(rank: int, world: int, init_file: str, out_dir: str):
+    """Rank ``rank`` of the sharded PIM scenarios (see the module
+    docstring)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.workloads as wl
+    from repro_torch.core import compile_cache
+    from repro_torch.core.config import DPUConfig
+    from repro_torch.core.host import PIMSystem
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        out, meta = {}, {"replays": {}, "catch_ups": {}}
+        group = dist.group.WORLD
+        for name in PIM_SCENARIOS[1:]:
+            cfg, binary, wram, mram, T = pim_launch(name)
+            shard = compile_cache.Shard(cfg, binary, wram, mram, T, group,
+                                        "cpu")
+            block = {k: v.numpy()[:shard.hi - shard.lo]
+                     for k, v in shard.run().items()}
+            meta["replays"][name] = shard.replays
+            meta["catch_ups"][name] = shard.catch_ups
+            for k, v in compile_cache.gather_blocks(
+                    block, cfg.n_dpus, group).items():
+                out[f"{name}/{k}"] = v
+        cfg = DPUConfig(n_dpus=PIM_DPUS, n_tasklets=16, mram_bytes=1 << 14)
+        system = PIMSystem(cfg, device="cpu", group=group)
+        s0 = compile_cache.stats()
+        st, rep = wl.get("VA").run(system, n_threads=16, scale=VA_SCALE)
+        meta["va_votes"] = compile_cache.stats()["votes"] - s0["votes"]
+        for k, v in st.items():
+            out[f"va/{k}"] = v
+        meta["report"] = dataclasses.asdict(rep)
+        meta["timeline"] = [list(e) for e in system.timeline.events]
+        np.savez(Path(out_dir) / f"pim_rank{rank}.npz", **out)
+        (Path(out_dir) / f"pim_rank{rank}.json").write_text(
+            json.dumps(meta, default=lambda a: np.asarray(a).tolist()))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # The training CLI on several ranks
 # ---------------------------------------------------------------------------
 
@@ -715,5 +1021,9 @@ if __name__ == "__main__":
         jax_mesh_main(sys.argv[2], sys.argv[1])
     elif sys.argv[1] == "mesh-check":
         jax_mesh_check(sys.argv[2])
+    elif sys.argv[1] == "serve":
+        jax_serve_main(sys.argv[2])
+    elif sys.argv[1] == "dryrun":
+        jax_dryrun_main(sys.argv[2])
     else:
         jax_main(sys.argv[1])

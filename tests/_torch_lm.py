@@ -110,17 +110,21 @@ def pad_cache(cache, extra, family):
     return out
 
 
-def decode_both(pair: Pair, start=S, stop=S + EXTRA):
+def decode_both(pair: Pair, start=S, stop=S + EXTRA, capacity=False):
     """Prefill of ``start`` tokens, then decode steps ``start..stop-1`` in
     both packages; returns (port logits, port cache, JAX logits, JAX
     cache).  encdec's prefill decodes a BOS first, so its steps feed the
-    tokens from 0."""
+    tokens from 0.  The room for the steps: ``pad_cache`` on both sides,
+    or (``capacity``) the port's ``prefill(capacity=stop)``."""
     jb, tb = pair.batch(start)
     _, jc = JT.prefill(pair.jparams, jb, pair.jcfg)
-    _, cache = pair.model.prefill(tb)
     n = stop - start
     jc = pad_cache(jc, n, pair.cfg.family)
-    cache = pad_cache(cache, n, pair.cfg.family)
+    if capacity and pair.cfg.family != "encdec":
+        _, cache = pair.model.prefill(tb, capacity=stop)
+    else:
+        _, cache = pair.model.prefill(tb)
+        cache = pad_cache(cache, n, pair.cfg.family)
     first = 0 if pair.cfg.family == "encdec" else start
     jl = logits = None
     for t in range(first, first + n):

@@ -17,7 +17,8 @@ CPU.
 * Every family's train, prefill and decode cells run on meta, mamba2's
   included; ``Transformer`` and ``init_train_state`` build on meta with no
   generator; ``main`` writes an OK or ``SKIP(policy)`` row a cell at full
-  width, refuses ``--multi-pod``; ``run_pim_cell`` on the CPU.
+  width (``--mesh 1x1``; ``--multi-pod``, the 2x16x16 mesh's:
+  tests/test_torch_dryrun_mesh.py); ``run_pim_cell`` on the CPU.
 """
 import ast
 import json
@@ -237,19 +238,27 @@ def test_counts_ssd_as_the_kernel():
 
 
 def test_main_writes_every_cell(tmp_path):
-    """One architecture's four cells at full width: OK or SKIP(policy)
-    rows, read back by benchmarks/lm_roofline.py's table; --multi-pod is
-    refused."""
-    assert dryrun.main(["--arch", "llama3-8b", "--device", "cpu",
-                        "--out", str(tmp_path)]) == 0
-    rows = [json.loads(p.read_text()) for p in sorted(tmp_path.iterdir())]
+    """One architecture's four cells at full width on one card (``--mesh
+    1x1``, ``__1x1`` rows): OK or SKIP(policy) rows, read back by
+    benchmarks/lm_roofline.py's table; ``--multi-pod`` writes the
+    2x16x16 mesh's row (``__mp``)."""
+    assert dryrun.main(["--arch", "llama3-8b", "--mesh", "1x1", "--device",
+                        "cpu", "--out", str(tmp_path)]) == 0
+    paths = sorted(tmp_path.iterdir())
+    assert all(p.name.endswith("__1x1.json") for p in paths)
+    rows = [json.loads(p.read_text()) for p in paths]
     assert [r["shape"] for r in rows] == sorted(REF_SHAPES)
     assert {r["status"] for r in rows} == {"OK", "SKIP(policy)"}
+    assert {r["mesh"] for r in rows} == {"1x1"}
     ok = [r for r in rows if r["status"] == "OK"]
     assert all(r["compute_ms"] > 0 and r["memory_ms"] > 0 for r in ok)
-    assert dryrun.main(["--multi-pod", "--device", "cpu",
-                        "--out", str(tmp_path / "mp")]) != 0
-    assert not (tmp_path / "mp").exists()
+    assert dryrun.main(["--multi-pod", "--arch", "llama3-8b", "--shape",
+                        "decode_32k", "--device", "cpu",
+                        "--out", str(tmp_path / "mp")]) == 0
+    (row,) = [json.loads(p.read_text())
+              for p in (tmp_path / "mp").iterdir()]
+    assert (tmp_path / "mp" / "llama3-8b__decode_32k__mp.json").exists()
+    assert row["status"] == "OK" and row["mesh"] == "2x16x16"
 
 
 def test_run_pim_cell_on_the_cpu():

@@ -5,7 +5,8 @@ package's ``init_params`` go to the port through ``params_from_jax``, so
 both run on identical weights, and the same numpy-made tokens go to both.
 Compared: ``prefill`` logits and every cache leaf, the logits after 6
 ``decode_step``s past the prefill (cache padded as in
-tests/test_decode_continuation.py), ``forward_hidden``, and a bf16
+tests/test_decode_continuation.py, or given that room by ``prefill``'s
+``capacity``), ``forward_hidden``, and a bf16
 prefill.  Tolerances: 1e-4 in float32 (it holds; the 3e-3 of
 test_decode_continuation.py is not needed), 5e-2 in bf16 for the dense
 family (the ssm family's bf16 case: see its test).  The
@@ -44,6 +45,12 @@ def test_prefill_logits_and_every_cache_leaf(pair):
 
 def test_decode_continuation_matches_jax(pair):
     check_decode(pair)
+
+
+def test_decode_into_prefill_capacity_matches_jax(pair):
+    """``prefill(capacity=...)``'s room is ``pad_cache``'s: the decode
+    steps write new positions (the ssm state has none to add)."""
+    check_decode(pair, capacity=True)
 
 
 def test_decode_step_consumes_its_cache(pair):

@@ -341,9 +341,23 @@ def test_default_device_raises_without_a_card():
                   # the dry-run: its PIM cell runs on the card
                   lambda: dryrun.main(["--arch", "llama3-8b", "--out",
                                        "unused"]),
-                  lambda: dryrun.run_pim_cell(n_dpus=4)):
+                  lambda: dryrun.run_pim_cell(n_dpus=4),
+                  # its mesh rows (counted on meta) and the sharded engine
+                  lambda: dryrun.run_pim_cell(multi_pod=False, n_dpus=512),
+                  lambda: dryrun.run_pim_cell(multi_pod=True, n_dpus=512),
+                  lambda: compile_cache.run_sharded(cfg, binary, wram, mram,
+                                                    group=None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
+
+
+def test_fake_group_is_reachable_only_from_launch():
+    """torch's ``fake`` process group stands in for the production meshes'
+    ranks in the dry-run alone: only ``launch/`` names it."""
+    pattern = re.compile(r"fake_pg|FakeStore|[\"']fake[\"']")
+    users = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+                   if pattern.search(p.read_text()))
+    assert users and all(u.startswith("launch/") for u in users), users
 
 
 def test_parallel_entry_points_need_a_process_group():

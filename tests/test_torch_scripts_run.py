@@ -98,8 +98,8 @@ def test_lm_suite_reads_the_ports_dryrun_rows(tmp_path):
     from benchmarks import lm_roofline
     from repro_torch.launch import dryrun
     out = tmp_path / "dryrun"
-    assert dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
-                        "--out", str(out)]) == 0
+    assert dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--mesh", "1x1",
+                        "--device", "cpu", "--out", str(out)]) == 0
     run = load(RUN, twin=True)
     rc, text = script_runs.run_main(
         run, ["--suite", "lm", "--device", "cpu", "--dryrun-dir", str(out)])
