@@ -245,22 +245,25 @@ Phases (any failure exits non-zero and prints no result line):
 14. mesh   — sharded training: four ranks sharing the card (processes
              on gloo, a FileStore; started while this process takes the
              reference step), on a (data 2, model 2) mesh, take one step
-             of qwen3-moe-30b-a3b at full width and 2 of its 48 layers
+             of qwen3-moe-30b-a3b at full width and 1 of its 48 layers
              (bf16 on float32 weights from a seed, AdamW, its 4
              microbatches, 8 x 1,024 tokens): each rank's parameters and
              moments its blocks by param_shardings, its rows by
-             batch_sharding, its experts expert-parallel (gathered over
-             data, as the reference's); the loss, every gradient and
+             batch_sharding, tensor and sequence parallel on model (each
+             rank's heads in the flash kernels), its experts
+             expert-parallel (gathered over data, as the reference's);
+             the loss, every gradient and
              every update within 2e-2 of a one-process step on the card
              with moe_ep_plain in the EP group's place (the experts'
              choices replayed; an update less what the two gradients
              put between AdamW's first steps); the
              tensor-core flash forward and backward launched on every
-             rank, 16 and 8 times; the phase within 90 s; the state
+             rank, 8 and 4 times; the phase within 90 s; the state
              saved from (2, 2) by rank 0 and restored onto
              (4, 1) and as one rank, every block and leaf bitwise the
              saved one; the step's wall, each rank's
-             max_memory_allocated and collectives (calls, bytes, seconds);
+             max_memory_allocated and collectives by kind (calls, bytes,
+             seconds), the kernel's shapes a rank;
 15. report — the kernels line (launches, times, bounds; each step
              kernel's routes; the backward kernels; [mesh]'s launches),
              the card's name and power limit, and the result line.
@@ -3746,12 +3749,43 @@ def _serve_model(arch, device):
         device=device).manual_seed(SERVE_SEED))
 
 
+def _record_shapes(fops, sops) -> set:
+    """The set of the shapes each flash and SSD call of this process is
+    handed from now on (flash: q, k, v; SSD: x, B), as strings: the
+    kernels' wrappers, the models' entry to them, are wrapped (their
+    launch counts untouched)."""
+    shapes = set()
+
+    def wrap(mod, name, n):
+        fn = getattr(mod, name)
+
+        def recorded(*args, **kw):
+            shapes.add(f"{name} " + " ".join(
+                "x".join(map(str, a.shape)) for a in (
+                    args[:n] if n == 3 else (args[0], args[3]))))
+            return fn(*args, **kw)
+
+        setattr(mod, name, recorded)
+
+    wrap(fops, "flash_attention", 3)
+    wrap(sops, "ssd_scan", 2)
+    return shapes
+
+
+def _coll_text(counts: dict) -> str:
+    """A rank's collectives (``collectives.COUNTS``) by kind: calls, MB
+    handed over, host s in them."""
+    return ", ".join(f"{k} {c} ({b / 1e6:.1f} MB, {t:.2f} s)"
+                     for k, (c, b, t) in sorted(counts.items()))
+
+
 def _serve(model, cfg, rows) -> tuple:
     """A prefill into a cache with room for SERVE_STEPS more positions
     and SERVE_STEPS decode steps (``rows``: a tensor's rows this process
     serves); (the logits of each, float32 on the host, the wall, the
     cache's position after them, and for a K/V cache the positions this
-    process holds and how many of them hold something)."""
+    process holds and how many of them hold something, the prefill's
+    wall)."""
     import torch
     tokens, steps = _serve_inputs(cfg, "cuda")
     t0 = time.perf_counter()
@@ -3759,6 +3793,7 @@ def _serve(model, cfg, rows) -> tuple:
                                   global_batch=SERVE_ROWS,
                                   capacity=SERVE_SEQ + SERVE_STEPS)
     out = [logits.float().cpu()]
+    prefill_s = time.perf_counter() - t0
     for tok in steps:
         logits, cache = model.decode_step(cache, rows(tok))
         out.append(logits.float().cpu())
@@ -3768,7 +3803,7 @@ def _serve(model, cfg, rows) -> tuple:
     if "k" in cache:
         held = cache["k"].float().abs().amax(dim=(0, 1, 3, 4))
         kv = {"positions": held.numel(), "filled": int((held > 0).sum())}
-    return out, wall, int(cache["pos"]), kv
+    return out, wall, int(cache["pos"]), kv, prefill_s
 
 
 def _serve_reference(tmp) -> dict:
@@ -3778,7 +3813,7 @@ def _serve_reference(tmp) -> dict:
     walls = {}
     for arch, _ in SERVE_ARCHS:
         cfg, model = _serve_model(arch, "cuda")
-        logits, walls[arch], pos, kv = _serve(model, cfg, lambda t: t)
+        logits, walls[arch], pos, kv, _ = _serve(model, cfg, lambda t: t)
         want = SERVE_SEQ + SERVE_STEPS
         check(pos == want and kv.get("filled", want) == want,
               f"[launch] (f) {arch} in one process: position {pos}, K/V "
@@ -3833,6 +3868,7 @@ def _launch_rank(rank, world, tmp):
     from repro_torch.launch.mesh import make_elastic_mesh
     from repro_torch.models.layers import cdtype
     from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=world, rank=rank)
     try:
@@ -3884,13 +3920,16 @@ def _launch_rank(rank, world, tmp):
                                  device_type="cuda")
         check(par.mesh_axes(mesh) == SERVE_AXES, f"[launch] (f) {mesh}")
         out["serve"] = {}
+        shapes = _record_shapes(fops, sops)
         for arch, kernel in SERVE_ARCHS:
             cfg, model = _serve_model(arch, "cuda")
             par.shard_module(model, mesh, cdtype(cfg))
             torch.cuda.empty_cache()
             counters = (fops.launches, fops.launches_sm90, sops.launches,
                         sops.launches_tc)
-            logits, secs, pos, kv = _serve(
+            coll.reset_counts()
+            shapes.clear()
+            logits, secs, pos, kv, prefill_s = _serve(
                 model, cfg, lambda t: par.batch_rows(t, mesh))
             launched = [b - a for a, b in zip(counters, (
                 fops.launches, fops.launches_sm90, sops.launches,
@@ -3900,8 +3939,9 @@ def _launch_rank(rank, world, tmp):
             err = max(float((g - w).abs().max() / w.abs().max())
                       for g, w in zip(logits, ref))
             out["serve"][arch] = {
-                "wall_s": secs, "err": err, "kernel": kernel, "pos": pos,
-                "kv": kv,
+                "wall_s": secs, "prefill_s": prefill_s, "err": err,
+                "kernel": kernel, "pos": pos, "kv": kv,
+                "collectives": dict(coll.COUNTS), "shapes": sorted(shapes),
                 "launches": dict(zip(("flash_attention", "flash_sm90",
                                       "ssd_scan", "ssd_scan_tc"), launched)),
                 "finite": all(bool(torch.isfinite(g).all()) for g in logits),
@@ -4027,10 +4067,14 @@ def _finish_ranks(tmpdir, ctx, system_va: dict, ref_walls: dict) -> dict:
             f"largest (tolerance {SERVE_TOL}); {kernel} launched "
             f"{[f['launches'] for f in fs]} a rank; K/V positions a rank "
             f"{[f['kv'] for f in fs]}; walls "
-            f"{[round(f['wall_s'], 3) for f in fs]} s (one process "
-            f"{ref_walls[arch]:.3f} s); max_memory_allocated "
+            f"{[round(f['wall_s'], 3) for f in fs]} s, of which the "
+            f"prefill {[round(f['prefill_s'], 3) for f in fs]} s (one "
+            f"process {ref_walls[arch]:.3f} s); max_memory_allocated "
             f"{[round(f['max_memory_allocated'] / 2**30, 2) for f in fs]} "
-            "GiB")
+            f"GiB; kernel shapes a rank {fs[0]['shapes']}; collectives "
+            "(calls, MB, host s) " + "; ".join(
+                f"rank {r}: {_coll_text(f['collectives'])}"
+                for r, f in enumerate(fs)))
     return {"ranks": ranks, "serve_ref_s": ref_walls,
             "join_s": time.perf_counter() - t0}
 
@@ -4453,7 +4497,9 @@ def phase_launch(scripts_run: dict, system_run: dict, procs: dict) -> dict:
 
 
 MESH_ARCH = "qwen3-moe-30b-a3b"
-MESH_CUT = dict(n_layers=2)
+#: depth: 1 of its 48 layers (PR 27-28's 2 took the phase to 89.4-94.6 s
+#: of its 90, most of it the experts' gathers over gloo)
+MESH_CUT = dict(n_layers=1)
 #: the (data, model) mesh of the sharded step's four ranks on the one
 #: card, and the one its checkpoint is restored onto
 MESH_AXES = {"data": 2, "model": 2}
@@ -4583,6 +4629,8 @@ def _mesh_rank(rank, world, tmp, refs, cfg, device):
                 for n, p in params.items()}
         out["setup_s"] = time.perf_counter() - t0
         coll.reset_counts()
+        from repro_torch.kernels.ssd_scan import ops as sops
+        shapes = _record_shapes(fops, sops)
         for attr in ("launches", "launches_sm90", "launches_bwd",
                      "launches_bwd_sm90"):
             setattr(fops, attr, 0)
@@ -4604,6 +4652,7 @@ def _mesh_rank(rank, world, tmp, refs, cfg, device):
             "launches", "launches_sm90", "launches_bwd",
             "launches_bwd_sm90")}
         out["collectives"] = dict(coll.COUNTS)
+        out["shapes"] = sorted(shapes)
         out["loss"] = float(metrics["loss"])
         out["grad_norm"] = float(gnorm)
 
@@ -4774,6 +4823,7 @@ def _mesh_reference(cfg, device, rows, seq, refs, world) -> dict:
     from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.parallel import api as par
     from repro_torch.train import loop
+    t_ref = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(MESH_SEED)
     model = Transformer(cfg, device=device, generator=gen)
     opt = get_optimizer(cfg.optimizer, warmup_cosine(MESH_LR))
@@ -4823,6 +4873,7 @@ def _mesh_reference(cfg, device, rows, seq, refs, world) -> dict:
         torch.cuda.empty_cache()
     for _ in range(world):
         refs.put(ref)
+    out["ref_total_s"] = time.perf_counter() - t_ref
     return out, ref
 
 
@@ -4830,7 +4881,7 @@ def phase_mesh() -> dict:
     """[mesh] sharded training on the card: four ranks (processes sharing
     the one card; gloo, which NCCL's one-rank-a-device rule leaves) on a
     (data 2, model 2) mesh take one step of qwen3-moe-30b-a3b at full
-    width and 2 of its 48 layers (bf16 on float32 weights, AdamW, its 4
+    width and 1 of its 48 layers (bf16 on float32 weights, AdamW, its 4
     microbatches, 8 x 1,024 tokens; random weights from a seed), each
     rank's parameters and moments its blocks by param_shardings, its
     rows by batch_sharding, its experts expert-parallel: every gradient
@@ -4893,21 +4944,22 @@ def phase_mesh() -> dict:
         f"{r['step_s']:.3f}" for r in run["ranks"]) + " s; "
         "max_memory_allocated " + ", ".join(
         f"{r['max_memory_allocated'] / 2**30:.2f}" for r in run["ranks"])
-        + " GiB; collectives of rank 0 (calls, MB handed to gloo, which "
-        "stages CUDA tensors through host memory, host s in them): "
-        + ", ".join(f"{k} {c} ({b / 1e6:.1f} MB, {t:.2f} s)"
-                    for k, (c, b, t) in r0["collectives"].items())
-        + "; the save's: " + ", ".join(
-            f"{k} {c} ({b / 1e6:.1f} MB, {t:.2f} s)"
-            for k, (c, b, t) in r0["save_collectives"].items()))
+        + f" GiB; the flash kernel's shapes a rank {r0['shapes']}; "
+        "collectives by rank (calls, MB handed to gloo, which stages CUDA "
+        "tensors through host memory, host s in them): " + "; ".join(
+            f"rank {r['rank']}: {_coll_text(r['collectives'])}"
+            for r in run["ranks"])
+        + "; rank 0's save: " + _coll_text(r0["save_collectives"]))
     log(f"[mesh] saved from (2, 2) ({r0['saved_bytes'] / 1e9:.2f} GB, "
         f"{r0['save_s']:.1f} s), restored onto (4, 1) "
         f"({r0['restore_elastic_s']:.1f} s) and as one rank by rank 0 "
         f"({r0['restore_one_s']:.1f} s): {r0['bitwise']['leaves']} leaves, "
         "every rank's blocks of both meshes and the one-rank restore bitwise "
         "the saved leaves (numpy's reader, "
-        f"{r0['compare_s']:.1f} s); rank set-up {r0['setup_s']:.1f} s, "
-        f"reference step {run['ref_s']:.1f} s, ranks {run['ranks_s']:.1f} "
+        f"{r0['compare_s']:.1f} s); the ranks' warm-up "
+        f"{r0['warmup_s']:.1f} s, set-up {r0['setup_s']:.1f} s; the "
+        f"reference {run['ref_total_s']:.1f} s (its step "
+        f"{run['ref_s']:.1f} s), the ranks after it {run['ranks_s']:.1f} "
         f"s, phase {run['seconds']:.1f} s (limit {MESH_LIMIT_S} s)")
     check(run["seconds"] <= MESH_LIMIT_S,
           f"[mesh] took {run['seconds']:.1f} s, over its {MESH_LIMIT_S} s")
@@ -5097,6 +5149,10 @@ def main(argv=None) -> int:
         f["llama3-8b"]["launches"]["flash_sm90"] for f in served]
     ssd_tc["launch_rank_launches"] = [
         f["mamba2-130m"]["launches"]["ssd_scan_tc"] for f in served]
+    # the shapes the ranks launch them at: each rank's heads (tensor
+    # parallel on model), its rows
+    flash["launch_rank_shapes"] = served[0]["llama3-8b"]["shapes"]
+    ssd_tc["launch_rank_shapes"] = served[0]["mamba2-130m"]["shapes"]
     flash["launches_by_arch"] = {
         a: r["launches"].get("flash_attention", 0) for a, r in lm.items()}
     # [mesh]: the sharded qwen3-moe step's launches on each rank
@@ -5118,6 +5174,7 @@ def main(argv=None) -> int:
         if arch == MESH_ARCH:
             kernels[-1]["mesh_launches"] = [
                 m["launches_sm90"] for m in mesh_launches]
+            kernels[-1]["mesh_shapes"] = mesh["ranks"][0]["shapes"]
     # the backward kernels: no Pallas kernel; they stand for jax.grad of
     # the jnp functions the forward kernels compute.  Launches: the
     # tensor-core routes', [train] (c)'s timed bf16 steps (llama3-8b's for
@@ -5166,6 +5223,7 @@ def main(argv=None) -> int:
                 for fam, (arch, w) in _family_bwd_times(train).items()}
             entry["mesh_launches"] = [m["launches_bwd_sm90"]
                                       for m in mesh_launches]
+            entry["mesh_shapes"] = mesh["ranks"][0]["shapes"]
         kernels.append(entry)
     log("[report] training (bf16, f32 weights; card: " + card + "): "
         + "; ".join(

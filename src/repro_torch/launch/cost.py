@@ -26,7 +26,10 @@ alone: nothing is allocated or computed) under one dispatch mode,
 * **temp** — live bytes: each result's storage from the op
   that made it until no tensor holds it (a storage weak reference, so
   what autograd saves for the backward counts), the peak of their sum
-  over the run.  Storages of the arguments are not temp.
+  over the run.  Storages of the arguments are not temp.  ``temp_top``
+  names the largest term of that peak: the live storages of one dtype and
+  shape that hold the most bytes (taken at each new peak 1% above the
+  last one taken).
 
 ``args`` and ``out`` are the bytes of the distinct storages of the
 arguments and of the results.
@@ -169,14 +172,25 @@ class Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.peak = 0
-        self._live = {}          # storage address -> (weak ref, bytes)
+        self.top = ()            # (dtype and shape, how many, bytes)
+        self._top_at = 0
+        self._live = {}          # storage address -> (weak ref, bytes, key)
         self._bound = 0          # their bytes, some perhaps freed
 
     def _sweep(self) -> int:
-        gone = [k for k, (w, _) in self._live.items() if w.expired()]
+        gone = [k for k, (w, _, _) in self._live.items() if w.expired()]
         for k in gone:
             self._bound -= self._live.pop(k)[1]
         return self._bound
+
+    def _take_top(self):
+        groups = {}
+        for _, n, key in self._live.values():
+            c, b = groups.get(key, (0, 0))
+            groups[key] = (c + 1, b + n)
+        key = max(groups, key=lambda k: groups[k][1])
+        self.top = (key, *groups[key])
+        self._top_at = self.peak
 
     def _hold(self, t: torch.Tensor, inputs: set):
         st = t.untyped_storage()
@@ -189,10 +203,14 @@ class Counter(TorchDispatchMode):
         if key in inputs:                    # a view or in-place result
             return
         n = st.nbytes()
-        self._live[key] = (StorageWeakRef(st), n)
+        self._live[key] = (StorageWeakRef(st), n,
+                           f"{str(t.dtype).replace('torch.', '')} "
+                           f"{tuple(t.shape)}")
         self._bound += n
         if self._bound > self.peak:
             self.peak = max(self.peak, self._sweep())
+            if self.peak > 1.01 * self._top_at:
+                self._take_top()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -213,8 +231,9 @@ class Counter(TorchDispatchMode):
 @dataclass
 class Counts:
     """What :func:`count` counted: FLOPs, bytes accessed, the bytes of the
-    arguments, the results and the peak of the temporaries, and the
-    collectives' result bytes by (kind, the group's global ranks)."""
+    arguments, the results and the peak of the temporaries, the
+    collectives' result bytes by (kind, the group's global ranks), and the
+    temporaries' largest term at their peak (``Counter.top``)."""
 
     flops: float
     bytes: float
@@ -223,11 +242,12 @@ class Counts:
     temp: float
     coll: Dict[Tuple[str, Tuple[int, ...]], float] = field(
         default_factory=dict)
+    temp_top: tuple = ()
 
     def scaled(self, other: "Counts", s: float) -> "Counts":
         """``self + (other - self) * s``, field by field (``coll`` key by
         key): the reference's extrapolation in depth from two
-        reduced-depth points."""
+        reduced-depth points (``temp_top``: ``other``'s)."""
         keys = set(self.coll) | set(other.coll)
         coll_s = {k: self.coll.get(k, 0.0)
                   + (other.coll.get(k, 0.0) - self.coll.get(k, 0.0)) * s
@@ -235,7 +255,7 @@ class Counts:
         return Counts(*(a + (b - a) * s for a, b in zip(
             (self.flops, self.bytes, self.args, self.out, self.temp),
             (other.flops, other.bytes, other.args, other.out, other.temp))),
-            coll_s)
+            coll_s, other.temp_top)
 
     def coll_by_kind(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
@@ -253,4 +273,4 @@ def count(fn, *args: Any) -> Counts:
     issued = {k: float(b - before.get(k, 0))
               for k, b in coll.BY_GROUP.items() if b != before.get(k, 0)}
     return Counts(float(c.flops), float(c.bytes), float(args_bytes),
-                  float(tree_bytes(out)), float(c.peak), issued)
+                  float(tree_bytes(out)), float(c.peak), issued, c.top)

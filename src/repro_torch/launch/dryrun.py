@@ -14,7 +14,9 @@ sharded program instead:
   too;
 * **the cell** — ``launch/specs.py``'s ``make_cell`` on that mesh: the
   rank's blocks of the state, the batch and the cache (meta tensors) and
-  the port's sharded train step, prefill or decode step, run under
+  the port's sharded train step, prefill or decode step (tensor and
+  sequence parallel on ``model``, as XLA partitions the reference's),
+  run under
   ``launch/cost.py``'s counters (FLOPs, bytes accessed, the arguments',
   results' and temporaries' bytes, the collectives the rank issued by
   kind and group);
@@ -27,7 +29,8 @@ sharded program instead:
   port's layers are a Python loop, so the counts are exactly linear in
   units where the units are whole.  On 2x16x16 the claim is memory (args,
   out, temp), as the reference's multi-pod pass; its roofline terms come
-  from the same count;
+  from the same count.  A mesh row over one card's 80 GiB names the
+  temporaries' largest term in its notes (:func:`over_card`);
 * **the price** — ``launch/roofline.py``'s :data:`H100` data-sheet peaks
   per card, and each collective over the slowest link its group crosses
   on :data:`~repro_torch.launch.roofline.H100_FLEET` (8 cards a node on
@@ -179,14 +182,35 @@ def mesh_notes(multi_pod: bool) -> str:
     return (f"the port's sharded program on meta as ranks {ranks[0]} "
             f"(coordinate all-0) and {ranks[1]} (all-last) of a fake "
             f"{mesh_name(multi_pod)} group, each number the larger of the "
-            "two; depth-extrapolated (u=2,4; microbatches 1); " + _COUNTED
-            + "; collectives: each result's bytes on the rank, an "
-            "all-gather counted as the all-to-all of the block's copies it "
-            "is on the wire; priced on " + roofline.H100.name + ", each "
+            "two; tensor and sequence parallel on model (each rank keeps "
+            "its model block of every leaf whose spec names model, gathers "
+            "weights over data alone, holds its block of the sequence "
+            "between blocks); depth-extrapolated (u=2,4; microbatches 1); "
+            + _COUNTED + "; collectives: each result's bytes on the rank, "
+            "an all-gather or reduce-scatter counted under its kind with "
+            "the bytes of the all-to-all it is on the wire; priced on "
+            + roofline.H100.name + ", each "
             "collective over the slowest link its group crosses on "
             + roofline.H100_FLEET.name + ", ranks row-major"
             + ("; 2x16x16 is the memory pass (args, out, temp), as the "
                "reference's" if multi_pod else ""))
+
+
+#: one card's memory, the bound a mesh row's bytes a device are held to
+CARD_BYTES = 80 * 2 ** 30
+
+
+def over_card(counts: cost.Counts) -> str:
+    """The note of a row whose bytes a device (args, out, temp) pass
+    :data:`CARD_BYTES`: the temporaries' largest term at their peak
+    (counted at the deeper of the two depths); else nothing."""
+    total = counts.args + counts.out + counts.temp
+    if total <= CARD_BYTES or not counts.temp_top:
+        return ""
+    key, n, b = counts.temp_top
+    return (f"; {total / 2**30:.2f} GiB a device, over one card's 80 GiB: "
+            f"the temporaries' largest term at their peak (u=4) {n} x "
+            f"{key}, {b / 2**30:.2f} GiB of {counts.temp / 2**30:.2f}")
 
 
 def _skip(arch_id, shape_name, mesh):
@@ -217,12 +241,13 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = None,
         cs = [v[0] for v in per_rank.values()]
         counts = cost.Counts(*(max(getattr(c, f) for c in cs) for f in (
             "flops", "bytes", "args", "out", "temp")))
+        counts.temp_top = max(cs, key=lambda c: c.temp).temp_top
         kinds = {k for c in cs for k in c.coll_by_kind()}
         coll = {k: max(c.coll_by_kind().get(k, 0.0) for c in cs)
                 for k in sorted(kinds)}
         seconds = max(roofline.H100_FLEET.seconds(c.coll) for c in cs)
         rep = report(arch_id, cfg, shape, counts, kind,
-                     mesh_notes(multi_pod), mesh,
+                     mesh_notes(multi_pod) + over_card(counts), mesh,
                      math.prod(mesh_mod.production_shape(multi_pod)
                                .values()), coll, seconds)
     row = rep.to_row()

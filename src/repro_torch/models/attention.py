@@ -22,6 +22,17 @@ each rank computes its block's partial softmax, merged across the group
 by all-reduces: the partial maximum, then the partial sum of the
 exponentials, then the partial P·V (:func:`decode_attention_sharded`);
 only the rank whose block holds the written slot writes the new K/V.
+
+Tensor parallelism (``models.layers``): the projections are
+column-parallel over heads (q's heads over ``model``; k's and v's where
+the axis divides the KV heads, else every rank computes all of them and
+takes the ones its q heads read), the attention runs on the rank's heads
+(the flash kernel at H / model heads), and ``wo`` is row-parallel.  A
+sharded decode step gathers the step's q, k and v heads over ``model``
+(B_loc x H x Dh), attends over the rank's block of the cache's sequence,
+and keeps the rank's heads for ``wo``.  MLA: ``wq_a`` column-parallel and
+gathered (its norm spans the rank), ``wq_b``, ``wk_b`` and ``wv_b`` over
+heads, ``wkv_a`` whole.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_param
+from repro_torch.parallel import api as par
 from repro_torch.parallel import collectives as coll
 
 _NEG = -1e30
@@ -194,30 +206,57 @@ def attn_init(gen, cfg, device):
 
 
 def _project_qkv(p, x, kv_x, cfg):
+    """(q, its first head, k, v): x and kv_x whole along their sequence;
+    q the rank's heads, k and v the rank's KV heads or all of them
+    (:func:`layers.heads`)."""
     dt = cdtype(cfg)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = x @ p["wq"].to(dt)
-    k = kv_x @ p["wk"].to(dt)
-    v = kv_x @ p["wv"].to(dt)
-    q = q.reshape(*q.shape[:-1], H, Dh)
-    k = k.reshape(*k.shape[:-1], KV, Dh)
-    v = v.reshape(*v.shape[:-1], KV, Dh)
-    return q, k, v
+    q, q0 = layers.heads(x @ p["wq"].to(dt), H, Dh)
+    k, _ = layers.heads(kv_x @ p["wk"].to(dt), KV, Dh)
+    v, _ = layers.heads(kv_x @ p["wv"].to(dt), KV, Dh)
+    return q, q0, k, v
+
+
+def kv_of(q, q0, k, v, cfg):
+    """The KV heads the q heads ``q0 ..`` read (GQA): ``k`` and ``v``
+    as they are where they hold exactly those, else the slice of all
+    ``n_kv_heads`` of them."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if k.shape[-2] != KV or q.shape[-2] == H:
+        return k, v
+    G = H // KV
+    lo, hi = q0 // G, (q0 + q.shape[-2] - 1) // G + 1
+    return k[..., lo:hi, :], v[..., lo:hi, :]
 
 
 def attn_apply_train(p, x, positions, cfg, *, causal=True, window=0,
-                     kv_x=None, use_rope=True):
-    """Full-sequence attention (prefill).  kv_x != None => cross-attention
-    (its length must equal x's: see :func:`blocked_attention`)."""
+                     kv_x=None, use_rope=True, collect_kv=False):
+    """Full-sequence attention (prefill), x the residual stream (normed);
+    ``positions`` (B, S) of the whole sequence.  kv_x != None =>
+    cross-attention (kv_x whole along its sequence; its length must equal
+    x's: see :func:`blocked_attention`).  ``collect_kv``: also returns the
+    rope'd (k, v) (the rank's KV heads or all of them)."""
+    x = layers.seq_gather(x)
     kv_inp = x if kv_x is None else kv_x
-    q, k, v = _project_qkv(p, x, kv_inp, cfg)
+    q, q0, k, v = _project_qkv(p, x, kv_inp, cfg)
     if use_rope and kv_x is None:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    o = blocked_attention(q, k, v, causal=causal, window=window,
+    ka, va = kv_of(q, q0, k, v, cfg)
+    o = blocked_attention(q, ka, va, causal=causal, window=window,
                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
-    o = o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head)
-    return o @ p["wo"].to(cdtype(cfg))
+    o = o.flatten(-2)
+    out = layers.row_linear(o, p["wo"], cdtype(cfg),
+                            cfg.n_heads * cfg.d_head)
+    return (out, (k, v)) if collect_kv else out
+
+
+def whole_heads(t, n: int):
+    """``t`` (..., n_loc, D) of all ``n`` heads (the rank's heads
+    all-gathered over ``model``; ``t`` where it holds them all)."""
+    if t.shape[-2] == n:
+        return t
+    return coll.all_gather(t, -2, par.model_axis().group)
 
 
 def _cache_slot(pos: int, cache, shard=None):
@@ -239,9 +278,8 @@ def attn_apply_decode(p, x, pos: int, cache_k, cache_v, cfg, *, window=0,
     blocks of a cache split along its sequence (:class:`SeqShard`)."""
     dt = cdtype(cfg)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"].to(dt)).reshape(-1, H, Dh)
-    k = (x @ p["wk"].to(dt)).reshape(-1, KV, Dh)
-    v = (x @ p["wv"].to(dt)).reshape(-1, KV, Dh)
+    q, _, k, v = _project_qkv(p, x, x, cfg)
+    q, k, v = whole_heads(q, H), whole_heads(k, KV), whole_heads(v, KV)
     posv = torch.tensor([pos], device=x.device)
     q = layers.apply_rope(q, posv, cfg.rope_theta)
     k = layers.apply_rope(k, posv, cfg.rope_theta)
@@ -259,16 +297,17 @@ def attn_apply_decode(p, x, pos: int, cache_k, cache_v, cfg, *, window=0,
         _write_slot(cache_v, slot, v, shard)
         o = decode_attention_sharded(q, cache_k, cache_v, eff_pos, shard)
     o = o.reshape(-1, H * Dh)
-    return o @ p["wo"].to(dt), cache_k, cache_v
+    return layers.row_linear(o, p["wo"], dt, H * Dh), cache_k, cache_v
 
 
 def cross_attn_project_kv(p, enc_mem, cfg):
-    """Precompute cross-attention K/V from encoder memory (for decode)."""
+    """Precompute cross-attention K/V from encoder memory (for decode):
+    the rank's KV heads or all of them (:func:`layers.heads`)."""
     dt = cdtype(cfg)
     KV, Dh = cfg.n_kv_heads, cfg.d_head
-    k = enc_mem @ p["wk"].to(dt)
-    v = enc_mem @ p["wv"].to(dt)
-    return k.reshape(*k.shape[:-1], KV, Dh), v.reshape(*v.shape[:-1], KV, Dh)
+    k, _ = layers.heads(enc_mem @ p["wk"].to(dt), KV, Dh)
+    v, _ = layers.heads(enc_mem @ p["wv"].to(dt), KV, Dh)
+    return k, v
 
 
 def cross_attn_decode(p, x, k_mem, v_mem, cfg, shard=None):
@@ -277,13 +316,13 @@ def cross_attn_decode(p, x, k_mem, v_mem, cfg, shard=None):
     ``shard``: the memory is this rank's block of it."""
     dt = cdtype(cfg)
     H, Dh = cfg.n_heads, cfg.d_head
-    q = (x @ p["wq"].to(dt)).reshape(-1, H, Dh)
+    q = whole_heads(layers.heads(x @ p["wq"].to(dt), H, Dh)[0], H)
     if shard is None:
         o = decode_attention(q, k_mem, v_mem, k_mem.shape[1] - 1)
     else:
         o = decode_attention_sharded(q, k_mem, v_mem, shard.length - 1,
                                      shard)
-    return o.reshape(-1, H * Dh) @ p["wo"].to(dt)
+    return layers.row_linear(o.reshape(-1, H * Dh), p["wo"], dt, H * Dh)
 
 
 # ---------------------------------------------------------------------------
@@ -309,16 +348,16 @@ def mla_init(gen, cfg, device):
 
 
 def _mla_q(p, x, positions, cfg):
+    """(q_nope, q_rope, the first head): the rank's heads."""
     dt = cdtype(cfg)
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    ql = x @ p["wq_a"].to(dt)
+    ql = layers.columns(x @ p["wq_a"].to(dt), cfg.q_lora_rank)
     ql = layers.rms_norm(ql, p["q_norm"]["scale"], cfg.norm_eps)
-    q = ql @ p["wq_b"].to(dt)
-    q = q.reshape(*q.shape[:-1], H, dn + dr)
+    q, q0 = layers.heads(ql @ p["wq_b"].to(dt), H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
-    return q_nope, q_rope
+    return q_nope, q_rope, q0
 
 
 def _mla_latent(p, x, positions, cfg):
@@ -341,19 +380,18 @@ def mla_apply_train(p, x, positions, cfg):
     dt = cdtype(cfg)
     H = cfg.n_heads
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    x = layers.seq_gather(x)
+    q_nope, q_rope, _ = _mla_q(p, x, positions, cfg)
     ckv, k_rope = _mla_latent(p, x, positions, cfg)
-    k_nope = ckv @ p["wk_b"].to(dt)
-    k_nope = k_nope.reshape(*k_nope.shape[:-1], H, dn)
-    v = ckv @ p["wv_b"].to(dt)
-    v = v.reshape(*v.shape[:-1], H, dv)
+    k_nope, _ = layers.heads(ckv @ p["wk_b"].to(dt), H, dn)
+    v, _ = layers.heads(ckv @ p["wv_b"].to(dt), H, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[..., None, :].expand(q_rope.shape)],
                   dim=-1)
     o = blocked_attention(q, k, v, causal=True,
                           q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
-    o = o.reshape(*o.shape[:-2], H * dv)
-    return o @ p["wo"].to(dt), (ckv, k_rope)
+    o = o.flatten(-2)
+    return layers.row_linear(o, p["wo"], dt, H * dv), (ckv, k_rope)
 
 
 def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg,
@@ -370,14 +408,19 @@ def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg,
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     posv = torch.tensor([pos], device=x.device)
-    q_nope, q_rope = _mla_q(p, x, posv, cfg)  # (B,H,dn), (B,H,dr)
+    # the rank's heads: (B,Hl,dn), (B,Hl,dr)
+    q_nope, q_rope, q0 = _mla_q(p, x, posv, cfg)
+    n_loc = q_nope.shape[1]
     ckv, k_rope = _mla_latent(p, x, posv, cfg)  # (B,kvr), (B,dr)
     slot = _cache_slot(pos, cache_ckv, shard)
     _write_slot(cache_ckv, slot, ckv, shard)
     _write_slot(cache_krope, slot, k_rope, shard)
-    wk_b = p["wk_b"].to(dt).reshape(kvr, H, dn)
-    wv_b = p["wv_b"].to(dt).reshape(kvr, H, dv)
+    # the rank's heads' columns (a block split across heads: whole)
+    wk_b = layers.heads(p["wk_b"].to(dt), H, dn)[0]
+    wv_b = layers.heads(p["wv_b"].to(dt), H, dv)[0]
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope, wk_b)  # absorb W^UK
+    # every head's scores over the rank's block of the cache
+    q_eff, q_rope = whole_heads(q_eff, H), whole_heads(q_rope, H)
     s = torch.einsum("bhr,bsr->bhs", q_eff.to(f32), cache_ckv.to(f32))
     s = s + torch.einsum("bhr,bsr->bhs", q_rope.to(f32),
                          cache_krope.to(f32))
@@ -391,6 +434,7 @@ def mla_apply_decode(p, x, pos: int, cache_ckv, cache_krope, cfg,
         a = _merged_softmax(s, shard, pos).to(dt)
         o_lat = coll.sum_over(torch.einsum("bhs,bsr->bhr", a, cache_ckv),
                               shard.group)
+    o_lat = o_lat[:, q0:q0 + n_loc]
     o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b)  # absorb W^UV
-    out = o.reshape(o.shape[0], H * dv) @ p["wo"].to(dt)
+    out = layers.row_linear(o.flatten(1), p["wo"], dt, H * dv)
     return out, cache_ckv, cache_krope

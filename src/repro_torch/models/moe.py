@@ -13,8 +13,13 @@ The counterpart of ``repro.models.moe``, with both its branches:
   its own tokens with its own experts, their blocks cast to the compute
   dtype and gathered over the ``data`` axis (``parallel.api.shard_module``,
   as the reference casts them and its ``shard_map`` takes them whole by
-  ``P(ep)``), and the sum is an ``all_reduce`` over its ``model`` group
-  (the reference's ``psum``, whose gradient is the same sum).  In one
+  ``P(ep)``).  Its tokens are the reference's ``_ep_body``'s: the
+  residual stream's sequence gathered over ``model`` before the layer
+  (capacity dropping depends on that set), and the sum over the peers
+  (the reference's ``psum``) is the reduce-scatter of the rank's share,
+  with the shared experts' (column- and row-parallel), back into the
+  stream's sequence blocks (an all-reduce where the sequence does not
+  split: ``models.layers.to_residual``).  In one
   process under a mapping of axis sizes, :func:`moe_ep_plain` computes
   what the group computes, peer by peer.  Capacity dropping makes this
   another function than the dense branch.
@@ -37,7 +42,6 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_param
 from repro_torch.parallel import api as par
-from repro_torch.parallel import collectives as coll
 
 
 def moe_init(gen, cfg, device):
@@ -162,8 +166,8 @@ def moe_ep_plain(x, gates, idx, p, cfg, mesh_axes):
 def _moe_ep(x, gates, idx, p, cfg, ranks):
     """This rank's EP peer on its tokens: ``p``'s experts are its own,
     cast and gathered whole over the ``data`` axis
-    (``parallel.api.shard_module``); the peers' sum is an all-reduce over
-    the ``model`` group (the reference's ``psum``)."""
+    (``parallel.api.shard_module``); its share of the peers' sum (the
+    caller sums it over the ``model`` group)."""
     B, S, D = x.shape
     k = cfg.experts_per_token
     n = B * S
@@ -171,7 +175,7 @@ def _moe_ep(x, gates, idx, p, cfg, ranks):
     out = _ep_peer(x.reshape(n, D), gates.reshape(n, k), idx.reshape(n, k),
                    p["wi"], p["wg"] if "wg" in p else None, p["wo"], cfg,
                    ranks.coord["model"] * p["wi"].shape[0], cap)
-    return coll.all_reduce(out, ranks.group(("model",))).reshape(B, S, D)
+    return out.reshape(B, S, D)
 
 
 def _batch_mean(t):
@@ -184,8 +188,10 @@ def _batch_mean(t):
 
 
 def moe_apply(p, x, cfg):
-    """x: (B, S, D) -> (out (B,S,D), aux_loss scalar float32)."""
+    """x: the residual stream (normed; (B, S, D) in one process) -> (its
+    update, aux_loss scalar float32)."""
     dt = cdtype(cfg)
+    x = layers.seq_gather(x)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     logits = x.float() @ p["router"].float()
@@ -203,6 +209,7 @@ def moe_apply(p, x, cfg):
 
     axes = par.current_mesh()
     ranks = par.current_ranks()
+    ax = par.model_axis()
     if ep_size(cfg, axes) > 1 and ranks is not None:
         out = _moe_ep(x, gates, idx, p, cfg, ranks)
     elif ep_size(cfg, axes) > 1:
@@ -210,6 +217,10 @@ def moe_apply(p, x, cfg):
     else:
         out = _moe_dense(x.reshape(-1, D), gates.reshape(-1, k),
                          idx.reshape(-1, k), p, cfg).reshape(B, S, D)
+        if ax is not None:      # whole on every rank: one rank's share
+            out = out * float(ax.index == 0)
     if cfg.n_shared_experts:
-        out = out + layers.mlp_apply(p["shared"], x, cfg)
-    return out.to(dt), aux
+        out = out + layers.mlp_apply(
+            p["shared"], x, cfg, cfg.moe_d_ff * cfg.n_shared_experts,
+            partial=True)
+    return layers.to_residual(out.to(dt), partial=True), aux

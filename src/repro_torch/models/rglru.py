@@ -8,14 +8,23 @@ gate r_t.  Prefill uses a chunked linear scan (a log-depth scan within
 each chunk, all chunks at once, then the carry across chunks); decode is
 the O(1) update.  The JAX package computes both outside any Pallas
 kernel, and they stay plain torch here on every device.
+
+Tensor parallelism (``models.layers``): ``w_x`` and ``w_gate`` are
+column-parallel over the channels, the conv and the scan run on the
+rank's channels (both are per channel), the gates' leaves take the
+rows of the rank's channels (their partial products reduce-scattered
+over the channels), and ``out_proj`` is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_param
 from repro_torch.models.ssm import causal_conv, softplus
+from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
 
 _C = 8.0
 
@@ -41,11 +50,23 @@ def lru_init(gen, cfg, device):
     }
 
 
+def _gate_in(u, w, b, dt, W):
+    """``u @ w + b`` of the rank's channels: ``w``'s rows of them (its
+    ``model`` block) give a share of every channel, reduce-scattered over
+    the channels."""
+    y = u @ w.to(dt)
+    if w.shape[0] != W:
+        y = coll.reduce_scatter(y, -1, par.model_axis().group)
+    return y + layers.channel_block(b, W, y.shape[-1]).to(dt)
+
+
 def _gates(p, u, cfg):
     dt = cdtype(cfg)
-    i = torch.sigmoid(u @ p["w_in_gate"].to(dt) + p["b_in_gate"].to(dt))
-    r = torch.sigmoid(u @ p["w_rec_gate"].to(dt) + p["b_rec_gate"].to(dt))
-    log_a = -_C * softplus(p["lam"])[None] * r.float()
+    W = p["lam"].shape[0]
+    i = torch.sigmoid(_gate_in(u, p["w_in_gate"], p["b_in_gate"], dt, W))
+    r = torch.sigmoid(_gate_in(u, p["w_rec_gate"], p["b_rec_gate"], dt, W))
+    lam = layers.channel_block(p["lam"], W, u.shape[-1])
+    log_a = -_C * softplus(lam)[None] * r.float()
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
     b = beta * (i.float() * u.float())
     return log_a, b  # f32
@@ -91,37 +112,45 @@ def linear_scan(log_a, b, h0, chunk):
 
 
 def lru_apply_train(p, x, cfg, return_state=False):
-    """x: (B,S,D) -> (B,S,D) [+ (h_last, conv tail) when return_state]."""
+    """x: the residual stream (normed) -> its update [+ (h_last, conv
+    tail), whole, when return_state]."""
     dt = cdtype(cfg)
+    x = layers.seq_gather(x)
     B, S, D = x.shape
     W = cfg.lru_width or D
     u = x @ p["w_x"].to(dt)
     gate = x @ p["w_gate"].to(dt)
-    u = causal_conv(u, p["conv_w"].to(dt), p["conv_b"].to(dt))
+    c = u.shape[-1]
+    u = causal_conv(u, p["conv_w"].to(dt),
+                    layers.channel_block(p["conv_b"], W, c).to(dt))
     log_a, b = _gates(p, u, cfg)
-    h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((B, c), dtype=torch.float32, device=x.device)
     h, h_last = linear_scan(log_a, b, h0, cfg.ssm_chunk)
     y = h.to(dt) * F.gelu(gate, approximate="tanh")
-    out = y @ p["out_proj"].to(dt)
+    out = layers.row_linear(y, p["out_proj"], dt, W)
     if return_state:
         # conv buffer keeps the last K-1 *pre-conv* inputs
         u_pre = x[:, -(cfg.ssm_conv - 1):, :] @ p["w_x"].to(dt)
-        return out, (h_last, u_pre)
+        return out, (layers.columns(h_last, W), layers.columns(u_pre, W))
     return out
 
 
 def lru_apply_decode(p, x, h, conv_buf, cfg):
     """x: (B,D); h: (B,W) f32; conv_buf: (B,K-1,W) pre-conv inputs.
-    Returns (out, new h, new conv_buf) as new tensors."""
+    Returns (out, new h, new conv_buf) as new tensors (whole; the rank
+    computes its channels)."""
     dt = cdtype(cfg)
-    u_pre = x @ p["w_x"].to(dt)
+    W = h.shape[-1]
+    u_pre = layers.columns(x @ p["w_x"].to(dt), W)
     gate = x @ p["w_gate"].to(dt)
+    c = gate.shape[-1]
     hist = torch.cat([conv_buf, u_pre[:, None, :]], dim=1)  # (B,K,W)
-    u = torch.einsum("bkw,kw->bw", hist, p["conv_w"].to(dt)) \
-        + p["conv_b"].to(dt)
+    u = torch.einsum("bkw,kw->bw", layers.channel_block(hist, W, c),
+                     p["conv_w"].to(dt)) \
+        + layers.channel_block(p["conv_b"], W, c).to(dt)
     new_buf = hist[:, 1:, :]
     log_a, b = _gates(p, u, cfg)
-    h = torch.exp(log_a) * h + b
+    h = torch.exp(log_a) * layers.channel_block(h, W, c) + b
     y = h.to(dt) * F.gelu(gate, approximate="tanh")
-    out = y @ p["out_proj"].to(dt)
-    return out, h, new_buf
+    out = layers.row_linear(y, p["out_proj"], dt, W)
+    return out, layers.columns(h, W), new_buf

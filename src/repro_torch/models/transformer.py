@@ -21,21 +21,31 @@ block in an ``nn.ModuleList`` (the JAX package stacks them along a leading
 layer axis and scans; here the layer scan is a Python loop).
 
 Sharded training (``parallel.api.shard_module``, ``train.loop``): each
-parameter is kept as this rank's block of a ``DeviceMesh``, each block's
-weights are gathered whole just before use and dropped after (inside the
-recomputed region under ``remat``; the top-level trees' once for a
-step's microbatches, ``hoisted``), and the loss's sums and token count
-are summed over the data-parallel ranks before the division, as the
-reference takes them over the global batch.  Sharded serving
-(``prefill``, ``decode_step``) gathers each block's weights for its layer
-likewise, serves each rank's batch rows, and keeps the cache as each
-rank's blocks for ``parallel.api.cache_sharding``: an attention cache
-split along its sequence over ``model`` is attended block by block and
-merged (``attention.decode_attention_sharded``), the ssm state split over
-its heads is updated head block by head block.
-Two pieces of the JAX module are not carried over: ``scan_util`` (its
-unrolled mode only serves XLA's cost analysis) and ``_x_constraint``
-(sharding annotations: placement here is explicit).
+parameter is kept as this rank's block of a ``DeviceMesh``.  A block's
+weights are gathered over the axes their specs name but ``model`` just
+before use and dropped after (inside the recomputed region under
+``remat``; the top-level trees' once for a step's microbatches,
+``hoisted``); a leaf whose spec names ``model`` stays this rank's
+``model`` block, and the layers run tensor- and sequence-parallel on it
+(``models.layers``): between blocks the residual stream is this rank's
+block of the sequence, the reference's ``_x_constraint`` (``("dp", "sp",
+None)``), taken after the vocab-parallel embedding and gathered whole
+again after the last block (:meth:`forward_hidden` returns it whole).  The
+loss runs on the rank's vocabulary block: the maximum, the sum of the
+exponentials and the label's logit combined over ``model`` in float32
+(:func:`_xent_sums`), and its sums and token count are summed over the
+data-parallel ranks before the division, as the reference takes them over
+the global batch.  Sharded serving (``prefill``, ``decode_step``) gathers
+each block's weights for its layer likewise, serves each rank's batch
+rows with the same layers, returns their logits gathered over the
+vocabulary, and keeps the cache as each rank's blocks for
+``parallel.api.cache_sharding``: the prefill's head-split K/V go to the
+cache's sequence blocks by an all-to-all over ``model``; an attention
+cache split along its sequence over ``model`` is attended block by block
+and merged (``attention.decode_attention_sharded``), the ssm state split
+over its heads is the rank's heads of the tensor-parallel mixer.
+One piece of the JAX module is not carried over: ``scan_util`` (its
+unrolled mode only serves XLA's cost analysis).
 
 Caches hold the JAX package's leaves, stacked over layers, with ``pos`` a
 Python int.  ``decode_step`` writes the step into the cache's tensors in
@@ -57,6 +67,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import ParamTree, cdtype
 from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
 
 Cache = Dict[str, Any]
 
@@ -170,7 +181,9 @@ def _dense_block_apply(p, x, positions, cfg, *, causal=True, window=0,
     if use_mla:
         h, kv = attn.mla_apply_train(p["attn"], h, positions, cfg)
     elif collect_kv:
-        h, kv = _attn_with_kv(p["attn"], h, positions, cfg, causal, window)
+        h, kv = attn.attn_apply_train(p["attn"], h, positions, cfg,
+                                      causal=causal, window=window,
+                                      collect_kv=True)
     else:
         h = attn.attn_apply_train(p["attn"], h, positions, cfg,
                                   causal=causal, window=window)
@@ -180,26 +193,14 @@ def _dense_block_apply(p, x, positions, cfg, *, causal=True, window=0,
     return (x, kv) if (collect_kv or use_mla) else x
 
 
-def _attn_with_kv(p, h, positions, cfg, causal=True, window=0):
-    """Like attn_apply_train but also returns the rope'd K/V (prefill)."""
-    q, k, v = attn._project_qkv(p, h, h, cfg)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.blocked_attention(q, k, v, causal=causal, window=window,
-                               q_chunk=cfg.attn_chunk,
-                               kv_chunk=cfg.attn_chunk)
-    o = o.reshape(*o.shape[:-2], cfg.n_heads * cfg.d_head)
-    out = o @ p["wo"].to(cdtype(cfg))
-    return out, (k, v)
-
-
 def _moe_block_apply(p, x, positions, cfg, collect_kv=False):
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     kv = None
     if cfg.use_mla:
         h, kv = attn.mla_apply_train(p["attn"], h, positions, cfg)
     elif collect_kv:
-        h, kv = _attn_with_kv(p["attn"], h, positions, cfg)
+        h, kv = attn.attn_apply_train(p["attn"], h, positions, cfg,
+                                      collect_kv=True)
     else:
         h = attn.attn_apply_train(p["attn"], h, positions, cfg)
     x = x + h
@@ -333,27 +334,49 @@ def init_cache(cfg, batch: int, capacity: int, device=None,
 # ===========================================================================
 
 
-def _xent_sums(logits, labels):
-    """(summed negative log-likelihood, number of labels >= 0)."""
+def _xent_sums(logits, labels, v0=None):
+    """(summed negative log-likelihood, number of labels >= 0).
+    ``v0``: ``logits`` are this rank's vocabulary block from row ``v0``
+    (``layers.vocab_offset``); the maximum, the sum of the exponentials
+    and the label's logit are then combined over ``model`` in float32
+    (no gradient through the maximum, which cancels)."""
     logits = logits.float()
     valid = labels >= 0
     safe = labels.clamp_min(0)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, safe[..., None].long())[..., 0] - logz
+    ax = par.model_axis() if v0 is not None else None
+    if ax is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, safe[..., None].long())[..., 0]
+    else:
+        v_loc = logits.shape[-1]
+        m = coll.max_over(logits.detach().amax(dim=-1), ax.group)
+        logz = m + torch.log(coll.all_reduce(
+            torch.exp(logits - m[..., None]).sum(dim=-1), ax.group))
+        rel = safe - v0
+        inside = (rel >= 0) & (rel < v_loc)
+        picked = coll.all_reduce(logits.gather(
+            -1, rel.clamp(0, v_loc - 1)[..., None].long())[..., 0]
+            * inside, ax.group)
+    ll = picked - logz
     return -(ll * valid).sum(), valid.sum()
 
 
 def lm_loss_from_hidden(params, hidden, labels, cfg, chunk=1024):
     """Mean token cross-entropy of the LM head over ``hidden`` (B,S,D),
     labels < 0 ignored, in sequence chunks of the largest divisor of S
-    that is at most ``chunk`` (vlm text spans are not powers of two)."""
+    that is at most ``chunk`` (vlm text spans are not powers of two).
+    A head split over ``model`` gives each rank its vocabulary block's
+    logits (:func:`_xent_sums`)."""
     S = hidden.shape[1]
     C = max(d for d in range(1, min(chunk, S) + 1) if S % d == 0)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    v0 = layers.vocab_offset(params, cfg)
     for c0 in range(0, S, C):
         logits = layers.logits_apply(params, hidden[:, c0:c0 + C], cfg)
-        s, k = _xent_sums(logits, labels[:, c0:c0 + C])
+        s, k = _xent_sums(logits, labels[:, c0:c0 + C],
+                          None if logits.shape[-1] == cfg.vocab_size
+                          else v0)
         tot, n = tot + s, n + k
     tot, n = par.dp_sum(tot), par.dp_sum(n)
     return tot / n.clamp_min(1)
@@ -381,6 +404,13 @@ _KV_LEAVES = frozenset(("k", "v", "k_d", "v_d", "k_m", "v_m", "ckv_d",
 #: pairs, (groups, 2, B, ...)); ``cache_spec``'s rule puts ``dp`` on axis
 #: 1 all the same, as the reference's does
 _CACHE_ROW_AXIS = {"lru_h": 2, "lru_conv": 2}
+
+#: cache leaves a tensor-parallel prefill computes for the rank's heads
+#: alone, and their heads' axis
+_HEAD_AXIS = {**{k: 3 for k in ("k", "v", "k_d", "v_d", "k_m", "v_m",
+                                "self_k", "self_v", "cross_k", "cross_v",
+                                "attn_k", "attn_v")},
+              "state": 2}
 
 
 def _moe_cache_keys(cfg):
@@ -440,18 +470,28 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def logits(self, x):
-        return self._logits(x)
+        with self._on_mesh():
+            return self._logits(x)
 
-    def _positions(self, x):
-        B, S = x.shape[0], x.shape[1]
-        return torch.arange(S, device=x.device).expand(B, S)
+    def _positions(self, B: int, S: int):
+        return torch.arange(S, device=self.device).expand(B, S)
 
     def _inputs(self, tokens, patches=None):
-        """Token embeddings, after the patch embeddings for vlm."""
-        x = layers.embed_apply(self._top("embed")["tok"], tokens, self.cfg)
-        if self.cfg.family == "vlm":
-            x = torch.cat([patches.to(x.dtype), x], dim=1)
-        return x
+        """Token embeddings, after the patch embeddings for vlm, as the
+        residual stream (run under :func:`parallel.api.sequence` of their
+        whole length: :meth:`_seq_len`)."""
+        if self.cfg.family != "vlm":
+            return layers.embed_apply(self._top("embed")["tok"], tokens,
+                                      self.cfg)
+        with par.sequence(None):
+            x = layers.embed_apply(self._top("embed")["tok"], tokens,
+                                   self.cfg)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return layers.to_residual(x, partial=False)
+
+    def _seq_len(self, tokens, patches=None) -> int:
+        return tokens.shape[1] + (patches.shape[1] if patches is not None
+                                  and self.cfg.family == "vlm" else 0)
 
     def _block(self, fn, p, *args, **kw):
         """``fn(p, *args, **kw)``, a block of a layer stack (sharded:
@@ -495,15 +535,19 @@ class Transformer(nn.Module):
         return par.mesh_context(self.mesh)
 
     def _encode(self, frames):
-        """Encoder over precomputed frame embeddings (frontend stub)."""
+        """Encoder over precomputed frame embeddings (frontend stub):
+        its output whole along its sequence."""
         cfg = self.cfg
-        x = frames.to(cdtype(cfg))
-        positions = self._positions(x)
-        for p in self.enc_blocks:
-            x = self._block(_dense_block_apply, p, x, positions, cfg,
-                            causal=False)
-        return layers.rms_norm(x, self._top("enc_norm")["scale"],
-                               cfg.norm_eps)
+        B, S = frames.shape[:2]
+        positions = self._positions(B, S)
+        with par.sequence(S):
+            x = layers.to_residual(frames.to(cdtype(cfg)), partial=False)
+            for p in self.enc_blocks:
+                x = self._block(_dense_block_apply, p, x, positions, cfg,
+                                causal=False)
+            x = layers.rms_norm(x, self._top("enc_norm")["scale"],
+                                cfg.norm_eps)
+            return layers.seq_gather(x)
 
     def forward_hidden(self, tokens, patches=None, frames=None,
                        tgt_tokens=None):
@@ -517,20 +561,31 @@ class Transformer(nn.Module):
 
     def _forward_hidden(self, tokens, patches, frames, tgt_tokens):
         cfg = self.cfg
+        if cfg.family == "encdec":
+            enc = self._encode(frames)
+            B, S = tgt_tokens.shape
+            with par.sequence(S):
+                x = layers.embed_apply(self._top("embed")["tok"],
+                                       tgt_tokens, cfg)
+                positions = self._positions(B, S)
+                for p in self.dec_blocks:
+                    x = self._block(_encdec_block_apply, p, x, enc,
+                                    positions, cfg)
+                return layers.seq_gather(x), torch.zeros(
+                    (), dtype=torch.float32, device=self.device)
+        S = self._seq_len(tokens, patches)
+        with par.sequence(S):
+            x, aux = self._stack(tokens, patches)
+            return layers.seq_gather(x), aux
+
+    def _stack(self, tokens, patches):
+        """The residual stream after every block, and the aux loss."""
+        cfg = self.cfg
         fam = cfg.family
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        if fam == "encdec":
-            enc = self._encode(frames)
-            x = layers.embed_apply(self._top("embed")["tok"], tgt_tokens,
-                                   cfg)
-            positions = self._positions(x)
-            for p in self.dec_blocks:
-                x = self._block(_encdec_block_apply, p, x, enc, positions,
-                                cfg)
-            return x, aux
-
         x = self._inputs(tokens, patches)
-        positions = self._positions(x)
+        positions = self._positions(tokens.shape[0],
+                                    self._seq_len(tokens, patches))
         if fam in ("dense", "vlm"):
             for p in self.blocks:
                 x = self._block(_dense_block_apply, p, x, positions, cfg)
@@ -606,12 +661,20 @@ class Transformer(nn.Module):
     def _placed(self, cache: Cache, batch: int) -> Cache:
         """A cache of this rank's rows of a global batch of ``batch`` as
         this rank's blocks (:func:`parallel.api.place_rows`), with their
-        specs under ``"specs"``; the cache itself in one process."""
+        specs under ``"specs"``; the cache itself in one process.  A leaf
+        that holds the rank's heads alone (tensor parallelism,
+        :data:`_HEAD_AXIS`) is its block as it is where the cache splits
+        its heads over ``model`` (the ssm state), goes to the cache's
+        sequence blocks by an all-to-all over ``model`` where the cache
+        splits its sequence there, and is gathered whole over its heads
+        elsewhere."""
         if self.mesh is None:
             return cache
         ranks = par.mesh_ranks(self.mesh)
         rows = par.rows_entry(batch, self.mesh)
         n = par.block_index(rows, ranks.axes, ranks.coord)[1]
+        ax_m = par.model_axis()
+        whole = cache_leaves(self.cfg, 1, 1)
         out: Cache = {"specs": {}}
         for k, t in cache.items():
             if not isinstance(t, torch.Tensor):
@@ -620,7 +683,21 @@ class Transformer(nn.Module):
             ax = _CACHE_ROW_AXIS.get(k, 1)
             shape = list(t.shape)
             shape[ax] *= n
+            hax = _HEAD_AXIS.get(k)
+            split = hax is not None and t.shape[hax] != whole[k][0][hax]
+            if split:
+                shape[hax] *= ax_m.size
             spec = out["specs"][k] = par.cache_spec(shape, self.mesh)
+            if split and spec[hax] == "model" and spec[ax] == rows:
+                out[k] = t.contiguous()
+                continue
+            if split and spec[2] == "model" and spec[ax] == rows:
+                got = coll.exchange_blocks(t.chunk(ax_m.size, 2), ax_m.group)
+                out[k] = torch.cat(got, hax)
+                continue
+            if split:
+                t = torch.cat(coll.gather_blocks(t.contiguous(), ax_m.group),
+                              hax)
             out[k] = par.place_rows(t, spec, ax, self.mesh, rows)
         return out
 
@@ -669,9 +746,25 @@ class Transformer(nn.Module):
                               device=self.device)
             return self._decode_step(cache, bos)
 
+        S = self._seq_len(batch["tokens"], batch.get("patches"))
+        with par.sequence(S):
+            last, cache = self._prefill_stack(batch, S)
+        if fam in ("dense", "moe", "vlm") and (capacity or 0) > S:
+            for k in [k for k in cache if k in _KV_LEAVES]:
+                t = cache[k]
+                cache[k] = nn.functional.pad(
+                    t, [0, 0] * (t.dim() - 3) + [0, capacity - S])
+        return self._logits(last), self._placed(cache, B)
+
+    def _prefill_stack(self, batch, S):
+        """(the last position of the residual stream after every block,
+        the cache of this rank's rows whole along its sequence)."""
+        cfg = self.cfg
+        fam = cfg.family
+        dt = cdtype(cfg)
+        W = self._weights
         x = self._inputs(batch["tokens"], batch.get("patches"))
-        S = x.shape[1]
-        positions = self._positions(x)
+        positions = self._positions(batch["tokens"].shape[0], S)
         cache: Cache = {"pos": S}
 
         def put(keys, leaves):
@@ -733,15 +826,17 @@ class Transformer(nn.Module):
                 rems.append((h, conv.to(dt)))
             if rems:
                 put(("rem_lru_h", "rem_lru_conv"), rems)
-        if fam in ("dense", "moe", "vlm") and (capacity or 0) > S:
-            for k in [k for k in cache if k in _KV_LEAVES]:
-                t = cache[k]
-                cache[k] = nn.functional.pad(
-                    t, [0, 0] * (t.dim() - 3) + [0, capacity - S])
-        return self._logits(x[:, -1]), self._placed(cache, B)
+        ax = par.seq_axis()
+        if ax is None:
+            return x[:, -1], cache
+        # the last position is on the last sequence block's rank
+        return coll.gather_blocks(x[:, -1].contiguous(), ax.group)[-1], cache
 
     def _logits(self, x):
-        return layers.logits_apply(self._head(), x, self.cfg)
+        """Logits of the whole vocabulary of ``x`` (B, D) (a vocab block
+        all-gathered over ``model``)."""
+        return layers.columns(layers.logits_apply(self._head(), x, self.cfg),
+                              self.cfg.vocab_size)
 
     def _serving_leaves(self, cache: Cache):
         """What the decode step reads of a cache: (leaves, sequence
@@ -781,7 +876,7 @@ class Transformer(nn.Module):
                 work[k] = t
             elif native and k == "state":
                 off, _, group = split(spec[2], t.shape[2])
-                heads = (off, group) if group is not None else None
+                heads = off if group is not None else None
                 work[k] = t
             else:
                 work[k] = par.rows_of(t, spec, ax, self.mesh, rows)

@@ -26,14 +26,32 @@ mesh-coordinate order, first axis major, as ``jax.device_put`` does with a
 the spec names; :func:`batch_rows` gives a rank its rows of a batch by
 :func:`batch_sharding`; :func:`shard_module` keeps a module's parameters
 as this rank's blocks.  :class:`MeshRanks` holds a rank's coordinate and
-a process group for every set of the mesh's axes.  Placement is explicit,
-so the models carry no sharding constraints: :func:`shard_activation`
-checks its spec against the active mesh and returns its input as it is;
-outside a :func:`mesh_context` it is a no-op, as in the reference.  A
-:func:`mesh_context` of a ``DeviceMesh`` runs a sharded model on its
-ranks (:func:`current_ranks`); one of a mapping of axis sizes makes a
-model in one process compute what such a mesh computes (the MoE layer's
+a process group for every set of the mesh's axes.  A :func:`mesh_context`
+of a ``DeviceMesh`` runs a sharded model on its ranks
+(:func:`current_ranks`); one of a mapping of axis sizes makes a model in
+one process compute what such a mesh computes (the MoE layer's
 expert-parallel capacity, ``models.moe.moe_ep_plain``).
+
+Tensor and sequence parallelism on the ``model`` axis, the partitioning
+XLA derives from the reference's specs: a leaf whose spec names
+``model`` keeps its ``model`` block on its rank (gathered over the other
+axes its spec names alone), so each rank computes its block of every
+product whose weight the spec splits (:func:`model_axis`; the layers'
+column- and row-parallel products, ``models.layers``).  Between blocks the
+residual stream is the rank's block of the sequence, the reference's
+``("dp", "sp", None)`` constraint: :func:`sequence` names the length of
+the sequence the model runs on, :func:`seq_axis` says whether it splits
+over ``model`` (the reference's divisibility gating), and
+:func:`shard_activation` takes a rank's block of an activation whose spec
+names ``model``.  Outside a ``DeviceMesh`` context both are no-ops, as in
+the reference.
+
+Gradients follow ``shard_map``'s convention, which the sharded train
+step's seed of ``1 / world`` sets (``train.loop``): a value that every
+``model`` rank holds whole carries on each rank a share of its cotangent
+(the shares sum to it), a value split over ``model`` its own cotangent.
+So a leaf replicated over ``model`` has its gradient summed over it (the
+plan's summing group), and a kept ``model`` block does not.
 """
 from __future__ import annotations
 
@@ -42,7 +60,7 @@ import math
 import re
 import threading
 from contextlib import contextmanager
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -101,19 +119,62 @@ def mesh_context(mesh):
 
 
 def active():
-    """The active mesh context, to enter again (:func:`reentered`) where
-    code runs later, as a recomputed block in the backward pass does."""
-    return (current_mesh(), current_ranks())
+    """The active mesh context and sequence (:func:`sequence`), to enter
+    again (:func:`reentered`) where code runs later, as a recomputed block
+    in the backward pass does."""
+    return (current_mesh(), current_ranks(), getattr(_state, "seq", None))
 
 
 @contextmanager
 def reentered(saved):
-    prev = (current_mesh(), current_ranks())
-    _state.mesh, _state.ranks = saved
+    prev = active()
+    _state.mesh, _state.ranks, _state.seq = saved
     try:
         yield
     finally:
-        _state.mesh, _state.ranks = prev
+        _state.mesh, _state.ranks, _state.seq = prev
+
+
+@contextmanager
+def sequence(length: Optional[int]):
+    """The residual stream of the body has ``length`` positions (None: it
+    has no sequence axis, or is not to be split)."""
+    prev = getattr(_state, "seq", None)
+    _state.seq = length
+    try:
+        yield
+    finally:
+        _state.seq = prev
+
+
+class ModelAxis(NamedTuple):
+    """This rank's place on the ``model`` axis: its coordinate, the
+    axis's size and the group of its ranks."""
+
+    index: int
+    size: int
+    group: object
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The active ``DeviceMesh``'s ``model`` axis (None in one process,
+    under a mapping of axis sizes, or where the axis is absent or 1)."""
+    ranks = current_ranks()
+    if ranks is None or ranks.axes.get("model", 1) == 1:
+        return None
+    return ModelAxis(ranks.coord["model"], ranks.axes["model"],
+                     ranks.group(("model",)))
+
+
+def seq_axis() -> Optional[ModelAxis]:
+    """:func:`model_axis` where the residual stream's sequence
+    (:func:`sequence`) splits over it, the reference's ``sp`` gating
+    (None: the stream is whole on every ``model`` rank)."""
+    ax = model_axis()
+    n = getattr(_state, "seq", None)
+    if ax is None or not n or n % ax.size:
+        return None
+    return ax
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -167,11 +228,24 @@ def resolve_spec(logical_axes: Sequence, shape: Tuple[int, ...], mesh) -> Spec:
 
 
 def shard_activation(x, logical_axes: Sequence):
-    """``x`` as it is: the active mesh's spec for it is resolved (an
-    unknown logical axis raises as the reference's does) but nothing
-    annotates it (no-op without a mesh)."""
+    """This rank's block of ``x`` (whole on every rank) along each
+    dimension whose logical axis maps to ``model`` under the active
+    ``DeviceMesh`` (a view; gated as the reference gates it).  The batch
+    axes are the rank's rows already, and are left as they are.  Without
+    a ``DeviceMesh`` the spec is resolved (an unknown logical axis raises
+    as the reference's does) and ``x`` returned as it is."""
     mesh = current_mesh()
-    if mesh is not None:
+    if mesh is None:
+        return x
+    ax = model_axis()
+    for d, logical in enumerate(logical_axes):
+        names = LOGICAL_AXES[logical]
+        if ax is None or "model" not in names:
+            continue
+        if x.shape[d] % ax.size == 0 and x.shape[d] > 0:
+            n = x.shape[d] // ax.size
+            x = x.narrow(d, ax.index * n, n)
+    if ax is None:
         resolve_spec(logical_axes, x.shape, mesh)
     return x
 
@@ -493,11 +567,6 @@ def batch_rows(batch, mesh):
     return shard(batch, specs, mesh)
 
 
-#: expert leaves: when their experts are split over the ``model`` axis,
-#: each rank runs its own experts, gathered over the other axes alone
-#: (``models.moe``'s expert-parallel branch; the reference's ``shard_map``
-#: takes them by ``P(ep)``)
-EXPERT_LEAF = re.compile(r"moe/(wi|wg|wo)$")
 #: the embedding table: its rows are looked up before they are cast, so it
 #: is gathered in float32 (its gradient sums a frequent token's rows in
 #: float32, as the reference's does)
@@ -509,12 +578,12 @@ def shard_module(module: torch.nn.Module, mesh, compute_dtype=None):
     rank's block for :func:`param_spec` on the ``DeviceMesh`` ``mesh``.
     Sets ``module.mesh`` and ``module.shardings`` ({name: spec}), and
     ``module.gather_plans`` ({parameter: (:meth:`MeshRanks.plan`, the
-    dtype it is gathered in)}): an expert leaf split over the ``model``
-    axis keeps its block of the experts and is gathered over the other
-    axes (:data:`EXPERT_LEAF`); a leaf of two or more dimensions
-    (each used as ``compute_dtype``) but the embedding table is cast to it
-    before the gather, as XLA casts a sharded operand before gathering
-    it."""
+    dtype it is gathered in)}): a leaf whose spec names ``model`` keeps
+    its ``model`` block (the layers compute with it: tensor parallelism,
+    an expert leaf's experts) and is gathered over the other axes its
+    spec names; a leaf of two or more dimensions (each used as
+    ``compute_dtype``) but the embedding table is cast to it before the
+    gather, as XLA casts a sharded operand before gathering it."""
     ranks = mesh_ranks(mesh)
     module.mesh, module.shardings, module.gather_plans = mesh, {}, {}
     for name, p in list(module.named_parameters()):
@@ -524,12 +593,11 @@ def shard_module(module: torch.nn.Module, mesh, compute_dtype=None):
                                requires_grad=p.requires_grad)
         module.get_submodule(owner)._parameters[leaf] = p
         path = leaf_key(name)[0]
-        keep = (("model",) if EXPERT_LEAF.search(path)
-                and spec[0] == "model" else ())
         dtype = (compute_dtype if compute_dtype and p.ndim >= 2
                  and not LOOKED_UP.search(path) else p.dtype)
         module.shardings[name] = spec
-        module.gather_plans[p] = (ranks.plan(spec, p.shape, keep), dtype)
+        module.gather_plans[p] = (ranks.plan(spec, p.shape, ("model",)),
+                                  dtype)
     return module
 
 

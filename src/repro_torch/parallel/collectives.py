@@ -20,22 +20,33 @@ The counterparts of the collectives the reference runs inside
   place in the leaf), whose gradient is summed over the gathering group
   into each member's block and then over ``sum_group``.
 
+These are also the conjugate pairs of the tensor- and sequence-parallel
+layers on the ``model`` axis (``models.layers``): :func:`all_gather` of the
+residual stream's sequence blocks before a column-parallel product,
+:func:`reduce_scatter` of a row-parallel product's partial sums into the
+sequence blocks after it, :func:`all_reduce` of them where the sequence
+does not split, and :func:`max_over` (no gradient) for the vocab-parallel
+log-sum-exp.
+
 ``torch.distributed.nn``'s all-reduce is not used: its backward sums the
 ranks' cotangents where the values it returns are replicated, which
 ``jax.grad`` does not do for ``psum`` under ``shard_map``'s division.
 A reduce-scatter is an all-to-all of the blocks and a float32 sum of what
 arrives, in group-rank order, on the tensors' own device.  Every call
-counts, under the reference's collective kinds (``all-to-all``,
-``all-reduce``; ``repro.launch.roofline``'s names), the bytes of its
-result on this rank (what the reference reads off each collective's HLO
-result shape) and the host seconds it waits in it, in :data:`COUNTS`,
-and its bytes by its group's members in :data:`BY_GROUP` (the dry-run
-prices each group by the slowest link it crosses).  An all-gather is
-issued as an all-to-all of the block's copies (:func:`gather_blocks`) and
-is counted as that, what it is on the wire.  gloo takes CUDA tensors for
-each of these collectives and stages them through host memory itself;
-NCCL keeps them on the card.  A group of ``None`` is a group of this rank
-alone: nothing moves, nothing is counted.
+counts, under the reference's collective kinds (``all-gather``,
+``reduce-scatter``, ``all-reduce``, ``all-to-all``;
+``repro.launch.roofline``'s names), the bytes of its result on this rank
+(what the reference reads off each collective's HLO result shape) and the
+host seconds it waits in it, in :data:`COUNTS`, and its bytes by its
+group's members in :data:`BY_GROUP` (the dry-run prices each group by the
+slowest link it crosses).  An all-gather is issued as an all-to-all of the
+block's copies (:func:`gather_blocks`) and a reduce-scatter as an
+all-to-all of the blocks (:func:`scatter_sum`): each is counted under its
+own kind with the bytes that all-to-all returns, what it is on the wire.
+gloo takes CUDA tensors for each of these collectives and stages them
+through host memory itself; NCCL keeps them on the card.  A group of
+``None`` is a group of this rank alone: nothing moves, nothing is
+counted.
 """
 from __future__ import annotations
 
@@ -91,7 +102,7 @@ def gather_blocks(x: torch.Tensor, group) -> List[torch.Tensor]:
         return [x]
     flat = x.unsqueeze(0).expand(_size(group), *x.shape).contiguous()
     out = torch.empty_like(flat)
-    with _count("all-to-all", _nbytes(out), group):
+    with _count("all-gather", _nbytes(out), group):
         dist.all_to_all_single(out, flat, group=group)
     return list(out.unbind(0))
 
@@ -112,15 +123,15 @@ def gather_to_host(x: torch.Tensor, group, dst: int = 0
     return out
 
 
-def exchange_blocks(blocks: Sequence[torch.Tensor], group
-                    ) -> List[torch.Tensor]:
+def exchange_blocks(blocks: Sequence[torch.Tensor], group,
+                    kind: str = "all-to-all") -> List[torch.Tensor]:
     """``blocks[i]`` to group rank i (all of one shape); what each member
-    sent this rank, by group rank."""
+    sent this rank, by group rank (counted under ``kind``)."""
     if group is None:
         return [blocks[0]]
     flat = torch.stack([b.contiguous() for b in blocks])
     out = torch.empty_like(flat)
-    with _count("all-to-all", _nbytes(out), group):
+    with _count(kind, _nbytes(out), group):
         dist.all_to_all_single(out, flat, group=group)
     return list(out.unbind(0))
 
@@ -147,10 +158,10 @@ def scatter_sum(blocks: Sequence[torch.Tensor], group) -> torch.Tensor:
     """The sum over the members of the block each sent this rank
     (``blocks[i]`` goes to group rank i), in float32 in group-rank order,
     returned in the blocks' dtype."""
-    got = exchange_blocks(blocks, group)
+    got = exchange_blocks(blocks, group, "reduce-scatter")
     acc = got[0].float()
     for t in got[1:]:
-        acc = acc + t.float()
+        acc.add_(t)             # in float32, what arrived is ours to reuse
     return acc.to(blocks[0].dtype)
 
 
@@ -192,17 +203,28 @@ class _AllReduce(torch.autograd.Function):
 
 
 def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
-    return _AllGather.apply(x, dim, group)
+    """The group's blocks concatenated along ``dim``; the gradient the
+    reduce-scatter of the cotangent (nothing moves for a group of
+    None)."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, dim % x.dim(), group)
 
 
 def reduce_scatter(x: torch.Tensor, dim: int = 0, group=None
                    ) -> torch.Tensor:
-    return _ReduceScatter.apply(x, dim, group)
+    """The sum over the group, each rank keeping its block along ``dim``;
+    the gradient the all-gather of the cotangent."""
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, dim % x.dim(), group)
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum over ``group``; an integer tensor (a count) carries no
     gradient."""
+    if group is None:
+        return x
     if not x.is_floating_point():
         return sum_over(x, group)
     return _AllReduce.apply(x, group)

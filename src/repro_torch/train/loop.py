@@ -23,9 +23,15 @@ cuts them: the global batch is split into k and each rank takes its
 block of each, so each microbatch's tokens compete for expert capacity
 as in the reference.  Each rank seeds its backward with ``1 / world``
 (``shard_map``'s division of a replicated output's cotangent); the
-weights' gathers sum each gradient back into its blocks over the mesh
-(``parallel.collectives.unshard``).  Clipping and Adafactor's statistics
-count every element of a leaf once.
+weights' gathers (over the axes each spec names but ``model``, whose
+block each rank keeps and computes with: ``parallel.api.shard_module``)
+sum each gradient back into its blocks over those axes, and over the
+axes the spec leaves replicated, ``model`` among them for a leaf that
+every ``model`` rank holds whole (``parallel.collectives.unshard``); a
+kept ``model`` block's gradient is its own, not summed over ``model``.
+The blocks and specs are the reference's, so checkpoints keep their
+layout.  Clipping and Adafactor's statistics count every element of a
+leaf once.
 """
 from __future__ import annotations
 
@@ -40,9 +46,11 @@ from repro_torch.parallel import api as par
 
 METRICS = ("loss", "xent", "aux")
 #: top-level trees a sharded step gathers once for all its microbatches
-#: (their gradients summed over them, then reduced into the blocks), as a
-#: gather of a loop invariant is taken out of the reference's microbatch
-#: scan; each layer's weights are gathered where each microbatch uses them
+#: (by their gather plans: over ``data``, each rank's ``model`` block
+#: kept; their gradients summed over the microbatches, then reduced into
+#: the blocks), as a gather of a loop invariant is taken out of the
+#: reference's microbatch scan; each layer's weights are gathered where
+#: each microbatch uses them
 HOISTED = ("embed", "lm_head", "final_norm", "enc_norm")
 
 

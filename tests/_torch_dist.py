@@ -45,6 +45,12 @@ The sharded-training scenarios of tests/test_torch_mesh.py, on a
   restores the port's checkpoint onto (4, 2) and (1, 1)
   (``DIR/jax_restored.npz``).
 
+The other families' sharded training (tests/test_torch_mesh_families.py),
+on the same mesh: ``python tests/_torch_dist.py families DIR`` writes
+``DIR/jax_families.npz``, the JAX package's loss and ``jax.grad`` of each
+of :data:`FAMILY_ARCHS` with its parameters and batch placed on 8 host
+devices; :func:`torch_families_worker` the port's on 8 gloo ranks.
+
 Sharded serving (tests/test_torch_serve_mesh.py), on the same (data 2,
 model 4) mesh, float32, at the smoke widths of :data:`SERVE_ARCHS`:
 
@@ -76,11 +82,13 @@ state of each) and ``DIR/pim_rank<r>.json`` (VA's ``KernelReport`` and
 ``Timeline``, each scenario's replays).
 
 The dry-run's cells on a small mesh (tests/test_torch_dryrun_mesh.py):
-``python tests/_torch_dist.py dryrun DIR`` writes ``DIR/xla_mem.json``,
-the JAX package's ``specs.make_cell`` of llama3-smoke's (one microbatch)
-:data:`DRYRUN_CELLS` lowered and compiled on a (pod 2, data 2, model 2)
-mesh of 8 host devices (the reference's
-``scenario_dryrun_cell_small_mesh``), each one's ``memory_analysis``.
+``python tests/_torch_dist.py dryrun DIR [SHAPE [KINDS]]`` writes
+``DIR/xla_mem.json``, the JAX package's ``specs.make_cell`` of
+llama3-smoke's (one microbatch) :data:`DRYRUN_CELLS` lowered and compiled
+on a (pod 2, data 2, model 2) mesh of 8 host devices (the reference's
+``scenario_dryrun_cell_small_mesh``), each one's ``memory_analysis`` and
+``cost_analysis`` FLOPs (``SHAPE``, e.g. ``2x4x1``: on that mesh instead,
+``DIR/xla_mem_2x4x1.json``; tests/test_torch_tensor_parallel.py).
 
 The training CLI on 4 ranks (tests/test_torch_scripts_launch_train_mesh.py):
 ``python tests/_torch_dist.py cli DIR ARGS...`` runs the reference's on 4
@@ -669,6 +677,98 @@ def torch_mesh_worker(rank: int, world: int, init_file: str, out_dir: str):
 
 
 # ---------------------------------------------------------------------------
+# Sharded training of the other families
+# ---------------------------------------------------------------------------
+
+#: the families tests/test_torch_mesh.py does not train (ssm, hybrid,
+#: encdec, vlm)
+FAMILY_ARCHS = ("mamba2-130m", "recurrentgemma-9b", "seamless-m4t-large-v2",
+                "llava-next-mistral-7b")
+
+
+def jax_families_main(out_dir: str):
+    """The JAX package on 8 host devices: each of :data:`FAMILY_ARCHS`'
+    initial parameters (``PRNGKey(0)``), and its loss and ``jax.grad`` on
+    :data:`MESH` (parameters by ``param_shardings``, the batch by
+    ``batch_sharding``): ``DIR/jax_families.npz``."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={MESH_WORLD}"
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import get_smoke_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models import transformer as T
+    from repro.parallel import api as par
+
+    mesh = jax.make_mesh(tuple(MESH.values()), tuple(MESH),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        params = T.init_params(cfg, jax.random.PRNGKey(0))
+        ds = SyntheticLM(cfg, DataConfig(SEQ, ROWS, cfg.vocab_size))
+        batch = {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}
+        out.update(flat_tree(jax.tree.map(np.asarray, params),
+                             f"{arch}/init/"))
+        with par.mesh_context(mesh):
+            p_sh = jax.device_put(params, par.param_shardings(
+                jax.eval_shape(lambda: params), mesh))
+            b_sh = jax.device_put(batch, par.batch_sharding(
+                jax.eval_shape(lambda: batch), mesh))
+            (loss, _), g = jax.jit(jax.value_and_grad(
+                lambda p, b: T.loss_and_metrics(p, b, cfg), has_aux=True))(
+                    p_sh, b_sh)
+        out[f"{arch}/loss"] = np.asarray(loss)
+        out.update(flat_tree(jax.tree.map(np.asarray, g), f"{arch}/grad/"))
+    np.savez(Path(out_dir) / "jax_families.npz", **out)
+
+
+def torch_families_worker(rank: int, world: int, init_file: str,
+                          out_dir: str):
+    """Rank ``rank`` of the same on 8 gloo ranks from the reference's
+    parameters (``DIR/families_rank<r>.npz``: the loss, and on rank 0 the
+    gradients gathered whole in the JAX layout)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import convert
+    from repro_torch.parallel import api as par
+    from repro_torch.train import loop
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", tuple(MESH.values()),
+                                mesh_dim_names=tuple(MESH))
+        ref = np.load(Path(out_dir) / "jax_families.npz")
+        out = {}
+        for arch in FAMILY_ARCHS:
+            cfg = get_smoke_config(arch).replace(dtype="float32")
+            model = convert.params_from_jax(nested(ref, f"{arch}/init/"),
+                                            cfg, "cpu")
+            par.shard_module(model, mesh, torch.float32)
+            ds = SyntheticLM(cfg, DataConfig(SEQ, ROWS, cfg.vocab_size))
+            batch = loop.to_device(ds.batch_at(0), "cpu")
+            metrics, grads = loop.grads_and_metrics(
+                model, par.batch_rows(batch, mesh))
+            out[f"{arch}/loss"] = metrics["loss"].numpy()
+            whole = convert.jax_tree({n: par.unshard(
+                g, model.shardings[n], mesh) for n, g in grads.items()})
+            if rank == 0:
+                out.update(flat_tree(whole, f"{arch}/grad/"))
+        np.savez(Path(out_dir) / f"families_rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # Sharded serving
 # ---------------------------------------------------------------------------
 
@@ -832,9 +932,11 @@ DRYRUN_CELLS = {"train": ("mini_train", 64, 8),
                 "decode": ("mini_decode", 64, 8)}
 
 
-def jax_dryrun_main(out_dir: str):
+def jax_dryrun_main(out_dir: str, shape: str = None, kinds: str = None):
     """The JAX package's side of the small-mesh cells (see the module
-    docstring)."""
+    docstring): ``DIR/xla_mem.json``, or ``DIR/xla_mem_<shape>.json`` on
+    another mesh of 8 devices (``shape`` "pxdxm": pod, data, model) for
+    the cells ``kinds`` (comma-separated; default all)."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     sys.path.insert(0, str(ROOT / "src"))
     import json
@@ -846,21 +948,190 @@ def jax_dryrun_main(out_dir: str):
     from repro.parallel import api as par
 
     cfg = cb.get_smoke_config("llama3-8b").replace(train_microbatches=1)
-    mesh = jax.make_mesh(tuple(SMALL_MESH.values()), tuple(SMALL_MESH),
+    sizes = (tuple(map(int, shape.split("x"))) if shape
+             else tuple(SMALL_MESH.values()))
+    mesh = jax.make_mesh(sizes, tuple(SMALL_MESH),
                          axis_types=(jax.sharding.AxisType.Auto,) * 3)
     out = {}
     for kind, (name, seq, batch) in DRYRUN_CELLS.items():
+        if kinds and kind not in kinds.split(","):
+            continue
         cb.SHAPES[name] = cb.ShapeSpec(name, kind, seq, batch)
         with par.mesh_context(mesh):
             cell = specs.make_cell(cfg, name, mesh)
-            mem = jax.jit(cell["fn"], in_shardings=cell["in_shardings"],
-                          out_shardings=cell.get("out_shardings"),
-                          donate_argnums=cell["donate_argnums"]).lower(
-                *cell["args"]).compile().memory_analysis()
+            compiled = jax.jit(cell["fn"],
+                               in_shardings=cell["in_shardings"],
+                               out_shardings=cell.get("out_shardings"),
+                               donate_argnums=cell["donate_argnums"]).lower(
+                *cell["args"]).compile()
+        mem = compiled.memory_analysis()
+        cost = compiled.cost_analysis()
+        cost = cost[0] if isinstance(cost, (list, tuple)) else cost
         out[kind] = {"args": int(mem.argument_size_in_bytes),
                      "out": int(mem.output_size_in_bytes),
-                     "temp": int(mem.temp_size_in_bytes)}
-    (Path(out_dir) / "xla_mem.json").write_text(json.dumps(out))
+                     "temp": int(mem.temp_size_in_bytes),
+                     "flops": float(cost.get("flops", 0.0))}
+    name = f"xla_mem_{shape}.json" if shape else "xla_mem.json"
+    (Path(out_dir) / name).write_text(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# Tensor and sequence parallelism, layer by layer
+# ---------------------------------------------------------------------------
+
+#: the mesh of the per-layer scenarios, and their batch
+TP_MESH = {"data": 1, "model": 4}
+TP_WORLD = 4
+TP_ROWS, TP_SEQ = 2, 16
+
+
+def tp_inputs() -> dict:
+    """The per-layer scenarios' inputs (numpy, fixed seed): llama3-smoke's
+    MLP weights, embedding table, a residual stream, logits and labels,
+    mamba2-smoke's mixer's weights, and each scenario's loss weights
+    (``c_*``; ``c_seq`` one per ``model`` rank)."""
+    r = np.random.default_rng(29)
+    D, F, V = 64, 128, 256
+    B, S = TP_ROWS, TP_SEQ
+
+    def w(*shape):
+        return (r.normal(size=shape) / np.sqrt(shape[-2] if len(shape) > 1
+                                               else 1)).astype(np.float32)
+
+    f32 = np.float32
+    out = {"x": r.normal(size=(B, S, D)).astype(f32),
+           "mlp/wi": w(D, F), "mlp/wg": w(D, F), "mlp/wo": w(F, D),
+           "embed/tok": r.normal(size=(V, D)).astype(f32),
+           "tokens": r.integers(0, V, (B, S)),
+           "logits": (3 * r.normal(size=(B, S, V))).astype(f32),
+           "labels": r.integers(-1, V, (B, S)),
+           "c_x": r.normal(size=(B, S, D)).astype(f32),
+           "c_seq": r.normal(size=(TP_MESH["model"], B, S, D)).astype(f32)}
+    d_in, G, N, H, K = 128, 1, 16, 8, 4
+    conv_dim = d_in + 2 * G * N
+    out.update({"ssm/in_proj": w(D, 2 * d_in + 2 * G * N + H),
+                "ssm/conv_w": (0.3 * r.normal(size=(K, conv_dim))).astype(f32),
+                "ssm/conv_b": (0.1 * r.normal(size=(conv_dim,))).astype(f32),
+                "ssm/A_log": np.log(np.linspace(1, 16, H)).astype(f32),
+                "ssm/D_skip": (1 + 0.1 * r.normal(size=(H,))).astype(f32),
+                "ssm/dt_bias": (0.1 * r.normal(size=(H,)) - 3).astype(f32),
+                "ssm/gate_norm/scale": (0.1 * r.normal(size=(d_in,))
+                                        ).astype(f32),
+                "ssm/out_proj": w(d_in, D)})
+    return out
+
+
+def torch_tp_worker(rank: int, world: int, init_file: str, out_dir: str):
+    """Rank ``rank`` of the per-layer scenarios on a :data:`TP_MESH` of
+    gloo ranks (tests/test_torch_tensor_parallel.py): each layer on the
+    rank's blocks (its sequence block of the stream, its ``model`` block
+    of each weight), a loss ``sum(y * c)`` summed over the ranks and its
+    backward seeded with ``1 / world`` (the sharded train step's); writes
+    ``DIR/tp_rank<r>.npz``: each output block and each input block's
+    gradient."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", tuple(TP_MESH.values()),
+                                mesh_dim_names=tuple(TP_MESH))
+        ranks = par.mesh_ranks(mesh)
+        m = ranks.coord["model"]
+        everyone = ranks.group(ranks.names)
+        inp = {k: torch.from_numpy(v) for k, v in tp_inputs().items()}
+        llama = get_smoke_config("llama3-8b").replace(dtype="float32")
+        mamba = get_smoke_config("mamba2-130m").replace(dtype="float32")
+        out = {}
+
+        def block(name, path, layer=True):
+            """This rank's block of the leaf ``name`` (``path`` in the
+            port's parameter names), a leaf tensor taking a gradient."""
+            t = inp[name]
+            spec = par.param_spec(path, t.shape, mesh) if layer else \
+                (None,) * t.ndim
+            return par.shard(t, spec, mesh).requires_grad_(True)
+
+        def seq_block(t):
+            return t.narrow(1, m * TP_SEQ // 4, TP_SEQ // 4).clone()
+
+        def run(name, fn, leaves):
+            """``fn()`` -> y (this rank's block); the loss's backward; y
+            and the leaves' gradients written under ``name``."""
+            y, c = fn()
+            loss = coll.all_reduce((y * c).sum(), everyone)
+            loss.backward(torch.tensor(1.0 / world))
+            out[f"{name}/y"] = y.detach().numpy()
+            for k, t in leaves.items():
+                out[f"{name}/grad/{k}"] = t.grad.numpy()
+
+        with par.mesh_context(mesh), par.sequence(TP_SEQ):
+            x = seq_block(inp["x"]).requires_grad_(True)
+            p = {k: block(f"mlp/{k}", f"blocks.0.mlp.{k}")
+                 for k in ("wi", "wg", "wo")}
+            run("mlp", lambda: (layers.mlp_apply(p, x, llama),
+                                seq_block(inp["c_x"])), {"x": x, **p})
+
+            # a sequence the axis does not divide: the stream whole on
+            # every rank, the row-parallel product all-reduced; the loss
+            # is then whole on every rank too, each holding a share of
+            # its cotangent (the 1 / world seed)
+            n = TP_SEQ - 2
+            with par.sequence(n):
+                xw = inp["x"][:, :n].clone().requires_grad_(True)
+                pw = {k: block(f"mlp/{k}", f"blocks.0.mlp.{k}")
+                      for k in ("wi", "wg", "wo")}
+                y = layers.mlp_apply(pw, xw, llama)
+                (y * inp["c_x"][:, :n]).sum().backward(
+                    torch.tensor(1.0 / world))
+                out["mlp_whole/y"] = y.detach().numpy()
+                for k, t in {"x": xw, **pw}.items():
+                    out[f"mlp_whole/grad/{k}"] = t.grad.numpy()
+
+            tok = block("embed/tok", "embed.tok")
+            run("embed", lambda: (layers.embed_apply(tok, inp["tokens"],
+                                                     llama),
+                                  seq_block(inp["c_x"])), {"tok": tok})
+
+            v_loc = 256 // 4
+            lg = inp["logits"][..., m * v_loc:(m + 1) * v_loc].clone()
+            lg.requires_grad_(True)
+            s, n = T._xent_sums(lg, inp["labels"], m * v_loc)
+            (s / n).backward(torch.tensor(1.0 / world))
+            out["xent/loss"] = (s / n).detach().numpy()
+            out["xent/grad/logits"] = lg.grad.numpy()
+
+            x = seq_block(inp["x"]).requires_grad_(True)
+            c = torch.from_numpy(np.ascontiguousarray(
+                inp["c_seq"][m].numpy()))
+            run("seq", lambda: (coll.reduce_scatter(
+                coll.all_gather(x, 1, ranks.group(("model",))) * c, 1,
+                ranks.group(("model",))), seq_block(inp["c_x"])),
+                {"x": x})
+
+            x = seq_block(inp["x"]).requires_grad_(True)
+            sp = {k: block(f"ssm/{k}", f"blocks.0.ssm.{k}")
+                  for k in ("in_proj", "conv_w", "conv_b", "A_log",
+                            "D_skip", "dt_bias", "out_proj")}
+            sp["gate_norm"] = {"scale": block("ssm/gate_norm/scale",
+                                              "blocks.0.ssm.gate_norm.scale")}
+            leaves = {k: v for k, v in sp.items() if k != "gate_norm"}
+            leaves["gate_norm/scale"] = sp["gate_norm"]["scale"]
+            run("ssm", lambda: (ssm.ssm_apply_train(sp, x, mamba),
+                                seq_block(inp["c_x"])), {"x": x, **leaves})
+        np.savez(Path(out_dir) / f"tp_rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -1023,7 +1294,9 @@ if __name__ == "__main__":
         jax_mesh_check(sys.argv[2])
     elif sys.argv[1] == "serve":
         jax_serve_main(sys.argv[2])
+    elif sys.argv[1] == "families":
+        jax_families_main(sys.argv[2])
     elif sys.argv[1] == "dryrun":
-        jax_dryrun_main(sys.argv[2])
+        jax_dryrun_main(*sys.argv[2:5])
     else:
         jax_main(sys.argv[1])

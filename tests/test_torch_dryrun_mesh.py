@@ -22,8 +22,9 @@ destroyed inside its test (the group is process-wide state).
   ``cache_sharding`` on an ``AbstractMesh`` of the same shape.
 * The count's arithmetic on 16x16, llama3-8b at full width cut to 2
   layers (the docstring of :func:`test_collective_bytes_closed_form`
-  derives the collectives); the corner ranks' counts agree but for the
-  cache write of a decode step.
+  derives the collectives of the tensor- and sequence-parallel program);
+  the corner ranks' counts agree but for the cache write of a decode
+  step.
 * ``main``: ``--single-pod`` writes ``__sp`` rows, ``--multi-pod``
   ``__mp`` rows (the memory pass), neither both; the PIM cell's mesh rows.
 """
@@ -160,42 +161,69 @@ def test_parameter_bytes_are_the_sum_of_blocks():
 
 def test_collective_bytes_closed_form():
     """The collectives of llama3-8b's prefill_32k and decode_32k cells (2
-    layers, full width) on one rank of 16x16, in result bytes on the rank.
+    layers, full width) on one rank of 16x16, in result bytes on the rank,
+    serving's dtype bf16 (2 bytes) but for the softmax merge.
 
-    The sharded model gathers every parameter whose spec names a mesh
-    axis, once a pass: each block's leaves where the layer runs, the
-    embedding table in ``_inputs`` and the final norm and LM head in
-    ``_logits``; the 1-D leaves (norm scales) name none and stay whole.
-    A gather is an all-to-all of the block's copies over the axes its
-    spec names, whose result is the whole leaf; serving gathers in the
-    compute dtype, bf16: all-to-all = 2 x sum(numel) over the named
-    leaves.  Prefill issues nothing else (its cache's blocks are cut from
-    this rank's rows).  A decode step over a cache split along its
-    sequence over ``model`` merges each attention layer's partial softmax
-    with three all-reduces over the ``model`` group, float32: the partial
-    maximum and the partial sum, (B_loc, H), and P.V, (B_loc, H, Dh);
-    B_loc = 128 / 16 rows: all-reduce = 2 layers x 4 x B_loc x H x (2 +
-    Dh)."""
+    Weights: the sharded model keeps every leaf's ``model`` block and
+    gathers it over ``data`` (each spec names both, or none: the 1-D norm
+    scales stay whole), once a pass: each block's leaves where the layer
+    runs, the embedding table in ``_inputs``, the final norm and LM head
+    in ``_logits``.  A gather is counted as an all-gather whose result is
+    the leaf's ``model`` block: 2 x sum(numel) / 16 over the named leaves.
+
+    Prefill (B_loc = 32 / 16 rows of S = 32,768; the residual stream is
+    the rank's S / 16 positions): the vocab-parallel embedding's partial
+    rows reduce-scattered over the sequence, then in each layer the
+    attention's and the MLP's input all-gathered over the sequence and
+    their row-parallel outputs reduce-scattered back, each (B_loc, S, D);
+    k's and v's column blocks (1,024 / 16 columns: half a head, the 8 KV
+    heads do not divide 16) all-gathered whole, (B_loc, S, KV Dh) each.
+    Then the last position of each sequence block gathered, (16, B_loc,
+    D), and the logits of the rank's vocabulary block all-gathered,
+    (B_loc, V).  A reduce-scatter is counted with what its all-to-all
+    returns, the 16 blocks: (B_loc, S, D).  The cache's blocks are cut
+    from the whole KV heads: nothing more.
+
+    A decode step (B_loc = 128 / 16, one position: nothing splits along
+    the sequence): the embedding's partial rows all-reduced, (B_loc, D);
+    in each layer the step's q heads (2 a rank) all-gathered, (B_loc, H,
+    Dh), k's and v's column blocks likewise, (B_loc, KV Dh); the partial
+    softmax over the rank's block of the cache's sequence merged by three
+    float32 all-reduces (the partial maximum and sum, (B_loc, H), and P.V,
+    (B_loc, H, Dh)); the row-parallel wo and the MLP's all-reduced,
+    (B_loc, D) each; the logits all-gathered, (B_loc, V)."""
     axes = mesh_mod.production_shape(False)
     cfg, counts = _llama_cells(0)
     whole = specs.abstract_params(cfg)
-    gathered = sum(2 * p.numel() for n, p in whole.named_parameters()
+    gathered = sum(2 * p.numel() // 16 for n, p in whole.named_parameters()
                    if par.spec_axes(par.param_spec(n, p.shape, axes)))
-    assert counts["prefill"].coll_by_kind() == {"all-to-all": gathered}
-    b_loc = 128 // 16
-    merge = cfg.n_layers * 4 * b_loc * cfg.n_heads * (2 + cfg.d_head)
-    assert counts["decode"].coll_by_kind() == {"all-to-all": gathered,
-                                               "all-reduce": merge}
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, S = 32 // 16, 32768
+    bsd = 2 * b * S * D
+    assert counts["prefill"].coll_by_kind() == {
+        "all-gather": gathered + L * (2 * bsd + 2 * 2 * b * S * KV * Dh)
+        + 2 * 16 * b * D + 2 * b * V,
+        "reduce-scatter": (1 + 2 * L) * bsd}
+    b = 128 // 16
+    merge = L * 4 * b * H * (2 + Dh)
+    assert counts["decode"].coll_by_kind() == {
+        "all-gather": gathered + L * 2 * b * (H * Dh + 2 * KV * Dh)
+        + 2 * b * V,
+        "all-reduce": 2 * b * D * (1 + 2 * L) + merge}
 
 
 def test_corner_ranks_agree_but_for_the_cache_write():
     """Ranks 0 (coordinate all-0) and 255 (all-last) of 16x16 count the
     same FLOPs, argument, result and temporary bytes and collectives in
-    both cells, and the same bytes accessed in the prefill.  In the decode
-    step at position 0 the write of the new K and V lands in rank 0's
-    block alone: its bytes exceed rank 255's by that ``copy_``'s operands
-    (the slot and the new row) and result (the slot), 3 x (B_loc, KV, Dh)
-    bf16 for K and for V in each layer."""
+    both cells, and the same bytes accessed in the prefill: their blocks
+    of every leaf, of the vocabulary, of the heads and of the sequence are
+    all of one size, and every rank gathers the last position of each
+    sequence block.  In the decode step at position 0 the write of the new
+    K and V (every KV head: the step's k and v are gathered whole) lands
+    in rank 0's block alone: its bytes exceed rank 255's by that
+    ``copy_``'s operands (the slot and the new row) and result (the slot),
+    3 x (B_loc, KV, Dh) bf16 for K and for V in each layer."""
     cfg, c0 = _llama_cells(0)
     _, c1 = _llama_cells(255)
     for kind in ("prefill", "decode"):
