@@ -28,7 +28,14 @@ Phases (any failure exits non-zero and prints no result line):
              the SSD scan's scalar kernel at its test cases and at
              mamba2-130m's prefill shape (f32 2e-4, bf16 1e-2), its
              tensor-core route at the card tests' shapes and at that
-             prefill shape (bf16 1e-2);
+             prefill shape (bf16 1e-2); the scalar kernels past their
+             whole-row instances (the head-tiled ones, float32): flash
+             at Dk 320 / Dv 288 and Dk 272 / Dv 64 (causal,
+             bidirectional, windowed, MQA) and at recurrentgemma-9b's
+             attention shape widened to Dk 320 / Dv 288, the SSD scan
+             at N 192 / P 160, N 144 / P 200, N = P = 128 and at
+             mamba2-130m's prefill shape widened to N 192, P 160, chunk
+             96;
 3. step    — the fused cycle-step kernel against the eager card step (its
              plain version), every state leaf bitwise after 1, 7 and all
              steps, 64 steps a launch, on every knob case of
@@ -177,11 +184,15 @@ Phases (any failure exits non-zero and prints no result line):
              SSD tensor-core cases up to N = P = 128), llama3-8b's
              training shape (1 x 4,096, H 32, KV 8, D 128),
              recurrentgemma-9b's attention (1 x 4,096, H 16, KV 1, D 256,
-             window 2,048), the quickstart's (f32) and mamba2-130m's (4 x
-             4,096); each route and each kernel of a pair timed apart,
-             beside the plain backward, the bound and (flash) SDPA's
-             backward; the tensor-core flash backward at each family's
-             training shape beside SDPA's; (b) one step's gradients of
+             window 2,048; bf16 and float32, the scalar pair's head-tiled
+             kernels), the quickstart's (f32), mamba2-130m's (4 x 4,096)
+             and the wide cases of [kernels] (f32); each route and each
+             kernel of a pair timed apart, beside the plain backward,
+             the bound and (flash) SDPA's backward (float32's at
+             recurrentgemma's shape); the head-tiled forwards and
+             backwards timed at the wide timing shapes; the tensor-core
+             flash backward at each family's training shape beside
+             SDPA's; (b) one step's gradients of
              every family at full width (TRAIN_PATHS: llama3-8b 4 of 32
              layers, mamba2-130m 24, qwen3-moe-30b-a3b 3 of 48,
              deepseek-v3-671b its dense MLA layer, recurrentgemma-9b 6
@@ -190,8 +201,8 @@ Phases (any failure exits non-zero and prints no result line):
              sequences), kernels against plain versions in bf16 (every
              leaf finite and not zero, within 5e-2, or held to the
              float32 step where bf16 noise dominates) and in float32
-             (1e-3; not at recurrentgemma's D 256, which the scalar
-             backward does not take), a MoE's expert choices replayed
+             (1e-3; recurrentgemma's D 256 on the scalar pair's
+             head-tiled kernels), a MoE's expert choices replayed
              between the runs compared, each step's launches as
              reckoned; (c) the same models at 4,096 tokens a sequence
              (train_4k's), the config's optimizer, remat and
@@ -294,6 +305,8 @@ GOLDEN_VA = {"cycles": 5336, "issued": 11488,
 HBM_BYTES_PER_S = 3.35e12
 SCALAR32_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+#: a function's peak by the type it computes in
+FLOPS_PER_S = {"bfloat16": BF16_FLOPS_PER_S, "float32": SCALAR32_OPS_PER_S}
 
 INT_MIN, INT_MAX = -2**31, 2**31 - 1
 ALU_EDGE = [(9, INT_MIN, -1), (9, 5, 0), (5, 1, 33), (7, -8, 1), (8, 2**30, 2),
@@ -2200,6 +2213,23 @@ SSD_TC_CASES = [(1, 256, 4, 2, 16, 16, 64), (2, 300, 4, 1, 64, 64, 128),
                 (1, 192, 3, 3, 32, 32, 64)]
 #: mamba2-130m prefill in the LM main path: 4 prompts of 2048 tokens
 SSD_MAIN = dict(b=4, s=2048, h=24, g=1, p=64, n=128, chunk=256)
+#: widths past the scalar kernels' whole-row instances, which their
+#: head-tiled kernels take (float32): flash (S, H, KV, Dk, Dv, causal,
+#: window) at Dv past 256 and Dk past the rows' shared memory, the SSD
+#: scan (B, S, H, G, P, N, chunk) at N and P past 128 (and N = P = 128,
+#: whose backward was refused at chunk 256)
+FLASH_WIDE_CASES = [(200, 4, 2, 320, 288, True, 0),
+                    (200, 4, 2, 320, 288, False, 0),
+                    (200, 4, 2, 320, 288, True, 64),
+                    (130, 4, 1, 272, 64, True, 0),
+                    (130, 4, 2, 272, 64, True, 50)]
+SSD_WIDE_CASES = [(1, 300, 2, 1, 160, 192, 96), (2, 250, 4, 2, 200, 144, 100),
+                  (1, 512, 2, 1, 128, 128, 256)]
+#: the wide instances timed: recurrentgemma-9b's attention shape with Dk
+#: 320, Dv 288; mamba2-130m's prefill shape with N 192, P 160, chunk 96
+FLASH_WIDE = dict(b=1, s=4096, h=16, kv=1, dk=320, dv=288, causal=True,
+                  window=2048)
+SSD_WIDE = dict(b=4, s=2048, h=24, g=1, p=160, n=192, chunk=96)
 #: rtol = atol.  In bf16 the outputs are rounded to 8 significant bits,
 #: so 1e-2 allows about 1-2 ulps, above the one ulp measured on an H100
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -2250,9 +2280,11 @@ def phase_lm_kernels() -> dict:
     route)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.flash_attention import is_wide
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import is_wide as ssd_is_wide
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
@@ -2261,6 +2293,8 @@ def phase_lm_kernels() -> dict:
              for dt in ("float32", "bfloat16")]
     flash += [(dict(zip(keys, c), b=2), "bfloat16") for c in FLASH_SM90_CASES]
     flash += [(FLASH_MAIN, "float32"), (FLASH_MAIN, "bfloat16")]
+    flash += [(dict(zip(keys, c), b=2), "float32") for c in FLASH_WIDE_CASES]
+    flash += [(FLASH_WIDE, "float32")]
     family_of = {id(shape): name for name, (_, shape)
                  in FLASH_FAMILIES.items()}
     flash += [(shape, "bfloat16") for _, shape in FLASH_FAMILIES.values()]
@@ -2275,7 +2309,9 @@ def phase_lm_kernels() -> dict:
         torch.cuda.synchronize()
         err, tol = _max_err(got, want), FLASH_TOL[dt]
         ratio = _tol_ratio(got, want, tol)
-        log(f"[kernels] flash_attention ({kernel}) {shape} {dt}: max |err| "
+        wide = kernel == "scalar" and is_wide(shape["dk"], shape["dv"])
+        log(f"[kernels] flash_attention ({kernel}"
+            f"{', head-tiled' if wide else ''}) {shape} {dt}: max |err| "
             f"{err:.3g} (tolerance {tol}, rtol = atol; {ratio:.3g} of it "
             "used)")
         check(kernel == ("sm90" if dt == "bfloat16" else "scalar")
@@ -2285,6 +2321,9 @@ def phase_lm_kernels() -> dict:
               f"max |err| {err}")
         if shape is FLASH_MAIN and dt == "bfloat16":
             worst["flash_attention"] = err
+        if shape is FLASH_WIDE:
+            check(wide, f"flash_attention at {shape}: not head-tiled")
+            worst["flash_attention (wide)"] = err
         if id(shape) in family_of:
             worst[f"flash_attention ({family_of[id(shape)]})"] = err
         del q, k, v, got, want
@@ -2292,6 +2331,8 @@ def phase_lm_kernels() -> dict:
     ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
     ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES]
     ssd += [(SSD_MAIN, "float32"), (SSD_MAIN, "bfloat16")]
+    ssd += [(dict(zip(keys, c)), "float32") for c in SSD_WIDE_CASES]
+    ssd += [(SSD_WIDE, "float32")]
     for shape, dt in ssd:
         args = _ssd_inputs(gen, dtype=getattr(torch, dt), **shape)
         kernel = sops.route(args[0].dtype, shape["n"], shape["p"],
@@ -2306,11 +2347,16 @@ def phase_lm_kernels() -> dict:
         tol = SSD_TOL[dt]
         err = max(_max_err(y, yw), _max_err(state, sw))
         ratio = max(_tol_ratio(y, yw, tol), _tol_ratio(state, sw, tol))
-        log(f"[kernels] ssd_scan ({kernel}) {shape} {dt}: max |err| "
-            f"{err:.3g} (tolerance {tol}, rtol = atol; {ratio:.3g} of it "
-            "used)")
+        wide = kernel == "scalar" and ssd_is_wide(
+            shape["n"], shape["p"], min(shape["chunk"], shape["s"]))
+        log(f"[kernels] ssd_scan ({kernel}{', head-tiled' if wide else ''})"
+            f" {shape} {dt}: max |err| {err:.3g} (tolerance {tol}, rtol = "
+            f"atol; {ratio:.3g} of it used)")
         check(ratio <= 1, f"ssd_scan {kernel} route != plain at {shape} "
               f"{dt}: max |err| {err}")
+        if shape is SSD_WIDE:
+            check(wide, f"ssd_scan at {shape}: not head-tiled")
+            worst["ssd_scan (wide)"] = err
         if shape is SSD_MAIN and dt == "bfloat16":
             worst["ssd_scan_tc"] = err
             # the scalar kernel on the same bf16 inputs (raw launcher)
@@ -2987,49 +3033,58 @@ def _ssd_bwd_case(gen, shape, dt) -> dict:
             "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want))}
 
 
-def _flash_bwd_times(gen, shape: dict, routes: dict,
-                     plain: bool = True) -> dict:
-    """Device ms of one flash backward at ``shape`` (bf16) on each route
+def _flash_bwd_times(gen, shape: dict, routes: dict, dtype: str = "bfloat16",
+                     plain: bool = True, library: bool = True) -> dict:
+    """Device ms of one flash backward at ``shape`` (``dtype``: bf16 from
+    the tensor-core forward, float32 from the scalar one) on each route
     (raw launchers, uncounted) and of each of its two kernels alone (the
     launcher's ``parts``, the scratch of a whole run kept), beside the
-    plain backward's (unless not ``plain``: None), the bound and the
-    backward of ``scaled_dot_product_attention`` (autograd,
+    plain backward's (``plain``; else None), the bound and (``library``;
+    else None) the backward of ``scaled_dot_product_attention`` (autograd,
     ``enable_gqa``, the window as an explicit mask) on the same inputs;
     CUDA events.  ``routes``: name -> (launcher, timed launches)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_sm90_cuda)
+        flash_attention_cuda, flash_attention_sm90_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
-    bf16, causal, window = torch.bfloat16, shape["causal"], shape["window"]
-    q, k, v = _flash_inputs(gen, dtype=bf16, **shape)
+    dt, causal, window = getattr(torch, dtype), shape["causal"], \
+        shape["window"]
+    q, k, v = _flash_inputs(gen, dtype=dt, **shape)
     out = torch.empty((shape["b"], shape["s"], shape["h"], shape["dv"]),
-                      dtype=bf16, device="cuda")
+                      dtype=dt, device="cuda")
     lse = torch.empty((shape["b"], shape["h"], shape["s"]), device="cuda")
-    flash_attention_sm90_cuda(q, k, v, out, causal, window, lse)
-    do = _normal(gen, out.shape, bf16)
+    (flash_attention_sm90_cuda if dtype == "bfloat16"
+     else flash_attention_cuda)(q, k, v, out, causal, window, lse)
+    do = _normal(gen, out.shape, dt)
     args = (q, k, v, out, do, lse, *(torch.empty_like(t) for t in (q, k, v)),
             causal, window)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    mask = None
-    if window > 0:
-        i = torch.arange(shape["s"], device="cuda")
-        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                        is_causal=causal and mask is None,
-                                        enable_gqa=True)
-    dot = do.transpose(1, 2)
-    flops, nbytes = _flash_bwd_work(esize=2, **shape)
-    bound_ms, bound_by = _bound(flops, nbytes, BF16_FLOPS_PER_S)
+    library_ms = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if window > 0:
+            i = torch.arange(shape["s"], device="cuda")
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[:, None] - i[None, :] < window))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            is_causal=causal and mask is None,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), n=20, warm=3)
+        del qt, kt, vt, ot, dot
+    flops, nbytes = _flash_bwd_work(esize=2 if dtype == "bfloat16" else 4,
+                                    **shape)
+    bound_ms, bound_by = _bound(flops, nbytes, FLOPS_PER_S[dtype])
     common = {
         "plain_ms": cuda_time_ms(lambda: flash_attention_bwd_ref(
             q, k, v, do, causal=causal, window=window), n=1, warm=1)
         if plain else None,
-        "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
-            ot, (qt, kt, vt), dot, retain_graph=True), n=20, warm=3),
-        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-        "bytes": nbytes, "shape": shape}
+        "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        "shape": shape, "dtype": dtype}
     res = {}
     for name, (fn, n) in routes.items():
         scratch = fn(*args)
@@ -3039,7 +3094,77 @@ def _flash_bwd_times(gen, shape: dict, routes: dict,
                                               scratch=scratch), n=n, warm=1)
                 for part, mask_ in (("dq", 1), ("dkdv", 2))})
         r["bound_share"] = bound_ms / r["ms"]
-        r["library_ratio"] = r["ms"] / r["library_ms"]
+        if library:
+            r["library_ratio"] = r["ms"] / r["library_ms"]
+    return res
+
+
+def _wide_fwd_times(gen) -> dict:
+    """[train] (a)'s forward times of the scalar kernels in float32 at the
+    shapes whose backward :func:`_bwd_times` times there: flash at
+    recurrentgemma-9b's attention shape (the whole-row instance, beside
+    SDPA's float32 forward with the window as an explicit mask) and at
+    FLASH_WIDE, the SSD scan at SSD_WIDE (both head-tiled; no PyTorch call
+    computes either at once), each beside its plain version and bound;
+    raw launchers, CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    f32, res = torch.float32, {}
+    for name, shape in (("flash_attention (window, float32)",
+                         FLASH_TRAIN_WINDOW),
+                        ("flash_attention (wide)", FLASH_WIDE)):
+        q, k, v = _flash_inputs(gen, dtype=f32, **shape)
+        out = torch.empty((shape["b"], shape["s"], shape["h"], shape["dv"]),
+                          device="cuda")
+        kw = dict(causal=shape["causal"], window=shape["window"])
+        library_ms = None
+        if shape is FLASH_TRAIN_WINDOW:
+            i = torch.arange(shape["s"], device="cuda")
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[:, None] - i[None, :] < shape["window"]))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), n=10,
+                warm=2)
+        flops, nbytes = _flash_work(esize=4, **shape)
+        bound_ms, bound_by = _bound(flops, nbytes, FLOPS_PER_S["float32"])
+        res[name] = {
+            "ms": cuda_time_ms(lambda: flash_attention_cuda(
+                q, k, v, out, kw["causal"], kw["window"]), n=10, warm=2),
+            "plain_ms": cuda_time_ms(lambda: flash_attention_ref(
+                q, k, v, **kw), n=1, warm=1),
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "shape": shape, "dtype": "float32"}
+        del q, k, v, out
+    sw = SSD_WIDE
+    args = _ssd_inputs(gen, dtype=f32, **sw)
+    y = torch.empty_like(args[0])
+    state = torch.empty((sw["b"], sw["h"], sw["n"], sw["p"]), device="cuda")
+    flops, nbytes = _ssd_work(esize=4, **sw)
+    bound_ms, bound_by = _bound(flops, nbytes, FLOPS_PER_S["float32"])
+    res["ssd_scan (wide)"] = {
+        "ms": cuda_time_ms(lambda: ssd_scan_cuda(*args, y, state,
+                                                 sw["chunk"]), n=10, warm=2),
+        "plain_ms": cuda_time_ms(lambda: ssd_scan_ref(
+            *args, chunk=sw["chunk"]), n=2, warm=1),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": flops, "bytes": nbytes, "shape": sw, "dtype": "float32"}
+    for name, r in res.items():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"[train] {name} forward (scalar kernel) at {r['shape']}, "
+            f"float32: {r['ms']:.4f} ms ({r['bound_share']:.4f} of the "
+            f"{r['bound_ms']:.5f} ms bound, by {r['bound_by']}); plain "
+            f"{r['plain_ms']:.2f} ms"
+            + (f"; SDPA {r['library_ms']:.4f} ms" if r["library_ms"]
+               else ""))
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3048,13 +3173,15 @@ def _bwd_times(gen) -> dict:
     backward on both routes at FLASH_TRAIN and on the tensor-core route
     at FLASH_TRAIN_WINDOW (:func:`_flash_bwd_times`), the SSD backward on
     both routes at SSD_TRAIN, each kernel alone too (the launchers'
-    ``parts``), beside the plain backward and the bound; CUDA events."""
+    ``parts``), beside the plain backward and the bound; and in float32
+    the scalar flash backward at FLASH_TRAIN_WINDOW and FLASH_WIDE, the
+    scalar SSD backward at SSD_WIDE (head-tiled); CUDA events."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_sm90_cuda)
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import (
-        scratch_bwd_tc, ssd_scan_bwd_cuda, ssd_scan_bwd_tc_cuda,
+        scratch_bwd_tc, ssd_scan_bwd_cuda, ssd_scan_bwd_tc_cuda, ssd_scan_cuda,
         ssd_scan_tc_cuda)
     bf16 = torch.bfloat16
     res = _flash_bwd_times(gen, FLASH_TRAIN, {
@@ -3063,6 +3190,16 @@ def _bwd_times(gen) -> dict:
     res["flash_attention_bwd_sm90 (window)"] = _flash_bwd_times(
         gen, FLASH_TRAIN_WINDOW, {"sm90": (flash_attention_bwd_sm90_cuda,
                                            10)})["sm90"]
+    torch.cuda.empty_cache()
+    # float32 at the same shape (the scalar pair's head-tiled kernels,
+    # recurrentgemma's float32 training) and at FLASH_WIDE
+    res["flash_attention_bwd (window, float32)"] = _flash_bwd_times(
+        gen, FLASH_TRAIN_WINDOW, {"scalar": (flash_attention_bwd_cuda, 5)},
+        dtype="float32")["scalar"]
+    torch.cuda.empty_cache()
+    res["flash_attention_bwd (wide)"] = _flash_bwd_times(
+        gen, FLASH_WIDE, {"scalar": (flash_attention_bwd_cuda, 5)},
+        dtype="float32", library=False)["scalar"]
     torch.cuda.empty_cache()
     for name, (_, shape) in FLASH_TRAIN_FAMILIES.items():
         if shape is not FLASH_TRAIN and shape is not FLASH_TRAIN_WINDOW:
@@ -3101,8 +3238,38 @@ def _bwd_times(gen) -> dict:
                                               scratch=scratch), n=n, warm=1)
                 for i, part in enumerate(parts)})
         r["bound_share"] = bound_ms / r["ms"]
+    # the head-tiled SSD backward at SSD_WIDE, from the scalar forward's
+    # float32 states
+    sw, f32 = SSD_WIDE, torch.float32
+    nc = -(-sw["s"] // sw["chunk"])
+    args = _ssd_inputs(gen, dtype=f32, **sw)
+    y = torch.empty_like(args[0])
+    state = torch.empty((sw["b"], sw["h"], sw["n"], sw["p"]), device="cuda")
+    states = torch.empty((sw["b"], sw["h"], nc, sw["n"], sw["p"]),
+                         device="cuda")
+    ssd_scan_cuda(*args, y, state, sw["chunk"], states)
+    full = (*args, _normal(gen, y.shape, f32), states, None, sw["chunk"])
+    scratch = torch.empty_like(states)
+    flops, nbytes = _ssd_bwd_work(esize=4, **sw)
+    bound_ms, bound_by = _bound(flops, nbytes, FLOPS_PER_S["float32"])
+    ssd_scan_bwd_cuda(*full, scratch=scratch)
+    r = res["ssd_scan_bwd (wide)"] = {
+        "ms": cuda_time_ms(lambda: ssd_scan_bwd_cuda(*full, scratch=scratch),
+                           n=5, warm=1),
+        "parts": {part: cuda_time_ms(lambda: ssd_scan_bwd_cuda(
+            *full, parts=mask_, scratch=scratch), n=5, warm=1)
+            for part, mask_ in (("ssd_wide_state_pass", 1),
+                                ("ssd_wide_dx, _db, _dc, _dt", 2))},
+        "plain_ms": cuda_time_ms(lambda: ssd_scan_bwd_ref(
+            *full[:6], chunk=sw["chunk"]), n=1, warm=1),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": flops, "bytes": nbytes, "shape": sw, "dtype": "float32"}
+    r["bound_share"] = bound_ms / r["ms"]
+    del args, y, state, states, full, scratch
+    torch.cuda.empty_cache()
     for name, r in res.items():
-        log(f"[train] {name} at {r['shape']}, bf16: {r['ms']:.4f} ms "
+        log(f"[train] {name} at {r['shape']}, {r.get('dtype', 'bfloat16')}: "
+            f"{r['ms']:.4f} ms "
             f"({r['bound_share']:.4f} of the {r['bound_ms']:.5f} ms bound, "
             f"by {r['bound_by']}; kernels alone "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["parts"].items())
@@ -3169,20 +3336,6 @@ def _reckoned(cfg, steps: int, dtype: str = "bfloat16") -> dict:
             "ssd_scan_bwd": 0, "ssd_scan_bwd_tc": 0}
 
 
-def _f32_backward_fits(cfg) -> bool:
-    """Whether the scalar flash backward (float32's route) takes
-    ``cfg``'s head widths: its f32 tiles take Dk, Dv up to 192, so
-    recurrentgemma-9b's D 256 has no float32 backward on the card."""
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        smem_fits_bwd)
-    if cfg.family == "ssm":
-        return True
-    if cfg.use_mla:
-        return smem_fits_bwd(cfg.qk_nope_dim + cfg.qk_rope_dim,
-                             cfg.v_head_dim)
-    return smem_fits_bwd(cfg.d_head, cfg.d_head)
-
-
 def _step_grads(model, batch, mb, dtype=None, plain=False, experts=None):
     """(metrics, gradients) of one step's batch on the card; ``dtype``
     replaces the config's compute dtype, ``plain`` runs the plain versions
@@ -3233,8 +3386,8 @@ def _train_parity(arch: str, replace: dict) -> dict:
     bf16 and in float32: every bf16 leaf finite, not all zero and within
     STEP_GRAD_TOL of the plain versions' (or, past it, no farther than
     STEP_NOISE times the plain version's own distance from the float32
-    step), every float32 leaf within STEP_GRAD_TOL_F32 (where the scalar
-    backward takes the widths: :func:`_f32_backward_fits`)."""
+    step), every float32 leaf within STEP_GRAD_TOL_F32 (recurrentgemma's
+    D 256 on the scalar backward's head-tiled kernels)."""
     import torch
     cut = TRAIN_PARITY_CUT.get(arch, {})
     cfg, model = _lm_model(arch, **{**replace, **cut})
@@ -3284,26 +3437,24 @@ def _train_parity(arch: str, replace: dict) -> dict:
     within = {n: e for n, e in errs.items() if n not in noise}
     worst = max(within, key=within.get)
     ratio = errs[worst] / STEP_GRAD_TOL
-    want32, worst32, errs32, ratio32 = None, None, {}, 0.0
-    if _f32_backward_fits(cfg):
-        reset_launches()
-        _, g_k32 = _step_grads(model, batch, mb, dtype="float32",
-                               experts=experts32)
-        launches32 = read_launches()
-        want32 = _reckoned(cfg, 1, "float32")
-        check(all(launches32[k] == n for k, n in want32.items()),
-              f"[train] {arch}: float32 kernel step launched {launches32}, "
-              f"reckoned {want32}")
-        errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
-        worst32 = max(errs32, key=errs32.get)
-        ratio32 = errs32[worst32] / STEP_GRAD_TOL_F32
-        del g_k32
+    reset_launches()
+    _, g_k32 = _step_grads(model, batch, mb, dtype="float32",
+                           experts=experts32)
+    launches32 = read_launches()
+    want32 = _reckoned(cfg, 1, "float32")
+    check(all(launches32[k] == n for k, n in want32.items()),
+          f"[train] {arch}: float32 kernel step launched {launches32}, "
+          f"reckoned {want32}")
+    errs32 = {n: _rel_err(g_k32[n], g_32[n]) for n in g_32}
+    worst32 = max(errs32, key=errs32.get)
+    ratio32 = errs32[worst32] / STEP_GRAD_TOL_F32
+    del g_k32
+    n_params = sum(t.numel() for t in model.parameters())
+    state32 = _state_gb(cfg, n_params)
     f32_note = (f"float32: worst leaf {worst32} {errs32[worst32]:.3g} "
-                f"(tolerance {STEP_GRAD_TOL_F32}; {ratio32:.3g} of it used)"
-                if worst32 else "float32: no kernel step (the scalar "
-                "backward's f32 tiles take Dk, Dv up to 192; this head is "
-                f"{cfg.d_head} wide), the plain versions' float32 step the "
-                "arbiter alone")
+                f"(tolerance {STEP_GRAD_TOL_F32}; {ratio32:.3g} of it used; "
+                f"{n_params / 1e9:.3f}e9 parameters, state reckoned "
+                f"{state32:.1f} GB)")
     log(f"[train] (b) {arch} at {cfg.n_layers} layers"
         + (f" (cut for (b): {cut})" if cut else "") + ", "
         f"{_train_batch(cfg)} x {seq} tokens, {mb} microbatches: all "
@@ -3326,8 +3477,8 @@ def _train_parity(arch: str, replace: dict) -> dict:
     return {"arch": arch, "layers": cfg.n_layers, "leaves": len(errs),
             "seq": seq, "worst_leaf": worst, "rel_err": errs[worst],
             "ratio": ratio, "noise_leaves": noise, "launches": want,
-            "worst_leaf_f32": worst32, "rel_err_f32": errs32.get(worst32),
-            "launches_f32": want32}
+            "worst_leaf_f32": worst32, "rel_err_f32": errs32[worst32],
+            "launches_f32": want32, "state_gb": state32}
 
 
 def _lru_share(cfg, step_s: float) -> dict:
@@ -3613,28 +3764,40 @@ def phase_train() -> dict:
              for dt in ("float32", "bfloat16")]
     flash += [(dict(zip(keys, c), b=2), "bfloat16") for c in FLASH_SM90_CASES]
     flash += [(FLASH_QUICKSTART, "float32"), (FLASH_TRAIN, "bfloat16"),
-              (FLASH_TRAIN_WINDOW, "bfloat16")]
+              (FLASH_TRAIN_WINDOW, "bfloat16"),
+              (FLASH_TRAIN_WINDOW, "float32")]
+    wide = [(dict(zip(keys, c), b=2), "float32") for c in FLASH_WIDE_CASES]
     # each kernel's max |err| at its main path's shape: the tensor-core
     # route's at llama3-8b's, the scalar one's at the quickstart's
-    worst = {}
-    for shape, dt in flash:
+    worst = {"flash_attention_bwd (wide)": 0.0, "ssd_scan_bwd (wide)": 0.0}
+    for shape, dt in flash + wide:
         r = _flash_bwd_case(gen, shape, dt)
         if shape is FLASH_TRAIN:
             worst["flash_attention_bwd_sm90"] = r["max_abs_err"]
         if shape is FLASH_QUICKSTART:
             worst["flash_attention_bwd"] = r["max_abs_err"]
+        if shape is FLASH_TRAIN_WINDOW and dt == "float32":
+            worst["flash_attention_bwd (window, float32)"] = r["max_abs_err"]
+        if (shape, dt) in wide:
+            worst["flash_attention_bwd (wide)"] = max(
+                worst["flash_attention_bwd (wide)"], r["max_abs_err"])
     keys = ("b", "s", "h", "g", "p", "n", "chunk")
     ssd = [(dict(zip(keys, c)), "float32") for c in SSD_CASES]
     ssd += [(dict(zip(keys, c)), "bfloat16") for c in SSD_TC_CASES]
     ssd_f32 = dict(SSD_TRAIN, s=1024)
     ssd += [(ssd_f32, "float32"), (SSD_TRAIN, "bfloat16")]
-    for shape, dt in ssd:
+    wide = [(dict(zip(keys, c)), "float32") for c in SSD_WIDE_CASES]
+    for shape, dt in ssd + wide:
         r = _ssd_bwd_case(gen, shape, dt)
         if shape is SSD_TRAIN:
             worst["ssd_scan_bwd_tc"] = r["max_abs_err"]
         if shape is ssd_f32:
             worst["ssd_scan_bwd"] = r["max_abs_err"]
+        if (shape, dt) in wide:
+            worst["ssd_scan_bwd (wide)"] = max(worst["ssd_scan_bwd (wide)"],
+                                               r["max_abs_err"])
     times = _bwd_times(gen)
+    times.update(_wide_fwd_times(gen))
     torch.cuda.empty_cache()
     parity = [_train_parity(a, r) for a, r in TRAIN_PATHS]
     torch.cuda.empty_cache()
@@ -5224,7 +5387,46 @@ def main(argv=None) -> int:
             entry["mesh_launches"] = [m["launches_bwd_sm90"]
                                       for m in mesh_launches]
             entry["mesh_shapes"] = mesh["ranks"][0]["shapes"]
+        if name in ("flash_attention_bwd", "ssd_scan_bwd"):
+            # the head-tiled kernels at the wide timing shape
+            w = train["times"][f"{name} (wide)"]
+            entry["wide"] = {k: w[k] for k in (
+                "shape", "dtype", "ms", "parts", "plain_ms", "bound_ms",
+                "bound_by")}
+            entry["wide"]["max_abs_err"] = train["max_abs_err"][
+                f"{name} (wide)"]
         kernels.append(entry)
+    # the scalar flash backward at recurrentgemma-9b's attention in
+    # float32 (its head-tiled pair): launched by (b)'s float32 step
+    w = train["times"]["flash_attention_bwd (window, float32)"]
+    kernels.append({
+        "name": "flash_attention_bwd (window, float32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:28",
+        "launches": parity_runs["recurrentgemma-9b"]["launches_f32"][
+            "flash_attention_bwd"],
+        "max_abs_err": train["max_abs_err"][
+            "flash_attention_bwd (window, float32)"],
+        "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": w["library_ms"],
+        "stands_for": "jax.value_and_grad of the jnp function (no Pallas "
+                      "backward)", "shape": w["shape"], "dtype": "float32",
+        "kernels_ms": w["parts"], "arch": "recurrentgemma-9b"})
+    # the scalar forwards in float32: at that shape (whole rows) and
+    # head-tiled at the wide timing shapes
+    fwd = {k: {f: train["times"][k][f] for f in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for k in ("flash_attention (window, float32)",
+                  "flash_attention (wide)", "ssd_scan (wide)")}
+    fwd["flash_attention (wide)"]["max_abs_err"] = lm_err[
+        "flash_attention (wide)"]
+    fwd["ssd_scan (wide)"]["max_abs_err"] = lm_err["ssd_scan (wide)"]
+    flash["scalar"] = {"window_float32": fwd[
+        "flash_attention (window, float32)"],
+        "wide": fwd["flash_attention (wide)"]}
+    next(k for k in kernels if k["name"] == "ssd_scan")["wide"] = fwd[
+        "ssd_scan (wide)"]
     log("[report] training (bf16, f32 weights; card: " + card + "): "
         + "; ".join(
             f"{r['arch']} at {r['layers']} of {r['of_layers']} layers, "

@@ -10,8 +10,9 @@ ctypes:
 * ``csrc/flash_attention_sm90.cu`` (bf16; Dk and Dv multiples of 16 up to
   256): one CTA per (128-row query tile, head, batch), K/V tiles streamed
   by TMA, both products on the tensor cores (wgmma);
-* ``csrc/flash_attention.cu`` (float32 or bf16, any width that fits): one
-  CTA per (64-row query tile, head, batch), scalar FMAs.
+* ``csrc/flash_attention.cu`` (float32 or bf16, any width): one CTA per
+  (64-row query tile, head, batch), scalar FMAs; heads wider than its
+  whole-row instances take are cut into Dk slices and Dv blocks.
 
 Both forwards write each row's log-sum-exp when given an ``lse`` tensor
 (training); two backward libraries read it (no Pallas counterpart: the JAX
@@ -20,8 +21,9 @@ and dv):
 
 * ``csrc/flash_attention_bwd_sm90.cu`` (bf16; Dk and Dv multiples of 16
   up to 256): TMA and wgmma, as the forward (``csrc/sm90_common.cuh``);
-* ``csrc/flash_attention_bwd.cu`` (float32 or bf16, Dk, Dv up to 192):
-  scalar FMAs on f32 shared-memory tiles.
+* ``csrc/flash_attention_bwd.cu`` (float32 or bf16, any width): scalar
+  FMAs on f32 shared-memory tiles, whole rows up to Dk, Dv 192 and the
+  head dimensions cut into slices and blocks above.
 """
 from __future__ import annotations
 
@@ -57,13 +59,10 @@ def library() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.flash_attention_smem_bytes
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_int64
-        limit = lib.flash_attention_smem_limit
-        limit.argtypes = []
-        limit.restype = ctypes.c_int64
-        _FNS.update(launch=fn, smem=smem, limit=limit)
+        wide = lib.flash_attention_wide
+        wide.argtypes = [ctypes.c_int, ctypes.c_int]
+        wide.restype = ctypes.c_int
+        _FNS.update(launch=fn, wide=wide)
     return lib
 
 
@@ -88,13 +87,7 @@ def library_bwd() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.flash_attention_bwd_smem_bytes
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_int64
-        limit = lib.flash_attention_bwd_smem_limit
-        limit.argtypes = []
-        limit.restype = ctypes.c_int64
-        _FNS.update(bwd=fn, bwd_smem=smem, bwd_limit=limit)
+        _FNS["bwd"] = fn
     return lib
 
 
@@ -115,18 +108,11 @@ def library_bwd_sm90() -> ctypes.CDLL:
     return lib
 
 
-def smem_fits(dk: int, dv: int) -> bool:
-    """Whether the scalar kernel's shared memory for (Dk, Dv) fits one
-    block."""
+def is_wide(dk: int, dv: int) -> bool:
+    """Whether the scalar forward takes (Dk, Dv) on its head-tiled kernel
+    (``flash_wide_kernel``) rather than a whole-row instance."""
     library()
-    return _FNS["smem"](dk, dv) <= _FNS["limit"]()
-
-
-def smem_fits_bwd(dk: int, dv: int) -> bool:
-    """Whether the backward kernels' shared memory for (Dk, Dv) fits one
-    block."""
-    library_bwd()
-    return _FNS["bwd_smem"](dk, dv) <= _FNS["bwd_limit"]()
+    return bool(_FNS["wide"](dk, dv))
 
 
 def _ptr(t):

@@ -12,7 +12,9 @@ picks the kernel from the dtype and the head widths alone:
   with Dk and Dv multiples of 16, at most 256 (every width of the ported
   and planned model families: 64, 128, 192/128, 256);
 * ``"scalar"`` — ``csrc/flash_attention.cu`` (scalar FMAs): float32 at
-  any width, and bfloat16 at the widths ``"sm90"`` does not take.
+  any width, and bfloat16 at the widths ``"sm90"`` does not take (whole
+  rows where they fit shared memory, Dv up to 256; above, the head
+  dimensions in slices and blocks).
 
 ``launches`` counts the launches of both kernels and ``launches_sm90``
 those of the tensor-core kernel (never plain-version calls); callers may
@@ -29,8 +31,9 @@ tensor-core route):
   bfloat16 with Dk and Dv multiples of 16, at most 256 (the forward
   ``"sm90"`` route's widths);
 * ``"scalar"`` — ``csrc/flash_attention_bwd.cu`` (scalar FMAs): float32,
-  and bfloat16 at the widths ``"sm90"`` does not take, up to its shared
-  memory (Dk, Dv <= 192).
+  and bfloat16 at the widths ``"sm90"`` does not take, at any width
+  (whole rows up to Dk, Dv 192; above, the head dimensions in slices and
+  blocks).
 
 The plain backward is autograd of :func:`.ref.flash_attention_ref`
 (:func:`.ref.flash_attention_bwd_ref`).  A serving call passes no
@@ -50,8 +53,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     DTYPES, flash_attention_bwd_cuda, flash_attention_bwd_sm90_cuda,
-    flash_attention_cuda, flash_attention_sm90_cuda, smem_fits,
-    smem_fits_bwd)
+    flash_attention_cuda, flash_attention_sm90_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: CUDA kernel launches made by :func:`flash_attention` (a plain integer)
@@ -64,26 +66,24 @@ launches_bwd = 0
 #: of which on the tensor-core route
 launches_bwd_sm90 = 0
 
-#: largest value head width either kernel's accumulators hold
-MAX_DV = 256
-#: the tensor-core kernel's widths: multiples of SM90_STEP up to MAX_DV
-#: (one wgmma k-step of bf16 is 16 wide; TMA rows are 16-byte multiples)
-SM90_STEP = 16
+#: the tensor-core kernel's widths: multiples of SM90_STEP up to SM90_MAX
+#: (one wgmma k-step of bf16 is 16 wide; TMA rows are 16-byte multiples;
+#: its accumulators hold 256 columns)
+SM90_STEP, SM90_MAX = 16, 256
 
 
 def route(dtype: torch.dtype, dk: int, dv: int) -> str:
     """The CUDA kernel that takes a (dtype, Dk, Dv) call: ``"sm90"`` or
-    ``"scalar"``.  Raises ``TypeError`` for a dtype neither kernel takes
-    and ``ValueError`` for a width above ``MAX_DV`` (the scalar kernel's
-    shared-memory limit is checked at launch, by its library)."""
+    ``"scalar"`` (which takes every width).  Raises ``TypeError`` for a
+    dtype neither kernel takes and ``ValueError`` for a width below 1."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: {dtype}; the kernels take "
                         "float32 or bfloat16")
-    if not (0 < dk and 0 < dv <= MAX_DV):
+    if dk < 1 or dv < 1:
         raise ValueError(f"flash_attention: Dk {dk}, Dv {dv}; the kernels "
-                         f"take Dv up to {MAX_DV}")
-    if (dtype == torch.bfloat16 and dk <= MAX_DV and dk % SM90_STEP == 0
-            and dv % SM90_STEP == 0):
+                         "take widths from 1")
+    if (dtype == torch.bfloat16 and dk <= SM90_MAX and dv <= SM90_MAX
+            and dk % SM90_STEP == 0 and dv % SM90_STEP == 0):
         return "sm90"
     return "scalar"
 
@@ -91,9 +91,8 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> str:
 def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
     """The backward kernels that take a (dtype, Dk, Dv) call: ``"sm90"``
     or ``"scalar"``, the forward's choice (:func:`route`): the tensor-core
-    backward takes every width its forward takes.  Raises as
-    :func:`route` does (the scalar kernels' shared-memory limit is
-    checked in the backward pass)."""
+    backward takes every width its forward takes, the scalar one every
+    width.  Raises as :func:`route` does."""
     return route(dtype, dk, dv)
 
 
@@ -179,9 +178,6 @@ def _forward(q, k, v, causal, window, lse):
         flash_attention_sm90_cuda(q, k, v, out, causal, window, lse)
         launches_sm90 += 1
     else:
-        if not smem_fits(Dk, Dv):
-            raise ValueError(f"flash_attention: Dk {Dk}, Dv {Dv} exceed "
-                             "the scalar kernel's shared memory")
         flash_attention_cuda(q, k, v, out, causal, window, lse)
     launches += 1
     return out
@@ -218,10 +214,6 @@ class FlashAttention(torch.autograd.Function):
                                           dv, ctx.causal, ctx.window)
             launches_bwd_sm90 += 1
         else:
-            if not smem_fits_bwd(Dk, Dv):
-                raise ValueError(f"flash_attention backward: Dk {Dk}, Dv "
-                                 f"{Dv} exceed its scalar kernels' shared "
-                                 "memory")
             flash_attention_bwd_cuda(q, k, v, out, dout, lse, dq, dk, dv,
                                      ctx.causal, ctx.window)
         launches_bwd += 1

@@ -11,10 +11,13 @@ fallback.  :func:`route` picks it from the dtype, the widths and the
 chunk alone:
 
 * ``"tc"`` — ``csrc/ssd_scan_tc.cu`` (chunk-parallel, mma.sync tensor
-  cores, four launches): bfloat16 with N and P multiples of 16 and a
-  chunk that is a multiple of 64 (mamba2-130m: N 128, P 64, chunk 256);
-* ``"scalar"`` — ``csrc/ssd_scan.cu`` (one CTA per (head, batch), scalar
-  FMAs): float32, and bfloat16 at the shapes ``"tc"`` does not take.
+  cores, four launches): bfloat16 with N and P multiples of 16 up to 128
+  and a chunk that is a multiple of 64 (mamba2-130m: N 128, P 64, chunk
+  256);
+* ``"scalar"`` — ``csrc/ssd_scan.cu`` (scalar FMAs): float32, and
+  bfloat16 at the shapes ``"tc"`` does not take, at any N, P and chunk
+  (one CTA per (head, batch) where the state fits, N and P up to 128;
+  else one per (64 state columns, head, batch), N in slices).
 
 ``launches`` counts the scans handed to either route and ``launches_tc``
 those of the tensor-core route (never plain-version calls); callers may
@@ -30,9 +33,9 @@ gradients of x, dt, A, Bm and Cm and takes one for the final state:
 * ``"tc"`` — ``csrc/ssd_scan_bwd_tc.cu`` (chunk-parallel, mma.sync, six
   launches): the shapes the forward ``"tc"`` route takes, from its bf16
   hi + lo states;
-* ``"scalar"`` — ``csrc/ssd_scan_bwd.cu`` (two kernels, scalar FMAs):
-  everything else, up to its shared memory (N x P up to 128 x 64 at Q
-  256).
+* ``"scalar"`` — ``csrc/ssd_scan_bwd.cu`` (scalar FMAs): everything
+  else, at any shape (two kernels where the whole rows fit, N x P up to
+  128 x 64 at Q 256; else six head-tiled ones).
 
 The plain backward is autograd of :func:`.ref.ssd_scan_ref`
 (:func:`.ref.ssd_scan_bwd_ref`); :func:`.ref.ssd_scan_bwd_chunked`
@@ -51,8 +54,8 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import (
-    DTYPES, TC_TILE, smem_fits, smem_fits_bwd, smem_fits_bwd_tc, smem_fits_tc,
-    ssd_scan_bwd_cuda, ssd_scan_bwd_tc_cuda, ssd_scan_cuda, ssd_scan_tc_cuda)
+    DTYPES, TC_TILE, smem_fits_bwd_tc, smem_fits_tc, ssd_scan_bwd_cuda,
+    ssd_scan_bwd_tc_cuda, ssd_scan_cuda, ssd_scan_tc_cuda)
 
 #: scans handed to a CUDA route by :func:`ssd_scan` (a plain integer)
 launches = 0
@@ -63,25 +66,24 @@ launches_bwd = 0
 #: of which on the tensor-core route
 launches_bwd_tc = 0
 
-#: largest state width N and head width P the kernels' registers hold
-MAX_N, MAX_P = 128, 128
-#: the tensor-core route's widths: multiples of one bf16 mma k-step (its
-#: chunks: multiples of its TC_TILE-row tiles)
-TC_STEP = 16
+#: the tensor-core route's widths: multiples of one bf16 mma k-step up to
+#: what its instances hold (its chunks: multiples of its TC_TILE-row tiles)
+TC_STEP, TC_MAX = 16, 128
 
 
 def route(dtype: torch.dtype, n: int, p: int, chunk: int) -> str:
     """The CUDA route that takes a (dtype, N, P, chunk) scan: ``"tc"`` or
-    ``"scalar"``.  Raises ``TypeError`` for a dtype neither takes and
-    ``ValueError`` for widths above ``MAX_N`` / ``MAX_P`` or a chunk
-    below 1 (shared memory is checked at launch)."""
+    ``"scalar"`` (which takes every shape).  Raises ``TypeError`` for a
+    dtype neither takes and ``ValueError`` for a width or a chunk below
+    1."""
     if dtype not in DTYPES:
         raise TypeError(f"ssd_scan: {dtype}; the kernels take float32 or "
                         "bfloat16")
-    if not (0 < n <= MAX_N and 0 < p <= MAX_P and chunk >= 1):
+    if n < 1 or p < 1 or chunk < 1:
         raise ValueError(f"ssd_scan: N {n}, P {p}, chunk {chunk}; the "
-                         f"kernels take N up to {MAX_N}, P up to {MAX_P}")
-    if (dtype == torch.bfloat16 and n % TC_STEP == 0 and p % TC_STEP == 0
+                         "kernels take each from 1")
+    if (dtype == torch.bfloat16 and n <= TC_MAX and p <= TC_MAX
+            and n % TC_STEP == 0 and p % TC_STEP == 0
             and chunk % TC_TILE == 0):
         return "tc"
     return "scalar"
@@ -91,8 +93,8 @@ def route_bwd(dtype: torch.dtype, n: int, p: int, chunk: int) -> str:
     """The backward kernels that take a (dtype, N, P, chunk) scan:
     ``"tc"`` or ``"scalar"``, the forward's choice (:func:`route`): the
     tensor-core backward reads the tensor-core forward's states and takes
-    every shape it takes.  Raises as :func:`route` does (shared memory is
-    checked in the backward pass)."""
+    every shape it takes, the scalar one every shape.  Raises as
+    :func:`route` does."""
     return route(dtype, n, p, chunk)
 
 
@@ -168,10 +170,9 @@ def _forward(x, dt, A, Bm, Cm, chunk, keep_states):
     N = Bm.shape[3]
     Q = min(chunk, S)
     kernel = route(x.dtype, N, P, chunk)
-    fits = smem_fits_tc if kernel == "tc" else smem_fits
-    if not fits(N, P, Q):
+    if kernel == "tc" and not smem_fits_tc(N, P, Q):
         raise ValueError(f"ssd_scan: N {N}, P {P}, chunk {Q} exceed the "
-                         f"{kernel} kernels' shared memory")
+                         "tensor-core kernels' shared memory")
     y = torch.empty_like(x)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     if kernel == "tc":
@@ -216,10 +217,9 @@ class SsdScan(torch.autograd.Function):
         B, S, H, P = x.shape
         G, N = Bm.shape[2], Bm.shape[3]
         kernel = route_bwd(x.dtype, N, P, ctx.chunk_asked)
-        fits = smem_fits_bwd_tc if kernel == "tc" else smem_fits_bwd
-        if not fits(N, P, ctx.chunk):
+        if kernel == "tc" and not smem_fits_bwd_tc(N, P, ctx.chunk):
             raise ValueError(f"ssd_scan backward: N {N}, P {P}, chunk "
-                             f"{ctx.chunk} exceed its {kernel} kernels' "
+                             f"{ctx.chunk} exceed its tensor-core kernels' "
                              "shared memory")
         dy = (torch.zeros_like(x) if dy is None
               else dy.contiguous().to(x.dtype))

@@ -5,20 +5,22 @@ The counterparts of the Pallas module ``repro.kernels.ssd_scan.ssd_scan``:
 that one computes one chunk per launch over a (batch x heads) grid, and
 ``ssd_scan_op`` carries the state across chunks with a host-side
 ``lax.scan``.  The scalar kernel launches once per sequence, one CTA per
-(head, batch), and carries the state across chunks in shared memory (any
-width, float32 or bfloat16).  The tensor-core kernels (bfloat16, N and P
-multiples of 16) split the scan into four chunk-parallel launches:
-C B^T per group, chunk states, state passing, chunk outputs.  Both
-routes keep each chunk's incoming state when asked (training: the scalar
-kernel writes them in f32, the tensor-core route's state pass already
-holds them as a bf16 hi + lo pair), and two backward libraries read them
-(no Pallas counterpart: the JAX package differentiates its jnp
-``ssd_chunked``): ``csrc/ssd_scan_bwd_tc.cu`` (bfloat16, the tensor-core
-forward's shapes: six chunk-parallel launches on mma.sync) and
-``csrc/ssd_scan_bwd.cu`` (two kernels, scalar FMAs; either forward's
-states).  The tensor-core sources share ``csrc/mma_common.cuh``.  Each
-library is built with ``nvcc`` for ``sm_90a`` at first use and bound
-through ctypes.
+(head, batch), and carries the state across chunks in shared memory
+(float32 or bfloat16; N, P up to 128 where the state fits; any other
+shape on its head-tiled kernel, one CTA per (64 P columns, head, batch),
+after a launch that writes seg into a scratch).  The tensor-core kernels
+(bfloat16, N and P multiples of 16) split the scan into four
+chunk-parallel launches: C B^T per group, chunk states, state passing,
+chunk outputs.  Both routes keep each chunk's incoming state when asked
+(training: the scalar kernel writes them in f32, the tensor-core route's
+state pass already holds them as a bf16 hi + lo pair), and two backward
+libraries read them (no Pallas counterpart: the JAX package
+differentiates its jnp ``ssd_chunked``): ``csrc/ssd_scan_bwd_tc.cu``
+(bfloat16, the tensor-core forward's shapes: six chunk-parallel launches
+on mma.sync) and ``csrc/ssd_scan_bwd.cu`` (two kernels, scalar FMAs, or
+six head-tiled ones at any shape; either forward's states).  The
+tensor-core sources share ``csrc/mma_common.cuh``.  Each library is built
+with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.kernels.build import load_library
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "ssd_scan.cu",)
+#: what the scalar sources include: the head-tiled kernels' seg launch
+HEADERS = (CSRC / "ssd_seg.cuh",)
 SOURCES_TC = (CSRC / "ssd_scan_tc.cu",)
 SOURCES_BWD = (CSRC / "ssd_scan_bwd.cu",)
 SOURCES_BWD_TC = (CSRC / "ssd_scan_bwd_tc.cu",)
@@ -49,26 +53,33 @@ _FNS = {}
 
 def library() -> ctypes.CDLL:
     """Build (once) and load the kernel's shared library."""
-    lib = load_library("ssd_scan", SOURCES)
+    lib = load_library("ssd_scan", SOURCES, HEADERS)
     if not _FNS:
         fn = lib.ssd_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.ssd_scan_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 3
-        smem.restype = ctypes.c_int64
-        limit = lib.ssd_scan_smem_limit
-        limit.argtypes = []
-        limit.restype = ctypes.c_int64
-        _FNS.update(launch=fn, smem=smem, limit=limit)
+        work = lib.ssd_scan_work_bytes
+        work.argtypes = [ctypes.c_int] * 6
+        work.restype = ctypes.c_int64
+        _FNS.update(launch=fn, work=work)
     return lib
 
 
-def smem_fits(n: int, p: int, q: int) -> bool:
-    """Whether the kernel's shared memory for (N, P, Q) fits one block."""
+def _work(fn, x, N, chunk):
+    """The scratch a head-tiled launch needs (``fn``: the library's
+    ``*_work_bytes``) as a uint8 tensor, or None for a whole-state one."""
+    B, S, H, P = x.shape
+    n = fn(B, S, H, N, P, chunk)
+    return (torch.empty(n, dtype=torch.uint8, device=x.device) if n
+            else None)
+
+
+def is_wide(n: int, p: int, q: int) -> bool:
+    """Whether the scalar forward takes (N, P, Q) on its head-tiled kernel
+    rather than a whole-state instance."""
     library()
-    return _FNS["smem"](n, p, q) <= _FNS["limit"]()
+    return _FNS["work"](1, q, 1, n, p, q) > 0
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, chunk: int,
@@ -83,10 +94,12 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, y, state, chunk: int,
     library()
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    work = _work(_FNS["work"], x, N, chunk)
     err = _FNS["launch"](
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-        None if states is None else states.data_ptr(), B, S, H, G, N, P,
+        None if states is None else states.data_ptr(),
+        None if work is None else work.data_ptr(), B, S, H, G, N, P,
         chunk, DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -161,27 +174,17 @@ _FNS_BWD = {}
 
 def library_bwd() -> ctypes.CDLL:
     """Build (once) and load the backward kernels' shared library."""
-    lib = load_library("ssd_scan_bwd", SOURCES_BWD)
+    lib = load_library("ssd_scan_bwd", SOURCES_BWD, HEADERS)
     if not _FNS_BWD:
         fn = lib.ssd_scan_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.ssd_scan_bwd_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 3
-        smem.restype = ctypes.c_int64
-        limit = lib.ssd_scan_bwd_smem_limit
-        limit.argtypes = []
-        limit.restype = ctypes.c_int64
-        _FNS_BWD.update(launch=fn, smem=smem, limit=limit)
+        work = lib.ssd_scan_bwd_work_bytes
+        work.argtypes = [ctypes.c_int] * 6
+        work.restype = ctypes.c_int64
+        _FNS_BWD.update(launch=fn, work=work)
     return lib
-
-
-def smem_fits_bwd(n: int, p: int, q: int) -> bool:
-    """Whether the backward kernels' shared memory for (N, P, Q) fits one
-    block."""
-    library_bwd()
-    return _FNS_BWD["smem"](n, p, q) <= _FNS_BWD["limit"]()
 
 
 def _bwd_outputs(x, N, nc):
@@ -197,7 +200,7 @@ def _bwd_outputs(x, N, nc):
 
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int,
                       parts: int = 3, scratch: torch.Tensor = None):
-    """Launch the two scalar backward kernels on the current stream;
+    """Launch the scalar backward kernels on the current stream;
     returns (dx in x's dtype, ddt (B,S,H), dB and dC per head (B,S,H,N),
     dA per (batch, chunk, head) (B,nc,H), all but dx float32).
 
@@ -206,9 +209,10 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int,
     (B,H,nc,N,P), or the tensor-core route's bf16 (B,H,nc,2,N,P) hi and
     lo), ``dfinal`` (B,H,N,P) float32 or None, all contiguous on one CUDA
     device (checked by the caller).  ``parts`` 1 launches the state pass
-    alone, 2 the chunk kernel alone (timing each apart; it reads the
-    ``scratch`` the pass filled), 3 both.  Allocates the outputs and,
-    unless given, the scratch (each chunk's outgoing state's gradient,
+    alone, 2 the chunk kernels alone (timing each apart; they read the
+    ``scratch`` the pass filled), 3 both.  Allocates the outputs, the
+    head-tiled kernels' seg and per-row arrays where they run and, unless
+    given, the scratch (each chunk's outgoing state's gradient,
     (B,H,nc,N,P) float32).  Raises on a launch error."""
     library_bwd()
     B, S, H, P = x.shape
@@ -219,11 +223,13 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dfinal, chunk: int,
         scratch = torch.empty((B, H, nc, N, P), dtype=torch.float32,
                               device=x.device)
     outs = _bwd_outputs(x, N, nc)
+    work = _work(_FNS_BWD["work"], x, N, chunk)
     err = _FNS_BWD["launch"](
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), dy.data_ptr(), states.data_ptr(),
         None if dfinal is None else dfinal.data_ptr(), scratch.data_ptr(),
-        *(t.data_ptr() for t in outs), B, S, H, G, N, P, chunk,
+        *(t.data_ptr() for t in outs),
+        None if work is None else work.data_ptr(), B, S, H, G, N, P, chunk,
         DTYPES[x.dtype], int(hilo), parts,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -113,11 +113,12 @@ ADAMW_B1, ADAMW_B2, ADAMW_EPS = 0.9, 0.95, 1e-8
 
 
 @functools.lru_cache(maxsize=None)
-def jax_train_step(arch, microbatches=1):
+def jax_train_step(arch, microbatches=1, **replace):
     """The JAX package's jitted ``make_train_step`` of ``arch``'s smoke
-    width in float32 (one compilation a module for each microbatch count:
-    the trajectories and the checkpoint tests share it)."""
-    jcfg, cfg = configs(arch)
+    width in float32, ``replace``'s fields replaced (one compilation a
+    module for each microbatch count: the trajectories and the checkpoint
+    tests share it)."""
+    jcfg, cfg = configs(arch, **replace)
     return jax.jit(jax_loop.make_train_step(jcfg, optimizers(cfg)[0],
                                             microbatches=microbatches))
 
@@ -237,17 +238,18 @@ def check_gradients(arch, remat, **replace):
     return want_m, errs
 
 
-def check_trajectory(arch, microbatches, steps=3):
-    """``steps`` train steps of ``arch``'s smoke width in both packages
+def check_trajectory(arch, microbatches, steps=3, **replace):
+    """``steps`` train steps of ``arch``'s smoke width (``replace``'s
+    fields replaced) in both packages
     from identical weights on identical batches: each step's loss, xent,
     aux and grad_norm within METRIC_TOL; then every parameter within
     :func:`adamw_trajectory_bound` of JAX's (AdamW; Adafactor: GRAD_TOL of
     each leaf's largest magnitude) and every optimizer-state leaf within
     GRAD_TOL.  Returns the port's losses."""
-    jcfg, cfg = configs(arch)
+    jcfg, cfg = configs(arch, **replace)
     opt = optimizers(cfg)[1]
     jstate, state = states(jcfg, cfg)
-    jstep = jax_train_step(arch, microbatches)
+    jstep = jax_train_step(arch, microbatches, **replace)
     step = loop.make_train_step(cfg, opt, microbatches=microbatches)
     losses, moments = [], [jax.tree.map(np.asarray, jstate["opt"])]
     for b in batches(cfg, steps):

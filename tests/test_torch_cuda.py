@@ -602,7 +602,7 @@ def _check_flash_backward(card, b, s, h, kv, dk, dv, causal, window, dtype):
     assert torch.equal(out.detach(), serving)
     do = _normal(rng, out.shape, dtype, card)
     sm90 = fops.route_bwd(dtype, dk, dv) == "sm90"
-    assert sm90 == (dtype == torch.bfloat16)
+    assert sm90 == (dtype == torch.bfloat16 and dk <= 256 and dv <= 256)
     before = fops.launches_bwd, fops.launches_bwd_sm90
     got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
     torch.cuda.synchronize()
@@ -691,30 +691,71 @@ def test_ssd_backward_tensor_core_route_matches_plain_version(
                         with_state)
 
 
+#: widths past the scalar kernels' whole-row instances, which their
+#: head-tiled kernels take: ("flash", S, H, KV, Dk, Dv, causal, window,
+#: dtype) and ("ssd", B, S, H, G, P, N, chunk, dtype); float32 flash at D
+#: 256 and the SSD scan at N = P = 128, chunk 256, were refused before
+WIDE_CASES = [
+    ("flash", 64, 2, 2, 256, 256, True, 0, torch.float32),
+    ("flash", 64, 2, 2, 256, 256, True, 0, torch.bfloat16),   # sm90's
+    ("flash", 200, 4, 2, 320, 288, True, 0, torch.float32),
+    ("flash", 200, 4, 2, 320, 288, False, 0, torch.float32),
+    ("flash", 200, 4, 2, 320, 288, True, 64, torch.float32),
+    ("flash", 130, 4, 1, 272, 64, True, 0, torch.float32),
+    ("flash", 130, 4, 4, 272, 64, False, 0, torch.float32),
+    ("flash", 130, 4, 2, 272, 64, True, 50, torch.float32),
+    ("flash", 130, 4, 2, 64, 272, True, 0, torch.bfloat16),   # Dv > 256
+    ("ssd", 1, 256, 2, 1, 128, 128, 256, torch.float32),
+    ("ssd", 1, 192, 2, 2, 160, 192, 96, torch.float32),
+    ("ssd", 1, 128, 2, 1, 200, 144, 64, torch.float32),
+    ("ssd", 2, 250, 4, 2, 144, 200, 100, torch.float32),      # ragged
+    ("ssd", 1, 256, 2, 1, 64, 144, 256, torch.bfloat16),      # N > 128
+]
+
+
 @pytest.mark.cuda
-def test_backward_refuses_what_its_kernels_cannot_take(card):
-    """Widths past the scalar backward kernels' shared memory (float32:
-    flash at D 256, the SSD scan at N = P = 128, chunk 256) raise in the
-    backward pass (nothing falls back to the plain version); in bf16 the
-    tensor-core routes take both."""
-    from repro_torch.kernels.flash_attention import ops as fops
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_backward_takes_widths_past_the_whole_row_kernels(card, case):
+    """The widths the scalar backward kernels once refused (float32 flash
+    at D 256, the SSD scan at N = P = 128, chunk 256) and wider ones run
+    on their head-tiled kernels: one counted backward pass, within BWD_TOL
+    of autograd of the plain version, the same bits twice (nothing falls
+    back to the plain version); bf16 D 256 stays on the tensor-core
+    route."""
+    kind, *shape, dtype = case
+    if kind == "flash":
+        _check_flash_backward(card, 2, *shape, dtype)
+    else:
+        _check_ssd_backward(card, *shape, dtype, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_forward_takes_widths_past_the_whole_row_kernels(card, case):
+    """The same widths' forwards against the plain versions (float32 2e-5
+    flash, 2e-4 SSD; bf16 1e-2), one counted launch."""
+    kind, *shape, dtype = case
+    f32 = dtype == torch.float32
+    if kind == "flash":
+        dk, dv = shape[3:5]
+        _check_flash(card, *shape, dtype, 2e-5 if f32 else 1e-2,
+                     sm90=dk <= 256 and dv <= 256 and not f32)
+        return
     from repro_torch.kernels.ssd_scan import ops as sops
-    rng = np.random.default_rng(0)
-    q = _normal(rng, (1, 64, 2, 256), torch.float32, card).requires_grad_()
-    out = fops.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="shared"):
-        out.sum().backward()
-    args = [t.requires_grad_() for t in _ssd_inputs(
-        rng, 1, 256, 2, 1, 128, 128, torch.float32, card)]
-    y, _ = sops.ssd_scan(*args, chunk=256)
-    with pytest.raises(ValueError, match="shared"):
-        y.float().sum().backward()
-    q = _normal(rng, (1, 64, 2, 256), torch.bfloat16, card).requires_grad_()
-    before = fops.launches_bwd_sm90
-    fops.flash_attention(q, q, q).float().sum().backward()
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    b, s, h, g, p, n, chunk = shape
+    args = _ssd_inputs(np.random.default_rng(s + n), b, s, h, g, p, n, dtype,
+                       card)
+    before = sops.launches
+    y, state = sops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert fops.launches_bwd_sm90 == before + 1
-    assert torch.isfinite(q.grad.float()).all() and q.grad.abs().max() > 0
+    assert sops.launches == before + 1
+    yw, sw = ssd_scan_ref(*args, chunk=chunk)
+    tol = 2e-4 if f32 else 1e-2
+    torch.testing.assert_close(y.float(), yw.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, sw, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -194,6 +194,7 @@ def test_decomposed_scan_matches_pallas_kernel(s, chunk):
     (torch.bfloat16, 8, 64, 256, "scalar"),     # N not a multiple of 16
     (torch.bfloat16, 128, 40, 256, "scalar"),   # P not a multiple of 16
     (torch.bfloat16, 128, 64, 16, "scalar"),    # chunk not a multiple of 64
+    (torch.bfloat16, 256, 64, 64, "scalar"),    # N above 128 (head-tiled)
 ])
 def test_route_picks_the_kernel(dtype, n, p, chunk, want):
     assert ops.route(dtype, n, p, chunk) == want
@@ -201,7 +202,6 @@ def test_route_picks_the_kernel(dtype, n, p, chunk, want):
 
 @pytest.mark.parametrize("dtype,n,p,chunk,exc", [
     (torch.float16, 64, 64, 64, TypeError),
-    (torch.bfloat16, 256, 64, 64, ValueError),
     (torch.bfloat16, 64, 64, 0, ValueError),
 ])
 def test_route_refuses_what_no_kernel_takes(dtype, n, p, chunk, exc):

@@ -17,11 +17,16 @@ card: checked, then timed route by route and kernel by kernel.
    back-to-back launches, in turns (scalar, tensor-core, tensor-core,
    scalar); flash beside SDPA's backward (autograd of
    ``scaled_dot_product_attention``, not used by the port).
+4. ``--plain`` in place of 1-3: the plain backward (autograd of
+   ``flash_attention_ref``, bf16) at each family's training shape of
+   ``chip_smoke.py`` (FLASH_TRAIN_FAMILIES), one run to warm up and one
+   timed, as the smoke times it at its own shapes (which leave these out
+   for its time limit).
 
 Prints the card, then one JSON line per measurement (also written to
 ``chiprun_out/bwd_tc_profile.json``).
 
-    python3 tools/bwd_tc_profile.py [--check] [--skip-scalar]
+    python3 tools/bwd_tc_profile.py [--check] [--skip-scalar] [--plain]
 
 Needs a CUDA card and nvcc; imports neither JAX nor the JAX package.
 """
@@ -287,11 +292,32 @@ def time_ssd(rows: list, gen, scalar: bool):
                  for name, p in parts.items()})
 
 
+def time_plain(rows: list, gen):
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import FLASH_TRAIN_FAMILIES
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    bf16 = torch.bfloat16
+    for fam, (arch, shape) in FLASH_TRAIN_FAMILIES.items():
+        q, k, v = flash_inputs(gen, dtype=bf16, **shape)
+        do = normal(gen, (shape["b"], shape["s"], shape["h"], shape["dv"]),
+                    bf16)
+        emit(rows, phase="time", kernel="flash_attention_bwd_ref",
+             family=fam, arch=arch, shape=shape,
+             ms=event_ms(lambda: flash_attention_bwd_ref(
+                 q, k, v, do, causal=shape["causal"],
+                 window=shape["window"]), 1, warm=1))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--skip-scalar", action="store_true",
                     help="time the tensor-core routes alone")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the plain backward at each family's shape")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -302,13 +328,17 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     print(f"card: {torch.cuda.get_device_name(0)}; {card}", flush=True)
     rows = []
+    bad = []
     try:
-        build(rows)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        bad = check(rows, gen) if args.check else []
-        time_flash(rows, gen, FLASH_TRAIN, not args.skip_scalar)
-        time_flash(rows, gen, FLASH_WINDOW, False)
-        time_ssd(rows, gen, not args.skip_scalar)
+        if args.plain:
+            time_plain(rows, gen)
+        else:
+            build(rows)
+            bad = check(rows, gen) if args.check else []
+            time_flash(rows, gen, FLASH_TRAIN, not args.skip_scalar)
+            time_flash(rows, gen, FLASH_WINDOW, False)
+            time_ssd(rows, gen, not args.skip_scalar)
     finally:
         OUT.parent.mkdir(parents=True, exist_ok=True)
         OUT.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
